@@ -26,6 +26,10 @@ from tpu_msm_torch import constants as tc
 from tpu_msm_torch.cuzk import kernels as tk
 from tpu_msm_torch.cuzk.pipeline_cuda import bucket_counts
 
+# The tensors here are tiny: more intra-op threads only make parallel
+# test workers fight for the cores, many times slower than one thread.
+torch.set_num_threads(1)
+
 TINY_J, TINY_T = jc.TINY62, tc.TINY62
 S12_J, S12_T = jc.BN254_S12, tc.BN254_S12
 

@@ -15,6 +15,10 @@ from tpu_msm_torch.reference import curve as ref
 from tpu_msm_torch.utils.limbs_conversion import (planar_signed_to_ints_modp,
                                                   points_to_planar)
 
+# The tensors here are tiny: more intra-op threads only make parallel
+# test workers fight for the cores, many times slower than one thread.
+torch.set_num_threads(1)
+
 
 def mont_buckets(curve, pts, shape, kill):
     """Affine points -> (3, L, *shape) int16 Montgomery projective buckets

@@ -28,6 +28,10 @@ from tpu_msm_torch.cuzk import kernels
 from tpu_msm_torch.cuzk.pipeline import get_pipeline, tpu_variable_base_msm
 from tpu_msm_torch.reference import curve as ref
 
+# The tensors here are tiny: more intra-op threads only make parallel
+# test workers fight for the cores, many times slower than one thread.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 # one small schedule for the edge cases: W = 32 windows of s = 8, C = 32
@@ -200,8 +204,9 @@ def test_convert_from_jax():
         pipe = get_pipeline(cfg, "cpu")
         got = pipe.horner(pipe.window_sums(tx, ty, th))
         assert ref.jac_eq(c, got, oracle(c, pts, scalars))
-    with pytest.raises(NotImplementedError):
-        convert.config_from_fields({**dataclasses.asdict(jcfg), "glv": True})
+    glv = convert.config_from_fields({**dataclasses.asdict(jcfg),
+                                      "glv": True})
+    assert glv == dataclasses.replace(CFG, glv=True)
     with pytest.raises(ValueError):
         convert.config_from_fields({"curve": "bn254_s12", "bogus": 1})
     with pytest.raises(ValueError):
@@ -230,7 +235,12 @@ def test_import_boundary_no_jax_no_tpu_msm():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, _ = out.stdout.split(" ", 1)
-    assert int(n) >= 12, out.stdout
+    assert int(n) >= 18, out.stdout
+    mods = {p.relative_to(REPO).with_suffix("").as_posix().replace("/", ".")
+            for p in (REPO / "tpu_msm_torch").rglob("*.py")}
+    assert {"tpu_msm_torch.glv", "tpu_msm_torch.cuzk.glv",
+            "tpu_msm_torch.cuzk.pbpr", "tpu_msm_torch.ops.inverse",
+            "tpu_msm_torch.ops.limbs", "tpu_msm_torch.ops.barrett"} <= mods
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
@@ -253,3 +263,22 @@ def test_wrappers_refuse_other_devices():
         kernels.encode_mont(x, TINY62)
     with pytest.raises(ValueError):
         get_pipeline(CFG, "meta")
+    p = torch.empty((3, 6, 2, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        kernels.pdbl_batch(p, TINY62)
+    with pytest.raises(ValueError, match="meta"):
+        kernels.pbpr_stage1(p, TINY62, 4)
+    with pytest.raises(ValueError, match="meta"):
+        kernels.globalize(p, p[:, :, 0], TINY62)
+    # a mix of devices is refused too, never sent to the plain version
+    with pytest.raises(ValueError):
+        kernels.globalize(torch.zeros((3, 6, 2, 8), dtype=torch.int32),
+                          p[:, :, 0], TINY62)
+
+
+def test_glv_default_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts, scalars = ref.gen_points_scalars(BN254_S12, 4, seed=82)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpu_variable_base_msm(pts, scalars,
+                              config=dataclasses.replace(CFG, glv=True))

@@ -13,6 +13,10 @@ from tpu_msm.ops import rows as jrows
 from tpu_msm_torch import constants as tc
 from tpu_msm_torch.ops import rows as trows
 
+# The tensors here are tiny: more intra-op threads only make parallel
+# test workers fight for the cores, many times slower than one thread.
+torch.set_num_threads(1)
+
 PROFILES = ["tiny62", "bn254_s12", "bn254_s13"]
 BATCH = (4, 8)
 

@@ -13,6 +13,8 @@ runs the kernels' plain PyTorch versions.
 from .config import MSMConfig, default_config
 from .constants import BN254_S12, CurveParams
 from .cuzk.pipeline import MSMPipeline, get_pipeline, tpu_variable_base_msm
+from .ops.inverse import batch_inverse, to_affine
 
 __all__ = ["MSMConfig", "default_config", "BN254_S12", "CurveParams",
-           "MSMPipeline", "get_pipeline", "tpu_variable_base_msm"]
+           "MSMPipeline", "get_pipeline", "tpu_variable_base_msm",
+           "batch_inverse", "to_affine"]

@@ -2,10 +2,9 @@
 
 The port's own `MSMConfig`: the fields of `tpu_msm/config.py` that shape
 the computation (curve, window size, columns, PBPR threads, window group,
-points per pass), with the same validation, derived properties and
+points per pass, GLV), with the same validation, derived properties and
 default schedule. The JAX package's trace-time choices (backend, unroll,
-dbl_mode, group_loop, the autotune cache) have no counterpart here; GLV
-is a later slice of the port.
+dbl_mode, group_loop, the autotune cache) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,6 +26,10 @@ class MSMConfig:
     subtask_group (Wg): windows per scan launch.
     max_points_per_pass: larger inputs run as several device passes whose
         window sums add on the host.
+    glv: split every scalar over the curve's cube-root-of-unity
+        endomorphism (`glv.py`, `cuzk/glv.py`), so that the pipeline runs
+        2n points through about half the windows. Off by default, as in
+        the JAX package.
     """
 
     curve: CurveParams = BN254_S12
@@ -35,6 +38,7 @@ class MSMConfig:
     pbpr_threads: int = 128
     subtask_group: int = 4
     max_points_per_pass: int = 1 << 23
+    glv: bool = False
 
     def __post_init__(self):
         s = self.window_size
@@ -48,15 +52,34 @@ class MSMConfig:
             raise ValueError("pbpr_threads must divide the bucket count")
         # top window must not overflow under signed-digit carry
         top_bits = self.effective_scalar_bits - s * (self.num_windows - 1)
-        if top_bits >= s:
+        if top_bits >= s and not self.glv:
+            # (the GLV window formula below keeps top_bits < s)
             raise ValueError("window_size incompatible with scalar width")
 
     @property
+    def glv_params(self):
+        """The derived GLV constants of this curve (`glv.derive`)."""
+        from . import glv
+        return glv.derive(self.curve)
+
+    @property
     def effective_scalar_bits(self) -> int:
+        """Bits the window decomposition must cover: the scalar modulus
+        width, or under GLV the bound of the split magnitudes plus one
+        headroom bit (|k_i| <= max_abs < 2^max_bits = 2^(eff-1), which the
+        carry of the signed digits needs)."""
+        if self.glv:
+            return self.glv_params.max_bits + 1
         return self.curve.scalar_bits
 
     @property
     def num_windows(self) -> int:
+        """ceil(scalar_bits / s). Under GLV: eff // s + 1, the same except
+        where s divides eff; there the extra window takes the signed-digit
+        carry out of a full top window (the magnitudes are bounded by
+        2^(eff-1) only, not by a modulus with known top bits)."""
+        if self.glv:
+            return self.effective_scalar_bits // self.window_size + 1
         return -(-self.curve.scalar_bits // self.window_size)
 
     @property

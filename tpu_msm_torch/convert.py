@@ -22,7 +22,7 @@ from .cuzk.pipeline import resolve_device
 # JAX trace-time choices with no counterpart in the port.
 _JAX_ONLY = {"backend", "unroll", "dbl_mode", "group_loop"}
 _FIELDS = ("window_size", "columns", "pbpr_threads", "subtask_group",
-           "max_points_per_pass")
+           "max_points_per_pass", "glv")
 
 
 def _curve_name(curve) -> str:
@@ -35,11 +35,9 @@ def _curve_name(curve) -> str:
 
 def config_from_fields(fields: Mapping) -> MSMConfig:
     """Port MSMConfig from the field values of a JAX MSMConfig."""
-    unknown = set(fields) - set(_FIELDS) - _JAX_ONLY - {"curve", "glv"}
+    unknown = set(fields) - set(_FIELDS) - _JAX_ONLY - {"curve"}
     if unknown:
         raise ValueError(f"unknown MSMConfig fields: {sorted(unknown)}")
-    if fields.get("glv"):
-        raise NotImplementedError("GLV is not ported yet")
     name = _curve_name(fields.get("curve", "bn254_s12"))
     if name not in CURVES:
         raise ValueError(f"curve {name!r} is not in the port's profiles")

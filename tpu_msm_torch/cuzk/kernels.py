@@ -1,4 +1,4 @@
-"""The six MSM kernels of the main path: one wrapper each.
+"""The nine MSM kernels: one wrapper each.
 
 Every wrapper has a plain PyTorch version built from `ops/rows.py`
 (`<name>_plain`), the launch of its hand-written CUDA kernel from
@@ -15,6 +15,14 @@ what its design does about that.
   col_prefix         _colprefix_kernel / col_prefix       csrc/col_prefix.cu
   padd_batch         _padd_kernel / padd_batch            csrc/padd_batch.cu
   pbpr_full          _pbpr_full_kernel / pbpr_full        csrc/pbpr_full.cu
+  pdbl_batch         _pdbl_kernel / pdbl_batch            csrc/pdbl_batch.cu
+  pbpr_stage1        _pbpr_kernel / pbpr_stage1           csrc/pbpr_stage1.cu
+  globalize          _globalize_kernel / globalize        csrc/globalize.cu
+
+The first six are the main path (`pipeline_cuda.windows_device`);
+`pbpr_stage1` and `pdbl_batch` serve the two-stage bucket reduction
+(`cuzk/pbpr.py`), and `globalize` is the full-stream form of the G = T + S
+step that the main path takes only at the bucket-region ends.
 
 `psub_batch` is `padd_batch` of `pneg_stacked(q)`; `pneg_stacked` and
 `inf_stacked` stay plain torch, as the JAX package keeps them in XLA.
@@ -34,13 +42,16 @@ from ..ops import rows
 
 I16 = torch.int16
 I32 = torch.int32
+# Element widths the dtype-templated kernels are instantiated for.
+_BITS = {I16: 16, I32: 32}
 
 # Profiles the CUDA library is instantiated for: (num_limbs, limb bits).
 CUDA_PROFILES = {(22, 12), (6, 12)}
 
 LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "prefix_scan", "col_prefix", "padd_batch",
-                                 "pbpr_full")}
+                                 "pbpr_full", "pdbl_batch", "pbpr_stage1",
+                                 "globalize")}
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 
@@ -325,14 +336,13 @@ def padd_batch(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
     if not _on_cuda("padd_batch", p, q):
         return padd_batch_plain(p, q, curve, out_dtype)
     L, w = _profile("padd_batch", curve)
-    bits = {I16: 16, I32: 32}
-    if p.dtype not in bits or out_dtype not in bits:
+    if p.dtype not in _BITS or out_dtype not in _BITS:
         raise ValueError("padd_batch: dtypes must be int16 or int32")
     p, q = p.contiguous(), q.contiguous()
     F = p[0, 0].numel()
     out = torch.empty(p.shape, dtype=out_dtype, device=p.device)
     rc = _build.library().msm_padd_batch(
-        L, w, bits[p.dtype], bits[out_dtype], p.data_ptr(), q.data_ptr(),
+        L, w, _BITS[p.dtype], _BITS[out_dtype], p.data_ptr(), q.data_ptr(),
         out.data_ptr(), F,
         _consts(curve, p.device).data_ptr(), _stream(p))
     _check("padd_batch", rc)
@@ -350,12 +360,19 @@ def psub_batch(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
 # ---------------------------------------------------------------------------
 
 
-def pbpr_full_plain(buckets: torch.Tensor, curve: CurveParams,
-                    threads: int) -> torch.Tensor:
+def _pbpr_threads(name: str, B: int, threads: int) -> int:
+    T = min(threads, B)
+    if T & (T - 1) or B % T:
+        raise ValueError(f"{name}: threads must be a power of two dividing "
+                         "the bucket count")
+    return T
+
+
+def pbpr_stage1_plain(buckets: torch.Tensor, curve: CurveParams,
+                      threads: int) -> Tuple[torch.Tensor, torch.Tensor]:
     _, L, Wp, B = buckets.shape
     T = min(threads, B)
     Bt = B // T
-    bits = max(T.bit_length() - 1, 0)
     slices = buckets.reshape(3, L, Wp, T, Bt)
     inf = inf_stacked(curve, (Wp, T), buckets.device)
     m, g = inf, inf
@@ -363,6 +380,17 @@ def pbpr_full_plain(buckets: torch.Tensor, curve: CurveParams,
         m = _stack(rows.padd_rows(_unstack(m), _unstack(slices[..., Bt - 1 - j]),
                                   curve))
         g = _stack(rows.padd_rows(_unstack(g), _unstack(m), curve))
+    return m, g
+
+
+def pbpr_full_plain(buckets: torch.Tensor, curve: CurveParams,
+                    threads: int) -> torch.Tensor:
+    _, L, Wp, B = buckets.shape
+    T = min(threads, B)
+    Bt = B // T
+    bits = max(T.bit_length() - 1, 0)
+    inf = inf_stacked(curve, (Wp, T), buckets.device)
+    m, g = pbpr_stage1_plain(buckets, curve, threads)
     mg = torch.cat([m, g], dim=2)                    # (3, L, 2Wp, T)
     inf2 = torch.cat([inf, inf], dim=2)
 
@@ -390,10 +418,7 @@ def pbpr_full(buckets: torch.Tensor, curve: CurveParams,
     """Whole PBPR: (3, L, Wp, B) int16 buckets (slot b = multiplier b+1)
     -> (3, L, Wp) int32 window sums G_w = sum_b (b+1) * bucket_b."""
     _, _, Wp, B = buckets.shape
-    T = min(threads, B)
-    if T & (T - 1) or B % T:
-        raise ValueError("pbpr_full: threads must be a power of two "
-                         "dividing the bucket count")
+    T = _pbpr_threads("pbpr_full", B, threads)
     if not _on_cuda("pbpr_full", buckets):
         return pbpr_full_plain(buckets, curve, threads)
     L, w = _profile("pbpr_full", curve)
@@ -407,4 +432,100 @@ def pbpr_full(buckets: torch.Tensor, curve: CurveParams,
         L, w, buckets.data_ptr(), out.data_ptr(), scratch.data_ptr(), Wp, B, T,
         _consts(curve, buckets.device).data_ptr(), _stream(buckets))
     _check("pbpr_full", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. Batched complete doubling
+# ---------------------------------------------------------------------------
+
+
+def pdbl_batch_plain(p: torch.Tensor, curve: CurveParams) -> torch.Tensor:
+    return _stack(rows.pdbl_rows(_unstack(p), curve))
+
+
+def pdbl_batch(p: torch.Tensor, curve: CurveParams) -> torch.Tensor:
+    """Complete projective doubling on a stacked (3, L, *batch) int32 lazy
+    point batch (values < 4p); returns the same shape in int32."""
+    if not _on_cuda("pdbl_batch", p):
+        return pdbl_batch_plain(p, curve)
+    L, w = _profile("pdbl_batch", curve)
+    if p.dtype != I32 or p.dim() < 2:
+        raise ValueError("pdbl_batch: expected a (3, L, *batch) int32 tensor, "
+                         f"got {p.dtype} {tuple(p.shape)}")
+    p = p.contiguous()
+    out = torch.empty_like(p)
+    rc = _build.library().msm_pdbl_batch(
+        L, w, p.data_ptr(), out.data_ptr(), p[0, 0].numel(),
+        _consts(curve, p.device).data_ptr(), _stream(p))
+    _check("pdbl_batch", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. Bucket reduction, stage 1 alone
+# ---------------------------------------------------------------------------
+
+
+def pbpr_stage1(buckets: torch.Tensor, curve: CurveParams,
+                threads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cuZK Alg. 4 stage 1: (3, L, Wp, B) int16 or int32 buckets (slot b =
+    multiplier b+1) -> (m, g), each (3, L, Wp, T) int32, T = min(threads,
+    B). Slice t holds buckets t*Bt .. t*Bt + Bt-1 (Bt = B / T), walked from
+    the top down: m_t is the slice sum, g_t = sum_j (j+1) * bucket_{t,j}."""
+    _, _, Wp, B = buckets.shape
+    T = _pbpr_threads("pbpr_stage1", B, threads)
+    if not _on_cuda("pbpr_stage1", buckets):
+        return pbpr_stage1_plain(buckets, curve, threads)
+    L, w = _profile("pbpr_stage1", curve)
+    if buckets.dtype not in _BITS or buckets.dim() != 4:
+        raise ValueError("pbpr_stage1: expected a 4-d int16 or int32 tensor, "
+                         f"got {buckets.dtype} {tuple(buckets.shape)}")
+    buckets = buckets.contiguous()
+    m = torch.empty((3, L, Wp, T), dtype=I32, device=buckets.device)
+    g = torch.empty_like(m)
+    rc = _build.library().msm_pbpr_stage1(
+        L, w, _BITS[buckets.dtype], buckets.data_ptr(), m.data_ptr(),
+        g.data_ptr(), Wp, B, T,
+        _consts(curve, buckets.device).data_ptr(), _stream(buckets))
+    _check("pbpr_stage1", rc)
+    return m, g
+
+
+# ---------------------------------------------------------------------------
+# 9. Full-stream globalisation G = T + S
+# ---------------------------------------------------------------------------
+
+
+def globalize_plain(tbuf: torch.Tensor, s: torch.Tensor, curve: CurveParams,
+                    out_dtype=I32) -> torch.Tensor:
+    return padd_batch_plain(tbuf, s[:, :, None].expand_as(tbuf), curve,
+                            out_dtype)
+
+
+def globalize(tbuf: torch.Tensor, s: torch.Tensor, curve: CurveParams,
+              out_dtype=I32) -> torch.Tensor:
+    """G[:, :, r, f] = T[:, :, r, f] + S[:, :, f]: one complete add per
+    stream position, the per-lane exclusive column prefix broadcast over
+    the R rows. tbuf: (3, L, R, F) from `prefix_scan`; s: (3, L, F), the
+    flattened (3, L, Wg, C) of `col_prefix`; both int16 or both int32.
+    Returns (3, L, R, F) in `out_dtype`."""
+    if (tbuf.dim() != 4 or s.dim() != 3 or s.shape != tbuf.shape[:2]
+            + tbuf.shape[3:] or s.dtype != tbuf.dtype):
+        raise ValueError("globalize: expected T (3, L, R, F) and S (3, L, F) "
+                         f"of one dtype, got {tuple(tbuf.shape)} {tbuf.dtype} "
+                         f"and {tuple(s.shape)} {s.dtype}")
+    if not _on_cuda("globalize", tbuf, s):
+        return globalize_plain(tbuf, s, curve, out_dtype)
+    L, w = _profile("globalize", curve)
+    if tbuf.dtype not in _BITS or out_dtype not in _BITS:
+        raise ValueError("globalize: dtypes must be int16 or int32")
+    tbuf, s = tbuf.contiguous(), s.contiguous()
+    _, _, R, F = tbuf.shape
+    out = torch.empty(tbuf.shape, dtype=out_dtype, device=tbuf.device)
+    rc = _build.library().msm_globalize(
+        L, w, _BITS[tbuf.dtype], _BITS[out_dtype], tbuf.data_ptr(),
+        s.data_ptr(), out.data_ptr(), R * F, F,
+        _consts(curve, tbuf.device).data_ptr(), _stream(tbuf))
+    _check("globalize", rc)
     return out

@@ -109,7 +109,9 @@ class MSMPipeline:
         pass runs, and results are read back after every pass has been
         queued."""
         n = xs.shape[-1]
-        chunk = self.config.max_points_per_pass
+        # GLV doubles the stream lanes of every input point
+        chunk = self.config.max_points_per_pass // (
+            2 if self.config.glv else 1)
         spans = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
 
         def stage(span):

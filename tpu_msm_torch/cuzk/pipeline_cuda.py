@@ -2,8 +2,10 @@
 `tpu_msm/cuzk/pipeline_pallas.py` (`_windows_device_pallas`).
 
   Stage 1  widen the wire dtypes to int32; encode_mont on x and y;
-           decompose_digits into int16 signed digits; pad the windows
-           to Wp with zero digits.
+           decompose_digits into int16 signed digits (under GLV,
+           `glv.apply_glv`: the doubled stream P ++ phi(P) and the
+           digits of |k1| ++ |k2|); pad the windows to Wp with zero
+           digits.
   Stage 2  sign-packed keys |d| << 1 | sign and ONE torch.sort over all
            windows; the payload idx << 1 | sign rides the permutation.
            Every bucket boundary cnt[w, j] = #(keys < 2(j+1)) comes from
@@ -34,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..config import MSMConfig
+from . import glv as glv_dev
 from . import kernels
 
 I16 = torch.int16
@@ -49,18 +52,35 @@ def bucket_counts(skeys2: torch.Tensor, B: int) -> torch.Tensor:
                               ).to(I32)
 
 
+def boundary_positions(skeys2: torch.Tensor, B: int, Wg: int, C: int, R: int):
+    """Where each bucket region of each window ends in the scan output.
+
+    From the (Wp, n) sorted keys: cnt (Wp, B+1), the `bucket_counts`; f,
+    the lane of the last position below each boundary; and jt, that
+    position's element r * F + f of the flattened (3, L, R * F) scan
+    output. Both are clamped to position 0 where cnt == 0."""
+    Wp = skeys2.shape[0]
+    cnt = bucket_counts(skeys2, B)
+    p = (cnt - 1).clamp(min=0)
+    f = (torch.arange(Wp, dtype=I32, device=skeys2.device) % Wg)[:, None] * C \
+        + p // R
+    return cnt, f, (p % R) * (Wg * C) + f
+
+
 def windows_device(xs: torch.Tensor, ys: torch.Tensor,
                    halfwords: torch.Tensor, cfg: MSMConfig) -> torch.Tensor:
     """Planar inputs on one device -> (3, L, Wp) int32 window sums.
 
     xs, ys: (L, n) canonical standard-form limbs (int16 or int32).
     halfwords: (H, n) 16-bit scalar halfwords (uint16 or int32), with the
-        two zero pad rows of `MSMPipeline.pack`."""
+        two zero pad rows of `MSMPipeline.pack`.
+    Under cfg.glv the stream has 2n lanes, and C, R, F and the row table
+    follow it."""
     curve = cfg.curve
     L = curve.num_limbs
     dev = xs.device
     xs, ys, hw = xs.to(I32), ys.to(I32), halfwords.to(I32)
-    n = xs.shape[-1]
+    n = (2 if cfg.glv else 1) * xs.shape[-1]       # stream lanes
     W, Wg, G = cfg.num_windows, cfg.subtask_group, cfg.num_groups
     B, Wp = cfg.half_columns, cfg.padded_windows
     C = min(cfg.columns, n)
@@ -72,7 +92,11 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     # ---- stage 1 ----
     xm = kernels.encode_mont(xs.contiguous(), curve)
     ym = kernels.encode_mont(ys.contiguous(), curve)
-    digits = kernels.decompose_digits(hw.contiguous(), cfg.window_size, W)
+    if cfg.glv:
+        xm, ym, digits = glv_dev.apply_glv(xm, ym, hw, cfg)
+    else:
+        digits = kernels.decompose_digits(hw.contiguous(), cfg.window_size,
+                                          W)
     if Wp > W:
         digits = torch.cat([digits, digits.new_zeros((Wp - W, n))])
 
@@ -81,11 +105,7 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     keys2 = (d32.abs() << 1) | (d32 < 0).to(I32)
     skeys2, perm = torch.sort(keys2, dim=-1)
     pay_all = (perm.to(I32) << 1) | (skeys2 & 1)
-    cnt_all = bucket_counts(skeys2, B)                        # (Wp, B+1)
-    p_all = (cnt_all - 1).clamp(min=0)
-    f_all = (torch.arange(Wp, dtype=I32, device=dev) % Wg)[:, None] * C \
-        + p_all // R
-    jt_all = (p_all % R) * F + f_all
+    cnt_all, f_all, jt_all = boundary_positions(skeys2, B, Wg, C, R)
     pts_rows = torch.cat([xm, ym]).to(I16).T.contiguous()     # (n, 2L)
     inf_b1 = kernels.inf_stacked(curve, (Wg, 1), dev)
 
