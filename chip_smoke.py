@@ -14,7 +14,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      `pbpr_stage1` on the buckets `pbpr_full` received; `pdbl_batch` on
      one (3, L, Wg, B+1) batch and on the (3, L, Wp) sum that
      `bucket_reduce` doubles; `globalize` on the first window group's
-     scan output and column prefix;
+     scan output and column prefix; `prefix_scan` once more for every
+     number of threads per lane its launcher can pick, bit-identical to
+     the first and timed (`[scan-G]`); and, at 2^16, both redesigned
+     kernels at shapes the two sizes do not reach (`[edge]`): `col_prefix`
+     at (Wg, C) = (1, 1), (3, 32), (4, 2048) with half the columns at
+     infinity, equal neighbours and a column followed by its negative,
+     and (16, 8192), more columns than resident threads; `prefix_scan` at
+     R = 1 and at 111 lanes with a point twice in a row and a point
+     followed by its negative, for every number of threads per lane;
   4. the two-stage reduction path: `pbpr.bucket_reduce` on the same
      buckets, equal in the group to `pbpr_full` window by window, its
      launch counts reset before and read after;
@@ -27,7 +35,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      window_sums + host Horner on staged inputs, h2d timed apart;
   7. the GLV path: the same call with the default schedule and glv=True,
      on the same inputs, EXACT against the same oracle, counted and timed
-     the same way, and `apply_glv` timed alone;
+     the same way, and `apply_glv` timed alone; then (`[schedule]`) the
+     largest size once more under SCHEDULE, a window group of 16 that
+     gives the scan 131,072 lanes and `col_prefix` several columns a
+     thread, EXACT, recorded and not made the default; and (`[latency]`)
+     one `padd_batch` and one scan step on a single warp of 32 lanes, from
+     which the depth floors of `col_prefix` and `prefix_scan` follow;
+     and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes,
+     with four lane counts about the two edges of the launcher's rule,
+     for every number of threads per lane;
   8. affine output: `to_affine` on the window sums of the 2^16 runs
      (without GLV, and with it, where two pad windows are at infinity)
      against the host decode;
@@ -39,6 +55,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,7 +67,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_msm_torch import _build, to_affine  # noqa: E402
-from tpu_msm_torch.config import default_config  # noqa: E402
+from tpu_msm_torch.config import MSMConfig, default_config  # noqa: E402
 from tpu_msm_torch.constants import BN254_S12  # noqa: E402
 from tpu_msm_torch.cuzk import glv as glv_dev  # noqa: E402
 from tpu_msm_torch.cuzk import kernels  # noqa: E402
@@ -67,6 +84,17 @@ DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
         "padd_batch", "pbpr_full")
 KERNELS = MAIN + ("pdbl_batch", "pbpr_stage1", "globalize")
+# (Wg, C, R) of the scan's lane sweep. On 132 SMs the launcher's rule
+# changes at 5,280 and 8,448 lanes: two lane counts about each edge and
+# two between them.
+LANE_SHAPES = ((1, 2048, 128), (1, 4096, 128), (1, 5120, 128),
+               (1, 5632, 128), (1, 6656, 128), (1, 7424, 128),
+               (1, 8192, 128), (1, 8448, 128), (1, 8704, 128),
+               (2, 8192, 64), (16, 8192, 16))
+# A schedule for the largest size that the card's memory allows and the
+# default schedule does not use: all 16 windows in one group.
+SCHEDULE = dict(window_size=16, columns=8192, pbpr_threads=512,
+                subtask_group=16, max_points_per_pass=1 << 22)
 # name: (source, the TPU kernel it replaces, the path that launches it)
 SOURCES = {
     "encode_mont": ("tpu_msm_torch/csrc/encode_mont.cu",
@@ -158,6 +186,23 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def queued_ms(fn, reps: int, blocker) -> float:
+    """Mean device time of fn over reps launches that wait in the queue
+    behind `blocker`, a call that keeps the card busy for longer than the
+    host needs to enqueue them: for a kernel shorter than its launch."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    blocker()
     s.record()
     for _ in range(reps):
         fn()
@@ -285,6 +330,137 @@ def check_main_kernels(seen: dict, tag: str, card: str, reps: int) -> dict:
     return results
 
 
+def scan_sweep(seen: dict, tag: str, card: str, reps: int) -> dict:
+    """`prefix_scan` on the captured inputs for every number of threads
+    per lane: bit-identical to the captured output, and timed."""
+    _, args, kw, (want,) = seen["prefix_scan"]
+    kernels.prefix_scan(*args, **kw)
+    picked = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
+    times = {}
+    for G in kernels.SCAN_THREADS_PER_LANE:
+        call = lambda: kernels.prefix_scan(*args, **kw, _threads_per_lane=G)
+        if not torch.equal(call(), want):
+            raise AssertionError(f"prefix_scan at {tag}: {G} threads per "
+                                 "lane differ from the main path's output")
+        times[G] = cuda_ms(call, reps)
+    print(f"[scan-G] {tag} R={want.shape[2]} lanes={want.shape[3]}: ms by "
+          "threads per lane "
+          + ", ".join(f"{G}: {t:.4f}" for G, t in times.items())
+          + f"; the wrapper launched {picked}; all bit-identical [{card}]",
+          flush=True)
+    return dict(picked=picked, ms=times)
+
+
+def same_as_plain(label: str, name: str, args, kw=None) -> None:
+    kw = kw or {}
+    got = getattr(kernels, name)(*args, **kw)
+    want = getattr(kernels, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"[edge] {label}: kernel differs from its "
+                             "plain version")
+
+
+def edge_shapes(seen: dict, card: str) -> None:
+    """Both redesigned kernels against their plain versions at shapes the
+    two sizes do not reach, on the real points of the captured run."""
+    L = CURVE.num_limbs
+    coltot = seen["col_prefix"][1][0]                  # (3, L, Wg, C)
+    rng = np.random.default_rng(7)
+    inf = kernels.inf_stacked(CURVE, (), DEVICE).to(torch.int16)
+    done = []
+    for Wg, C in ((1, 1), (3, 32), (4, 2048), (16, 8192)):
+        reps = (1, 1, -(-Wg // coltot.shape[2]), -(-C // coltot.shape[3]))
+        ct = coltot.repeat(*reps)[:, :, :Wg, :C].contiguous()
+        if C >= 8:
+            at_inf = torch.from_numpy(rng.random((Wg, C)) < 0.5).to(DEVICE)
+            ct = torch.where(at_inf, inf[:, :, None, None], ct)
+            ct[..., 3] = ct[..., 2]                    # the add is a doubling
+            ct[..., 5] = kernels.pneg_stacked(ct[..., 4], CURVE)  # sum: inf
+        same_as_plain(f"col_prefix {(Wg, C)}", "col_prefix", (ct, CURVE))
+        blocks, per = kernels.LAUNCHED["col_prefix"].values()
+        ms = cuda_ms(lambda: kernels.col_prefix(ct, CURVE), 3)
+        done.append(f"{(Wg, C)} {blocks} blocks x {per} columns a thread "
+                    f"{ms:.4f} ms")
+    if per < 2:
+        raise AssertionError("[edge] col_prefix: no shape with more columns "
+                             "than resident threads")
+    print("[edge] col_prefix bit-identical to its plain version at "
+          + "; ".join(done) + f" [{card}]", flush=True)
+
+    table = seen["prefix_scan"][1][0]                  # (n, 2L)
+    done = []
+    for Wg, C, R in ((1, 32, 1), (3, 37, 5)):
+        n = C * R
+        pay = np.stack([(rng.integers(0, table.shape[0], n) << 1)
+                        | rng.integers(0, 2, n) for _ in range(Wg)])
+        if R >= 4:
+            a = pay[:, 0] & ~1
+            pay[:, 1], pay[:, 2], pay[:, 3] = a, a | 1, a | 1  # 2a, a, inf
+        pay = torch.from_numpy(pay.astype(np.int32)).to(DEVICE)
+        for G in (None,) + kernels.SCAN_THREADS_PER_LANE:
+            same_as_plain(f"prefix_scan {(Wg, C, R)} G={G}", "prefix_scan",
+                          (table, pay, CURVE, C), dict(_threads_per_lane=G))
+        done.append(f"(Wg, C, R) = {(Wg, C, R)}")
+    print("[edge] prefix_scan bit-identical to its plain version at "
+          + ", ".join(done) + ", each with "
+          f"{kernels.SCAN_THREADS_PER_LANE} threads per lane and with the "
+          f"launcher's pick [{card}]", flush=True)
+
+
+def lane_sweep(card: str) -> dict:
+    """`prefix_scan` over 2^18 to 2^21 stream elements at lane counts from
+    a quarter of the default schedule's to sixteen times it, for every
+    number of threads per lane: what the launcher's rule rests on."""
+    L = CURVE.num_limbs
+    rng = np.random.default_rng(13)
+    out = {}
+    for Wg, C, R in LANE_SHAPES:
+        n = C * R
+        table = torch.from_numpy(rng.integers(
+            0, 1 << CURVE.log_limb_size, (n, 2 * L)).astype(np.int16)
+            ).to(DEVICE)
+        pay = torch.from_numpy(np.stack(
+            [rng.permutation(n) << 1 for _ in range(Wg)]).astype(np.int32)
+            ).to(DEVICE)
+        kernels.prefix_scan(table, pay, CURVE, C)
+        picked = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
+        ms = {G: cuda_ms(lambda: kernels.prefix_scan(
+            table, pay, CURVE, C, _threads_per_lane=G), 5)
+            for G in kernels.SCAN_THREADS_PER_LANE}
+        out[Wg * C] = dict(R=R, ms=ms, picked=picked)
+        print(f"[scan-lanes] lanes={Wg * C} R={R}: ms by threads per lane "
+              + ", ".join(f"{G}: {t:.4f}" for G, t in ms.items())
+              + f"; the wrapper launched {picked} [{card}]", flush=True)
+    return out
+
+
+def latency(card: str, scan_G: int) -> dict:
+    """One complete add and one scan step on a single warp: 32 lanes."""
+    L, R = CURVE.num_limbs, 128
+    rng = np.random.default_rng(11)
+    lazy = lambda: torch.from_numpy(rng.integers(
+        0, 1 << CURVE.log_limb_size, (3, L, 32)).astype(np.int16)).to(DEVICE)
+    p, q = lazy(), lazy()
+    table = torch.from_numpy(rng.integers(
+        0, 1 << CURVE.log_limb_size, (32 * R, 2 * L)).astype(np.int16)
+        ).to(DEVICE)
+    pay = torch.from_numpy((rng.permutation(32 * R) << 1).astype(np.int32)
+                           ).to(DEVICE)[None]
+    # some 20 ms of two warps, while 50 launches are enqueued behind them
+    busy = lambda: kernels.prefix_scan(table, pay.repeat(1, 16), CURVE, 32,
+                                       _threads_per_lane=2)
+    padd_ms = queued_ms(lambda: kernels.padd_batch(p, q, CURVE), 50, busy)
+    step = {G: cuda_ms(lambda: kernels.prefix_scan(
+        table, pay, CURVE, 32, _threads_per_lane=G), 20) / R
+        for G in kernels.SCAN_THREADS_PER_LANE}
+    print(f"[latency] 32 lanes, one warp of lanes: padd_batch {padd_ms:.4f} "
+          f"ms a launch; prefix_scan (R={R}) ms a step by threads per lane "
+          + ", ".join(f"{G}: {t:.5f}" for G, t in step.items())
+          + f" (the 2^{max(SIZES)} shape runs {scan_G}) [{card}]", flush=True)
+    return dict(padd_ms=padd_ms, scan_step_ms=step)
+
+
 def first_group(seen: dict):
     """(T, S) of the first window group: the scan output (3, L, R, F) and
     the column prefix flattened to (3, L, F)."""
@@ -357,6 +533,9 @@ def check_size(logn: int, card: str):
     seen = capture_inputs(logn, False)
     tag = f"n=2^{logn}"
     results = check_main_kernels(seen, tag, card, reps)
+    sweep = scan_sweep(seen, tag, card, reps)
+    if logn == min(SIZES):
+        edge_shapes(seen, card)
     tbuf, S = first_group(seen)
     buckets = seen["pbpr_full"][1][0]
     gall = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
@@ -377,6 +556,7 @@ def check_size(logn: int, card: str):
     torch.cuda.empty_cache()
     seen = capture_inputs(logn, True)
     results_glv = check_main_kernels(seen, f"n=2^{logn} glv", card, reps)
+    sweep_glv = scan_sweep(seen, f"n=2^{logn} glv", card, reps)
     _, args, kw, _ = seen["apply_glv"]
     glv_ms = cuda_ms(lambda: glv_dev.apply_glv(*args, **kw), reps)
     print(f"[apply_glv] n=2^{logn}: {glv_ms:.2f} ms for "
@@ -385,26 +565,29 @@ def check_size(logn: int, card: str):
     del seen
     torch.cuda.empty_cache()
     return dict(main=results, glv=results_glv, reduce_launches=red[0],
-                reduce_ms=red[1], globalize_launches=glob, apply_glv_ms=glv_ms)
+                reduce_ms=red[1], globalize_launches=glob, apply_glv_ms=glv_ms,
+                scan_sweep=sweep, scan_sweep_glv=sweep_glv)
 
 
 def main_path(logn: int, card: str, glv: bool = False):
     """Phase 6 (or, with glv, phase 7) at one size. Returns the launch
-    counts of the user call and the timings."""
+    counts of the user call, the timings, and the threads per lane that
+    the user call's scans were launched with."""
     n = 1 << logn
     cfg = config(logn, glv)
-    pipe = get_pipeline(cfg, DEVICE)
-    xs, ys, hw, base, want = inputs(logn)
+    _, _, hw, base, want = inputs(logn)
     points = [base[i % len(base)] for i in range(n)]
     scalars = preprocess.halfwords_to_ints(hw)
     label = "msm-glv" if glv else "msm"
 
     kernels.reset_launches()
+    kernels.LAUNCHED.clear()
     t0 = time.perf_counter()
     got = tpu_variable_base_msm(points, scalars, curve=CURVE, device=DEVICE,
                                 config=cfg if glv else None)
     t_user = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    scan_G = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
     if not ref.jac_eq(CURVE, got, want):
         raise AssertionError(f"2^{logn} {label}: MSM result differs from "
                              "the oracle")
@@ -413,9 +596,18 @@ def main_path(logn: int, card: str, glv: bool = False):
         raise AssertionError(f"2^{logn} {label}: kernels not launched: {idle}")
     used = {k: v for k, v in launches.items() if v}
     print(f"[{label}] n=2^{logn} tpu_variable_base_msm EXACT in {t_user:.2f} s"
-          f" (host pack included) launches={used} [{card}]", flush=True)
+          f" (host pack included) launches={used}, the scan with {scan_G} "
+          f"threads a lane [{card}]", flush=True)
 
-    # bench-style timing: int16/uint16 wire inputs, staged h2d timed apart
+    return (launches, *timed_runs(cfg, logn, label, card), scan_G)
+
+
+def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str):
+    """Bench-style timing: int16/uint16 wire inputs, staged h2d timed
+    apart, then window_sums + host Horner; median of 3, each EXACT."""
+    n = 1 << logn
+    pipe = get_pipeline(cfg, DEVICE)
+    xs, ys, hw, _, want = inputs(logn)
     wire = (xs.astype(np.int16), ys.astype(np.int16),
             np.concatenate([hw, np.zeros((2, n), np.uint32)]).astype(np.uint16))
     times, h2ds = [], []
@@ -433,13 +625,35 @@ def main_path(logn: int, card: str, glv: bool = False):
         h2ds.append((t1 - t0) * 1e3)
         times.append((t2 - t1) * 1e3)
     ms, h2d = statistics.median(times), statistics.median(h2ds)
-    lanes = (2 if glv else 1) * n
+    lanes = (2 if cfg.glv else 1) * n
     print(f"[{label}] n=2^{logn} s={cfg.window_size} W={cfg.num_windows} "
           f"groups={cfg.num_groups} stream={lanes} lanes C={cfg.columns} "
           f"T={cfg.pbpr_threads} Wg={cfg.subtask_group}: device+decode+"
           f"horner median {ms:.2f} ms of {[round(t, 2) for t in times]}, "
           f"h2d {h2d:.2f} ms, EXACT [{card}]", flush=True)
-    return launches, ms, h2d
+    return ms, h2d
+
+
+def schedule_run(card: str):
+    """The largest size under SCHEDULE: launch counts of one run, then
+    the timed runs. Recorded beside the default schedule, not the default."""
+    logn = max(SIZES)
+    cfg = MSMConfig(curve=CURVE, **SCHEDULE)
+    lanes = cfg.subtask_group * cfg.columns
+    kernels.reset_launches()
+    kernels.LAUNCHED.clear()
+    ms, h2d = timed_runs(cfg, logn, "schedule", card)
+    G = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
+    blocks, per = kernels.LAUNCHED["col_prefix"].values()
+    used = {k: v // 3 for k, v in kernels.LAUNCHES.items() if v}
+    idle = [k for k in MAIN if k not in used]
+    if idle:
+        raise AssertionError(f"schedule: kernels not launched: {idle}")
+    print(f"[schedule] n=2^{logn} {SCHEDULE}: {lanes} scan lanes with {G} "
+          f"thread(s) a lane, col_prefix {blocks} blocks x {per} columns a "
+          f"thread; median {ms:.2f} ms; launches a run={used} [{card}]",
+          flush=True)
+    return ms, used
 
 
 def where_line(label: str, logn: int, launches: dict, results: dict,
@@ -502,10 +716,26 @@ def main() -> int:
     _build.library()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {_build.build_seconds})", flush=True)
+    resources = {}
+    for stem in ("col_prefix", "prefix_scan"):
+        for fn, regs, stack, st, ld in _build.resources(stem):
+            # template arguments <L, W[, G]> from the mangled name
+            targs = re.findall(r"Li(\d+)E",
+                               fn.split("_kernelI")[1].split("Ev")[0])
+            if int(targs[0]) != CURVE.num_limbs:
+                continue
+            resources[f"{stem}<{', '.join(targs)}>"] = dict(
+                registers=regs, stack_bytes=stack, spill_store_bytes=st,
+                spill_load_bytes=ld)
+    for k, v in resources.items():
+        print(f"[ptxas] {k}: {v} [{card}]", flush=True)
 
     checks = {logn: check_size(logn, card) for logn in SIZES}
     runs = {logn: main_path(logn, card) for logn in SIZES}
     runs_glv = {logn: main_path(logn, card, glv=True) for logn in SIZES}
+    sched_ms, sched_launches = schedule_run(card)
+    lat = latency(card, runs[max(SIZES)][3])
+    lanes_ms = lane_sweep(card)
     affine_ms = affine_check(min(SIZES), card, glv=False)
     affine_check(min(SIZES), card, glv=True)
 
@@ -552,6 +782,24 @@ def main() -> int:
                     f"max_abs_err_glv{sfx}": rg["max_abs_err"]})
             if name == "padd_batch":
                 entry[f"launches_reduce{sfx}"] = c["reduce_launches"][name]
+            if name == "prefix_scan":
+                for key, sw, run in (
+                        ("", c["scan_sweep"], runs[logn]),
+                        ("_glv", c["scan_sweep_glv"], runs_glv[logn])):
+                    entry[f"threads_per_lane{key}{sfx}"] = run[3]
+                    entry[f"ms_by_threads_per_lane{key}{sfx}"] = sw["ms"]
+        # depth floors at the largest size: the least time of the chain of
+        # dependent point operations, each on a warp with nothing to wait for
+        if name == "col_prefix":
+            levels = max(default_config(1 << max(SIZES), CURVE
+                                        ).columns.bit_length() - 1, 1)
+            entry["depth_floor_ms"] = levels * lat["padd_ms"]
+        if name == "prefix_scan":
+            for key, run in (("", runs), ("_glv", runs_glv)):
+                R = (2 if key else 1) * (1 << max(SIZES)) // default_config(
+                    1 << max(SIZES), CURVE).columns
+                entry[f"depth_floor_ms{key}"] = (
+                    R * lat["scan_step_ms"][run[max(SIZES)][3]])
         entry["bit_exact"] = True
         entry["at"] = f"n=2^{max(SIZES)} (suffix _2p16: n=2^16)"
         entries.append(entry)
@@ -567,6 +815,10 @@ def main() -> int:
         "apply_glv_ms": {f"2^{k}": v["apply_glv_ms"]
                          for k, v in checks.items()},
         "to_affine_ms": {f"2^{min(SIZES)}": affine_ms},
+        "schedule": {**SCHEDULE, "msm_ms": sched_ms,
+                     "launches": sched_launches},
+        "latency_32_lanes": lat, "scan_by_lanes": lanes_ms,
+        "ptxas": resources,
         "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

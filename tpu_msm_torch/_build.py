@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpu_msm_torch"
 LIB = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,8 +34,9 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     "msm_encode_mont": [_I, _I, _P, _P, _I64, _P, _P],
     "msm_decompose_digits": [_P, _P, _I, _I64, _I, _I, _P],
-    "msm_prefix_scan": [_I, _I, _P, _P, _P, _I, _I, _I, _I64, _P, _P],
-    "msm_col_prefix": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "msm_prefix_scan": [_I, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _P, _P],
+    "msm_col_prefix": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "msm_col_prefix_limits": [_I, _I, _P, _P, _P],
     "msm_padd_batch": [_I, _I, _I, _I, _P, _P, _P, _I64, _P, _P],
     "msm_pbpr_full": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "msm_pdbl_batch": [_I, _I, _P, _P, _I64, _P, _P],
@@ -91,6 +93,8 @@ def build() -> Path:
     errors = []
     for src, proc in procs:
         out, _ = proc.communicate()
+        # what ptxas says of each kernel: registers, stack frame, spills
+        (BUILD_DIR / (src.stem + ".ptxas.txt")).write_text(out)
         if proc.returncode != 0:
             errors.append(f"{src.name}:\n{out}")
     if errors:
@@ -103,6 +107,20 @@ def build() -> Path:
     stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0
     return LIB
+
+
+def resources(stem: str) -> list:
+    """(entry function, registers, stack frame bytes, spill store bytes,
+    spill load bytes) of every kernel of `csrc/<stem>.cu`, from what ptxas
+    printed when the library was built."""
+    build()
+    text = (BUILD_DIR / (stem + ".ptxas.txt")).read_text()
+    entry = re.compile(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        r"Used (\d+) registers", re.S)
+    return [(m[1], int(m[5]), int(m[2]), int(m[3]), int(m[4]))
+            for m in entry.finditer(text)]
 
 
 def library() -> ctypes.CDLL:

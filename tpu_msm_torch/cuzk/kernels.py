@@ -31,6 +31,7 @@ Stacked points are (3, L, *batch) tensors: coordinate, limb, lanes.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
@@ -53,6 +54,10 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "pbpr_full", "pdbl_batch", "pbpr_stage1",
                                  "globalize")}
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
+
+LAUNCHED = {}
+"""The geometry that the last launch of `prefix_scan` and of `col_prefix`
+passed to its kernel, written where the kernel launches."""
 
 
 def reset_launches() -> None:
@@ -247,15 +252,60 @@ def prefix_scan_plain(pts_rows: torch.Tensor, pay: torch.Tensor,
     return out
 
 
+SCAN_THREADS = 128
+"""Threads a block of the scan kernel (csrc/prefix_scan.cu kThreads)."""
+SCAN_THREADS_PER_LANE = (2, 6)
+"""The values of G the scan kernel is built for."""
+
+
+def prefix_scan_geometry(lanes: int, sms: int, threads_per_lane=None
+                         ) -> Tuple[int, int, int]:
+    """(G, blocks, lanes a block) of one scan launch over `lanes` lanes on
+    a card of `sms` SMs: a pure function, so the CPU tests can hold it.
+
+    G threads of one warp share a lane (32 // G lanes a warp; with G = 6
+    the last two threads of a warp idle), so a block of four warps holds
+    64 lanes with G = 2 and 20 with G = 6. On the H100 the time of a
+    launch goes up in steps with the blocks an SM gets, each block one
+    more warp on each of its four schedulers (PERF.md, `[scan-lanes]`):
+    by the whole of G = 2's time for each of its blocks, by about a
+    quarter of that for each of G = 6's. The rule: G = 6, which has the
+    shorter step (two multiplies deep) and the higher rate on a full
+    card; but G = 2 where its blocks come one to an SM while G = 6 would
+    need more than two to an SM. Measured on 132 SMs about both edges
+    (5,280 and 8,448 lanes): G = 2 is level with G = 6 from 5,281 to
+    7,920 lanes (three blocks of G = 6 an SM) and a fifth faster from
+    there to 8,448 (four). `threads_per_lane` names G outright: for a
+    measurement of one G against the other, not for the MSM."""
+    if lanes < 1 or sms < 1:
+        raise ValueError("prefix_scan_geometry: lanes and sms must be >= 1")
+    per_block = lambda G: (SCAN_THREADS // 32) * (32 // G)
+    blocks = lambda G: -(-lanes // per_block(G))
+    if threads_per_lane is None:
+        G = 2 if blocks(2) <= sms and blocks(6) > 2 * sms else 6
+    elif threads_per_lane in SCAN_THREADS_PER_LANE:
+        G = threads_per_lane
+    else:
+        raise ValueError("prefix_scan: threads_per_lane must be one of "
+                         f"{SCAN_THREADS_PER_LANE}")
+    return G, blocks(G), per_block(G)
+
+
 def prefix_scan(pts_rows: torch.Tensor, pay: torch.Tensor,
-                curve: CurveParams, C: int) -> torch.Tensor:
+                curve: CurveParams, C: int, *, _threads_per_lane=None
+                ) -> torch.Tensor:
     """Inclusive per-lane running sums of the sorted, sign-folded stream.
 
     pts_rows: (n, 2L) int16 points-major table, row i = Montgomery
         (x limbs, y limbs) of point i.
     pay: (Wg, n) int32 sorted payload idx << 1 | sign of each window.
     Lane f = wl * C + c walks sorted positions c*R .. c*R + R-1 of
-    window wl (R = n / C). Returns T (3, L, R, Wg*C) int16."""
+    window wl (R = n / C). Returns T (3, L, R, Wg*C) int16.
+    `prefix_scan_geometry` picks the threads per lane of the launch;
+    `_threads_per_lane` overrides it, for a measurement only."""
+    if _threads_per_lane not in (None,) + SCAN_THREADS_PER_LANE:
+        raise ValueError("prefix_scan: the kernel is built for "
+                         f"{SCAN_THREADS_PER_LANE} threads per lane")
     if curve.log_limb_size > 13:
         raise ValueError("prefix_scan: int16 output needs w <= 13")
     if pay.shape[1] % C:
@@ -265,14 +315,19 @@ def prefix_scan(pts_rows: torch.Tensor, pay: torch.Tensor,
     L, w = _profile("prefix_scan", curve)
     _need("prefix_scan", pts_rows, I16, 2)
     _need("prefix_scan", pay, I32, 2)
+    if pts_rows.data_ptr() % 8:
+        raise ValueError("prefix_scan: the row table must be 8-byte aligned")
     Wg, n = pay.shape
     R = n // C
+    sms = torch.cuda.get_device_properties(pay.device).multi_processor_count
+    G, _, _ = prefix_scan_geometry(Wg * C, sms, _threads_per_lane)
     out = torch.empty((3, L, R, Wg * C), dtype=I16, device=pay.device)
     rc = _build.library().msm_prefix_scan(
         L, w, pts_rows.data_ptr(), pay.data_ptr(), out.data_ptr(), Wg, C, R,
-        n,
+        n, G,
         _consts(curve, pay.device).data_ptr(), _stream(pay))
     _check("prefix_scan", rc)
+    LAUNCHED["prefix_scan"] = dict(threads_per_lane=G)
     return out
 
 
@@ -297,6 +352,40 @@ def col_prefix_plain(coltot: torch.Tensor, curve: CurveParams
     return v.to(I16)
 
 
+def col_prefix_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
+                        threads: int) -> Tuple[int, int]:
+    """(blocks, columns a thread) of one col_prefix launch: a pure
+    function, so the CPU tests can hold it.
+
+    The kernel runs one thread per (window, column) and synchronises the
+    whole grid between levels, so every block must be resident at once:
+    never more than sms * blocks_per_sm blocks. With more columns than
+    that many threads, thread t takes columns t, t + blocks * threads,
+    ..."""
+    if min(Wg, C, sms, threads) < 1 or blocks_per_sm < 1:
+        raise ValueError("col_prefix_geometry: no resident block "
+                         f"(Wg={Wg}, C={C}, sms={sms}, "
+                         f"blocks_per_sm={blocks_per_sm}, threads={threads})")
+    blocks = min(-(-Wg * C // threads), sms * blocks_per_sm)
+    return blocks, -(-Wg * C // (blocks * threads))
+
+
+@functools.lru_cache(maxsize=None)
+def _col_prefix_limits(curve: CurveParams, device: torch.device
+                       ) -> Tuple[int, int, int]:
+    """(SMs, resident blocks an SM, threads a block) of the kernel."""
+    L, w = _profile("col_prefix", curve)
+    per_sm, sms, threads = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().msm_col_prefix_limits(
+            L, w, ctypes.byref(per_sm), ctypes.byref(sms),
+            ctypes.byref(threads))
+    if rc != 0:
+        raise RuntimeError("col_prefix: occupancy query failed "
+                           f"(cudaError_t {rc})")
+    return sms.value, per_sm.value, threads.value
+
+
 def col_prefix(coltot: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     """(3, L, Wg, C) int16 column totals -> (3, L, Wg, C) int16 EXCLUSIVE
     prefix points along the last axis (S[c] = sum of columns < c)."""
@@ -305,14 +394,16 @@ def col_prefix(coltot: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     L, w = _profile("col_prefix", curve)
     _need("col_prefix", coltot, I16, 4)
     _, _, Wg, C = coltot.shape
+    blocks, per_thread = col_prefix_geometry(
+        Wg, C, *_col_prefix_limits(curve, coltot.device))
     out = torch.empty_like(coltot)
-    scratch = torch.empty((2,) + tuple(coltot.shape), dtype=I32,
-                          device=coltot.device)
+    scratch = torch.empty_like(coltot)
     rc = _build.library().msm_col_prefix(
         L, w, coltot.data_ptr(), out.data_ptr(), scratch.data_ptr(), Wg, C,
-        _levels(C),
+        _levels(C), blocks,
         _consts(curve, coltot.device).data_ptr(), _stream(coltot))
     _check("col_prefix", rc)
+    LAUNCHED["col_prefix"] = dict(blocks=blocks, columns_per_thread=per_thread)
     return out
 
 
