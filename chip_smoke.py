@@ -9,8 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
      and 2^20 (captured from a warm-up run of the device program, without
      GLV and with it): the CUDA kernel against its plain PyTorch version
-     on the same CUDA inputs, bit-identical, with times from CUDA events.
-     The six kernels of the main path at both configurations;
+     on the same CUDA inputs, bit-identical, with times from CUDA events
+     (a kernel under QUEUE_BELOW_MS back to back is timed again queued
+     behind a busy call, which leaves out its wrapper's host cost; both
+     times are printed). The six kernels of the main path at both
+     configurations;
      `pbpr_stage1` on the buckets `pbpr_full` received; `pdbl_batch` on
      one (3, L, Wg, B+1) batch and on the (3, L, Wp) sum that
      `bucket_reduce` doubles; `globalize` on the first window group's
@@ -23,6 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      and (16, 8192), more columns than resident threads; `prefix_scan` at
      R = 1 and at 111 lanes with a point twice in a row and a point
      followed by its negative, for every number of threads per lane;
+     at 2^20, `pbpr_full` at PBPR_EDGES (T = 1, T = B, T = 1024 and 2048,
+     one window, B = 2^15 with T = 32), with the geometry it launched
+     (the narrow ones are held against plain versions run on the CPU
+     after every timed phase, so that they share the host with no timing);
   4. the two-stage reduction path: `pbpr.bucket_reduce` on the same
      buckets, equal in the group to `pbpr_full` window by window, its
      launch counts reset before and read after;
@@ -39,21 +46,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      largest size once more under SCHEDULE, a window group of 16 that
      gives the scan 131,072 lanes and `col_prefix` several columns a
      thread, EXACT, recorded and not made the default; and (`[latency]`)
-     one `padd_batch` and one scan step on a single warp of 32 lanes, from
-     which the depth floors of `col_prefix` and `prefix_scan` follow;
+     one `padd_batch`, one scan step and one `pbpr_full` stage-1 step on
+     a single warp, from which the depth floors of `col_prefix`,
+     `prefix_scan` and `pbpr_full` follow;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes,
      with four lane counts about the two edges of the launcher's rule,
      for every number of threads per lane;
   8. affine output: `to_affine` on the window sums of the 2^16 runs
      (without GLV, and with it, where two pad windows are at infinity)
-     against the host decode;
-  9. one JSON line {"kernels": [...]} with all nine kernels;
- 10. last line {"ok": true, "device": {...}}.
+     against the host decode; then (`[rest]`) one real window_sums +
+     host Horner at 2^16 and 2^20 under torch.profiler: the device time
+     of the PyTorch ops outside the port's kernels, op by op, beside the
+     kernels' own, and the d2h, decode and Horner on the host clock;
+  9. the `pbpr_full` edges whose plain versions ran on the CPU;
+ 10. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
+    with all nine kernels (pbpr_full with the geometry the user call
+    launched, from kernels.LAUNCHED);
+ 11. last line {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -161,11 +177,15 @@ def work(name: str, args, out) -> tuple:
     elif name == "padd_batch":
         ops = args[0][0, 0].numel() * MULS["padd"] * mm
     elif name == "pbpr_full":
+        # the adds whose sums the output reads: 2 B in stage 1,
+        # T log2 T + 3 (T - 1) in the scans (kernels.pbpr_scan_levels),
+        # one in the tail, and log2(B / T) doublings, each window
         _, _, Wp, B = args[0].shape
         T = min(args[2], B)
-        bits = max(T.bit_length() - 1, 0)
+        scan = sum(T // sm + T // sg for _, sm, sg in
+                   kernels.pbpr_scan_levels(T))
         dbl = max((B // T).bit_length() - 1, 0)
-        ops = Wp * ((2 * B + 4 * T * bits + 1) * MULS["padd"]
+        ops = Wp * ((2 * B + scan + 1) * MULS["padd"]
                     + dbl * MULS["pdbl"]) * mm
     elif name == "pdbl_batch":
         ops = args[0][0, 0].numel() * MULS["pdbl"] * mm
@@ -209,6 +229,35 @@ def queued_ms(fn, reps: int, blocker) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+_BUSY = []
+
+
+def busy() -> None:
+    """Some 18 ms of one warp on the card (a scan lane of 2,048 steps):
+    the call that keeps the card busy while the launches of a `queued_ms`
+    measurement are enqueued behind it."""
+    if not _BUSY:
+        L, R = CURVE.num_limbs, 2048
+        rng = np.random.default_rng(11)
+        table = torch.from_numpy(rng.integers(
+            0, 1 << CURVE.log_limb_size, (32 * R, 2 * L)).astype(np.int16)
+            ).to(DEVICE)
+        pay = torch.from_numpy((rng.permutation(32 * R) << 1).astype(
+            np.int32)).to(DEVICE)[None]
+        _BUSY.append(lambda: kernels.prefix_scan(table, pay, CURVE, 32,
+                                                 _threads_per_lane=2))
+    _BUSY[0]()
+
+
+# A kernel faster than this (CUDA events around back-to-back calls) is
+# timed again with queued_ms: its wrapper's host cost, not the kernel,
+# sets the pace of back-to-back calls.
+QUEUE_BELOW_MS = 1.0
+QUEUE_REPS = 50
+# A plain version whose first call takes longer is timed by that call.
+PLAIN_COLD_MS = 1000.0
 
 
 def timed_once(fn):
@@ -295,8 +344,11 @@ def compare(key: str, name: str, args, kw, tag: str, card: str, reps: int
     kern = getattr(kernels, name)
     plain = getattr(kernels, name + "_plain")
     got = kern(*args, **kw)
-    plain(*args, **kw)          # warm-up: fills the cached constant tensors
     want, plain_ms = timed_once(lambda: plain(*args, **kw))
+    if plain_ms < PLAIN_COLD_MS:
+        # fast enough that filling the cached constants on a first call
+        # would show: time a second, warm call
+        want, plain_ms = timed_once(lambda: plain(*args, **kw))
     torch.cuda.synchronize()
     err = 0
     for g, w in zip(as_tuple(got), as_tuple(want), strict=True):
@@ -308,16 +360,22 @@ def compare(key: str, name: str, args, kw, tag: str, card: str, reps: int
     if err:
         raise AssertionError(f"{key} at {tag}: kernel differs from its "
                              f"plain version (max abs err {err})")
-    t = cuda_ms(lambda: kern(*args, **kw), reps)
+    call = lambda: kern(*args, **kw)
+    t_cuda = cuda_ms(call, reps)
+    queued = t_cuda < QUEUE_BELOW_MS
+    t = queued_ms(call, QUEUE_REPS, busy) if queued else t_cuda
     nbytes, ops = work(name, args, got)
     b_ms, b_by = bound_ms(nbytes, ops)
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+    how = "queued behind a busy call" if queued else "back to back"
     print(f"[kernel] {key} {tag} in={shape} "
           f"out={[tuple(o.shape) for o in as_tuple(got)]} "
-          f"ms={t:.4f} plain_ms={plain_ms:.1f} bound_ms={b_ms:.4f} "
-          f"({b_by}) bit-identical max_abs_err={err} [{card}]", flush=True)
-    return dict(name=name, ms=t, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err)
+          f"ms={t:.4f} ({how}) cuda_ms={t_cuda:.4f} (back to back, the "
+          f"wrapper's host cost included) plain_ms={plain_ms:.1f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) bit-identical max_abs_err={err} "
+          f"[{card}]", flush=True)
+    return dict(name=name, ms=t, ms_cuda=t_cuda, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
 
 def check_main_kernels(seen: dict, tag: str, card: str, reps: int) -> dict:
@@ -408,6 +466,179 @@ def edge_shapes(seen: dict, card: str) -> None:
           f"launcher's pick [{card}]", flush=True)
 
 
+# (Wp, B, T) of pbpr_full's [edge] shapes, cut from the buckets of the
+# largest size: T = 1 (no scan level), T = B (one bucket a slice, no
+# doubling; at the 2^20 MSM's Wp and T, so its time is that of the
+# scans, the tail and a stage 1 of one step), T = 1024 and 2048 (above
+# the one block of threads a window of the kernel's first form; 2048
+# gives the scans more adds than resident chains), one window, and
+# B = 2^15 with T = 32 (a stage-1 chain of 1,024 steps, ten doublings).
+PBPR_EDGES = ((2, 64, 1), (16, 512, 512), (16, 4096, 1024),
+              (16, 4096, 2048), (1, 32768, 512), (1, 32768, 32))
+
+
+# A pbpr_full edge of at most this many lanes (Wp * T) is held against
+# its plain version run on the CPU, in child processes, after the last
+# timed phase: its chains of thousands of small launch-bound adds would
+# take minutes of the run on the card.
+CPU_PLAIN_LANES = 64
+
+
+def plain_on_cpu(name: str, args: tuple):
+    """The plain version of kernel `name` on CPU copies of `args`; runs in
+    a child process."""
+    torch.set_num_threads(1)
+    cpu = lambda a: a.cpu() if isinstance(a, torch.Tensor) else a
+    return getattr(kernels, name + "_plain")(*map(cpu, args))
+
+
+def pbpr_edges(seen: dict, card: str) -> list:
+    """`pbpr_full` against its plain version at PBPR_EDGES, on the real
+    buckets of the captured run. The narrow shapes keep their buckets and
+    the kernel's output for `cpu_checks`."""
+    buckets = seen["pbpr_full"][1][0]
+    done = []
+    for Wp, B, T in PBPR_EDGES:
+        b = buckets[:, :, :Wp, :B].contiguous()
+        label = f"pbpr_full (Wp, B, T) = {(Wp, B, T)}"
+        cpu = {}
+        if Wp * T <= CPU_PLAIN_LANES:
+            cpu = dict(got=kernels.pbpr_full(b, CURVE, T).cpu(),
+                       buckets=b.cpu())
+            where = "(its plain version on the CPU: compared at the end)"
+        else:
+            same_as_plain(label, "pbpr_full", (b, CURVE, T))
+            where = "bit-identical to its plain version"
+        geo = dict(kernels.LAUNCHED["pbpr_full"])
+        ms = cuda_ms(lambda: kernels.pbpr_full(b, CURVE, T), 3)
+        done.append(dict(shape=(Wp, B, T), ms=ms, launched=geo, **cpu))
+        print(f"[edge] {label}: {where}; launched {geo}; {ms:.4f} ms "
+              f"[{card}]", flush=True)
+    if max(d["launched"]["adds_per_chain"] for d in done) < 2:
+        raise AssertionError("[edge] pbpr_full: no shape with more adds a "
+                             "level than resident chains")
+    return done
+
+
+def cpu_checks(edges: list, card: str) -> None:
+    """The pbpr_full edges kept for the CPU: their plain versions in
+    spawned processes (the parent holds a CUDA context), all at once."""
+    edges = [e for e in edges if "buckets" in e]
+    if not edges:
+        return
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(edges),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        wants = [pool.submit(plain_on_cpu, "pbpr_full",
+                             (e.pop("buckets"), CURVE, e["shape"][2]))
+                 for e in edges]
+        for e, want in zip(edges, wants):
+            got, want = e.pop("got"), want.result()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"[edge] pbpr_full {e['shape']}: kernel "
+                                     "differs from its plain version")
+            print(f"[edge] pbpr_full (Wp, B, T) = {e['shape']}: bit-identical "
+                  f"to its plain version (run on the CPU) [{card}]",
+                  flush=True)
+
+
+# The kernels of csrc/ in a profiler trace: `<name>_kernel<...>` in the
+# anonymous namespace of their sources.
+PORT_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::\w+_kernel<")
+
+
+def device_us(row) -> float:
+    """Self device time of a profiler row in microseconds (the attribute
+    is named after CUDA in older PyTorch)."""
+    us = getattr(row, "self_device_time_total", None)
+    return us if us is not None else row.self_cuda_time_total
+
+
+def rest_split(logn: int) -> dict:
+    """What the MSM does outside the port's kernels, from one real call:
+    window_sums + host Horner on staged inputs, as `timed_runs` runs it,
+    under torch.profiler after a warm-up call. Each kernel's device time
+    goes to the PyTorch op that launched it (the op's self device time);
+    the kernels of csrc/, launched through ctypes, have no such op and are
+    summed apart. Then, on the host clock (median of 5), the d2h of the
+    window sums, their decode and the host Horner, on the device output
+    of the same program."""
+    cfg = config(logn, False)
+    pipe = get_pipeline(cfg, DEVICE)
+    n = 1 << logn
+    xs, ys, hw, _, want = inputs(logn)
+    dev_in = [torch.from_numpy(a).to(DEVICE) for a in (
+        xs.astype(np.int16), ys.astype(np.int16),
+        np.concatenate([hw, np.zeros((2, n), np.uint32)]).astype(np.uint16))]
+    call = lambda: pipe.horner(pipe.window_sums(*dev_in))
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(DEVICE).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        acc = call()
+        wall = (time.perf_counter() - t0) * 1e3
+    if not ref.jac_eq(CURVE, acc, want):
+        raise AssertionError(f"2^{logn} [rest]: the profiled call differs "
+                             "from the oracle")
+    ops, port, device = {}, 0.0, 0.0
+    for row in prof.key_averages():
+        us = device_us(row)
+        if us <= 0:
+            continue
+        if row.device_type == torch.autograd.DeviceType.CPU:
+            ops[row.key] = us / 1e3
+        else:
+            device += us / 1e3
+            if PORT_KERNEL.match(row.key):
+                port += us / 1e3
+    out = dict(wall_ms=wall, device_ms=device, kernels_ms=port,
+               ops_ms=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+
+    def host(fn):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    g = pipe._run(pipe._stage(dev_in))
+    windows = pipe._decode_windows(g)
+    out["d2h"] = host(lambda: g.cpu())
+    out["decode"] = host(lambda: pipe._decode_windows(g)) - out["d2h"]
+    out["horner"] = host(lambda: pipe.horner(windows))
+    return out
+
+
+# How many PyTorch ops the [rest] line names; the others are summed.
+REST_OPS = 8
+
+
+def rest_line(logn: int, rest: dict, outside: float, card: str) -> None:
+    ops = list(rest["ops_ms"].items())
+    named = ", ".join(f"{k} {v:.3f}" for k, v in ops[:REST_OPS])
+    others = [v for _, v in ops[REST_OPS:]]
+    op_sum = sum(rest["ops_ms"].values())
+    device = (f"device busy {rest['device_ms']:.2f} ms of the call's "
+              f"{rest['wall_ms']:.2f} ms: the port's kernels "
+              f"{rest['kernels_ms']:.2f} ms, PyTorch ops {op_sum:.2f} ms "
+              f"({named}, {len(others)} other ops {sum(others):.3f})"
+              if rest["device_ms"] else
+              "device time not measured (the profiler saw no device "
+              "activity)")
+    host = rest["d2h"] + rest["decode"] + rest["horner"]
+    print(f"[rest] n=2^{logn}, one window_sums + Horner under torch.profiler:"
+          f" {device}; host d2h {rest['d2h']:.3f}, decode "
+          f"{rest['decode']:.3f}, Horner {rest['horner']:.3f} ms; ops and "
+          f"host together {op_sum + host:.2f} ms against the {outside:.2f} ms"
+          f" of the end-to-end median outside the kernels [{card}]",
+          flush=True)
+
+
 def lane_sweep(card: str) -> dict:
     """`prefix_scan` over 2^18 to 2^21 stream elements at lane counts from
     a quarter of the default schedule's to sixteen times it, for every
@@ -435,30 +666,46 @@ def lane_sweep(card: str) -> dict:
     return out
 
 
+# Slice lengths Bt of the two pbpr_full calls on one warp (T = 8 lanes of
+# four threads) whose difference gives the time of one stage-1 step.
+PBPR_STEP_BT = (32, 256)
+
+
 def latency(card: str, scan_G: int) -> dict:
-    """One complete add and one scan step on a single warp: 32 lanes."""
+    """One complete add, one scan step and one pbpr_full stage-1 step on a
+    single warp: 32 lanes (8 for pbpr_full, four threads each)."""
     L, R = CURVE.num_limbs, 128
     rng = np.random.default_rng(11)
-    lazy = lambda: torch.from_numpy(rng.integers(
-        0, 1 << CURVE.log_limb_size, (3, L, 32)).astype(np.int16)).to(DEVICE)
-    p, q = lazy(), lazy()
+    lazy = lambda shape: torch.from_numpy(rng.integers(
+        0, 1 << CURVE.log_limb_size, (3, L) + shape).astype(np.int16)
+        ).to(DEVICE)
+    p, q = lazy((32,)), lazy((32,))
     table = torch.from_numpy(rng.integers(
         0, 1 << CURVE.log_limb_size, (32 * R, 2 * L)).astype(np.int16)
         ).to(DEVICE)
     pay = torch.from_numpy((rng.permutation(32 * R) << 1).astype(np.int32)
                            ).to(DEVICE)[None]
-    # some 20 ms of two warps, while 50 launches are enqueued behind them
-    busy = lambda: kernels.prefix_scan(table, pay.repeat(1, 16), CURVE, 32,
-                                       _threads_per_lane=2)
     padd_ms = queued_ms(lambda: kernels.padd_batch(p, q, CURVE), 50, busy)
     step = {G: cuda_ms(lambda: kernels.prefix_scan(
         table, pay, CURVE, 32, _threads_per_lane=G), 20) / R
         for G in kernels.SCAN_THREADS_PER_LANE}
+    # pbpr_full on one window of 8 lanes: the two calls differ by
+    # Bt1 - Bt0 stage-1 steps and log2(Bt1 / Bt0) doublings, each about
+    # as deep as a step
+    lo, hi = PBPR_STEP_BT
+    pb = {Bt: cuda_ms(lambda: kernels.pbpr_full(b, CURVE, 8), 10)
+          for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
+    extra = (hi // lo).bit_length() - 1
+    pbpr_step = (pb[hi] - pb[lo]) / (hi - lo + extra)
     print(f"[latency] 32 lanes, one warp of lanes: padd_batch {padd_ms:.4f} "
           f"ms a launch; prefix_scan (R={R}) ms a step by threads per lane "
           + ", ".join(f"{G}: {t:.5f}" for G, t in step.items())
-          + f" (the 2^{max(SIZES)} shape runs {scan_G}) [{card}]", flush=True)
-    return dict(padd_ms=padd_ms, scan_step_ms=step)
+          + f" (the 2^{max(SIZES)} shape runs {scan_G}); pbpr_full stage-1 "
+          f"step (two adds at once) {pbpr_step:.5f} ms, from (1, 8 * Bt) "
+          f"buckets at T = 8: Bt = {lo} {pb[lo]:.4f} ms, Bt = {hi} "
+          f"{pb[hi]:.4f} ms [{card}]", flush=True)
+    return dict(padd_ms=padd_ms, scan_step_ms=step, pbpr_step_ms=pbpr_step,
+                pbpr_one_warp_ms=pb)
 
 
 def first_group(seen: dict):
@@ -536,6 +783,7 @@ def check_size(logn: int, card: str):
     sweep = scan_sweep(seen, tag, card, reps)
     if logn == min(SIZES):
         edge_shapes(seen, card)
+    pbpr_edge = pbpr_edges(seen, card) if logn == max(SIZES) else None
     tbuf, S = first_group(seen)
     buckets = seen["pbpr_full"][1][0]
     gall = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
@@ -566,13 +814,15 @@ def check_size(logn: int, card: str):
     torch.cuda.empty_cache()
     return dict(main=results, glv=results_glv, reduce_launches=red[0],
                 reduce_ms=red[1], globalize_launches=glob, apply_glv_ms=glv_ms,
-                scan_sweep=sweep, scan_sweep_glv=sweep_glv)
+                scan_sweep=sweep, scan_sweep_glv=sweep_glv,
+                pbpr_edges=pbpr_edge)
 
 
 def main_path(logn: int, card: str, glv: bool = False):
     """Phase 6 (or, with glv, phase 7) at one size. Returns the launch
-    counts of the user call, the timings, and the threads per lane that
-    the user call's scans were launched with."""
+    counts of the user call, the timings, the threads per lane that the
+    user call's scans were launched with, and the geometry its pbpr_full
+    was launched with."""
     n = 1 << logn
     cfg = config(logn, glv)
     _, _, hw, base, want = inputs(logn)
@@ -588,6 +838,7 @@ def main_path(logn: int, card: str, glv: bool = False):
     t_user = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     scan_G = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
+    pbpr_geo = dict(kernels.LAUNCHED["pbpr_full"])
     if not ref.jac_eq(CURVE, got, want):
         raise AssertionError(f"2^{logn} {label}: MSM result differs from "
                              "the oracle")
@@ -597,9 +848,10 @@ def main_path(logn: int, card: str, glv: bool = False):
     used = {k: v for k, v in launches.items() if v}
     print(f"[{label}] n=2^{logn} tpu_variable_base_msm EXACT in {t_user:.2f} s"
           f" (host pack included) launches={used}, the scan with {scan_G} "
-          f"threads a lane [{card}]", flush=True)
+          f"threads a lane, pbpr_full launched {pbpr_geo} [{card}]",
+          flush=True)
 
-    return (launches, *timed_runs(cfg, logn, label, card), scan_G)
+    return (launches, *timed_runs(cfg, logn, label, card), scan_G, pbpr_geo)
 
 
 def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str):
@@ -658,7 +910,8 @@ def schedule_run(card: str):
 
 def where_line(label: str, logn: int, launches: dict, results: dict,
                total_ms: float, card: str, extra: str = "") -> None:
-    """launches x kernel time (padd_batch: mean of its two dtype forms)."""
+    """launches x kernel time (padd_batch: mean of its two dtype forms);
+    returns the kernels' sum."""
     per = {name: launches[name] * statistics.mean(
         r["ms"] for r in results.values() if r["name"] == name)
         for name in MAIN}
@@ -666,6 +919,7 @@ def where_line(label: str, logn: int, launches: dict, results: dict,
         f"{k} {v:.2f}" for k, v in per.items()) + f" ms; kernels "
         f"{sum(per.values()):.2f} of {total_ms:.2f} ms end to end{extra} "
         f"[{card}]", flush=True)
+    return sum(per.values())
 
 
 def affine_check(logn: int, card: str, glv: bool) -> float:
@@ -701,6 +955,17 @@ def affine_check(logn: int, card: str, glv: bool) -> float:
     return ms
 
 
+def kernel_name(fn: str) -> str:
+    """`name` of a mangled `<name>_kernel<...>` symbol: the identifier
+    that its length, in decimal, precedes."""
+    head = fn.split("_kernelI")[0]
+    for i in range(len(head) - 1, 0, -1):
+        if (head[i].isalpha() and head[i - 1].isdigit()
+                and head[:i].endswith(str(len(head) - i + 7))):
+            return head[i:]
+    raise ValueError(f"no kernel name in {fn}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -717,19 +982,40 @@ def main() -> int:
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {_build.build_seconds})", flush=True)
     resources = {}
-    for stem in ("col_prefix", "prefix_scan"):
+    for stem in ("col_prefix", "prefix_scan", "pbpr_full"):
         for fn, regs, stack, st, ld in _build.resources(stem):
-            # template arguments <L, W[, G]> from the mangled name
+            # kernel name and template arguments <L, W[, G]> from the
+            # mangled name
+            kname = kernel_name(fn)
             targs = re.findall(r"Li(\d+)E",
                                fn.split("_kernelI")[1].split("Ev")[0])
             if int(targs[0]) != CURVE.num_limbs:
                 continue
-            resources[f"{stem}<{', '.join(targs)}>"] = dict(
+            resources[f"{stem}.{kname}<{', '.join(targs)}>"] = dict(
                 registers=regs, stack_bytes=stack, spill_store_bytes=st,
                 spill_load_bytes=ld)
     for k, v in resources.items():
         print(f"[ptxas] {k}: {v} [{card}]", flush=True)
 
+    return run_all(card, t_start, resources)
+
+
+def warm_plain() -> None:
+    """The plain point formulas once on two lanes, so that no compared
+    plain version is timed with PyTorch's first-use set-up on the card,
+    which can take seconds."""
+    z = kernels.inf_stacked(CURVE, (2,), DEVICE)
+    kernels.padd_batch_plain(z, z, CURVE)
+    kernels.pdbl_batch_plain(z, CURVE)
+    kernels.encode_mont_plain(z[0], CURVE)
+    kernels.decompose_digits_plain(
+        torch.zeros((18, 2), dtype=torch.int32, device=DEVICE), 13, 20)
+    torch.cuda.synchronize()
+
+
+def run_all(card: str, t_start: float, resources: dict) -> int:
+    """Phases 3 to 10."""
+    warm_plain()
     checks = {logn: check_size(logn, card) for logn in SIZES}
     runs = {logn: main_path(logn, card) for logn in SIZES}
     runs_glv = {logn: main_path(logn, card, glv=True) for logn in SIZES}
@@ -738,13 +1024,16 @@ def main() -> int:
     lanes_ms = lane_sweep(card)
     affine_ms = affine_check(min(SIZES), card, glv=False)
     affine_check(min(SIZES), card, glv=True)
+    rests = {logn: rest_split(logn) for logn in SIZES}
+    cpu_checks(checks[max(SIZES)]["pbpr_edges"], card)
 
     for logn in SIZES:
-        where_line("where", logn, runs[logn][0], checks[logn]["main"],
-                   runs[logn][1], card)
+        kern_ms = where_line("where", logn, runs[logn][0],
+                             checks[logn]["main"], runs[logn][1], card)
         where_line("where-glv", logn, runs_glv[logn][0], checks[logn]["glv"],
                    runs_glv[logn][1], card,
                    f"; apply_glv {checks[logn]['apply_glv_ms']:.2f} ms")
+        rest_line(logn, rests[logn], runs[logn][1] - kern_ms, card)
 
     entries = []
     for name in KERNELS:
@@ -768,7 +1057,8 @@ def main() -> int:
             entry.update({
                 f"launches{sfx}": launches,
                 f"max_abs_err{sfx}": r["max_abs_err"],
-                f"ms{sfx}": r["ms"], f"plain_ms{sfx}": r["plain_ms"],
+                f"ms{sfx}": r["ms"], f"ms_back_to_back{sfx}": r["ms_cuda"],
+                f"plain_ms{sfx}": r["plain_ms"],
                 f"bound_ms{sfx}": r["bound_ms"],
                 f"bound_by{sfx}": r["bound_by"],
                 f"library_ms{sfx}": None})
@@ -782,6 +1072,10 @@ def main() -> int:
                     f"max_abs_err_glv{sfx}": rg["max_abs_err"]})
             if name == "padd_batch":
                 entry[f"launches_reduce{sfx}"] = c["reduce_launches"][name]
+            if name == "pbpr_full":
+                # as the user call launched it (kernels.LAUNCHED)
+                entry[f"launched{sfx}"] = runs[logn][4]
+                entry[f"launched_glv{sfx}"] = runs_glv[logn][4]
             if name == "prefix_scan":
                 for key, sw, run in (
                         ("", c["scan_sweep"], runs[logn]),
@@ -794,6 +1088,15 @@ def main() -> int:
             levels = max(default_config(1 << max(SIZES), CURVE
                                         ).columns.bit_length() - 1, 1)
             entry["depth_floor_ms"] = levels * lat["padd_ms"]
+        if name == "pbpr_full":
+            # (Bt + 1) stage-1 steps, 2 log2 T scan levels, log2 Bt
+            # doublings and one add, each taken as one stage-1 step
+            cfg = default_config(1 << max(SIZES), CURVE)
+            T = cfg.pbpr_threads
+            Bt = cfg.half_columns // T
+            depth = (Bt + 1 + 2 * (T.bit_length() - 1)
+                     + Bt.bit_length() - 1 + 1)
+            entry["depth_floor_ms"] = depth * lat["pbpr_step_ms"]
         if name == "prefix_scan":
             for key, run in (("", runs), ("_glv", runs_glv)):
                 R = (2 if key else 1) * (1 << max(SIZES)) // default_config(
@@ -818,6 +1121,8 @@ def main() -> int:
         "schedule": {**SCHEDULE, "msm_ms": sched_ms,
                      "launches": sched_launches},
         "latency_32_lanes": lat, "scan_by_lanes": lanes_ms,
+        "pbpr_full_edges": checks[max(SIZES)]["pbpr_edges"],
+        "rest_ms": {f"2^{k}": v for k, v in rests.items()},
         "ptxas": resources,
         "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -56,8 +56,8 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
-"""The geometry that the last launch of `prefix_scan` and of `col_prefix`
-passed to its kernel, written where the kernel launches."""
+"""The geometry that the last launch of `prefix_scan`, `col_prefix` and
+`pbpr_full` passed to its kernel, written where the kernel launches."""
 
 
 def reset_launches() -> None:
@@ -504,6 +504,75 @@ def pbpr_full_plain(buckets: torch.Tensor, curve: CurveParams,
     return _stack(rows.padd_rows(m, g, curve))
 
 
+def pbpr_scan_levels(T: int) -> list:
+    """(shift k, lane stride of the m half, lane stride of the g half) of
+    each level of the two lane scans of `pbpr_full`'s kernel, phase A then
+    phase B, as many levels each; the kernel reads this table
+    (`_pbpr_levels`) and takes the mask on phase B's first level. A level
+    computes the lanes t of each half that are multiples of its stride. Only the sums that a later step reads are computed,
+    and these are the plain version's sums at those lanes: phase B reads
+    every m lane of phase A, so phase A computes them all; the rest feeds
+    lane 0 alone, which at the level of shift k reads lanes 0 and 2k of
+    the level before (and so on down), so there every 2k-th lane."""
+    bits = max(T.bit_length() - 1, 0)
+    return ([(1 << lv, 1, 2 << lv) for lv in range(bits)]
+            + [(1 << lv, 2 << lv, 2 << lv) for lv in range(bits)])
+
+
+def pbpr_full_geometry(Wp: int, B: int, T: int, sms: int,
+                       blocks_per_sm: int, threads: int,
+                       threads_per_add: int) -> Tuple[int, int, int]:
+    """(stage-1 blocks, scan blocks, adds a chain) of one pbpr_full call:
+    a pure function, so the CPU tests can hold it.
+
+    Stage 1 gives each of the Wp * T lanes 2 * threads_per_add threads of
+    one warp (the m add and the g add run at once): an ordinary launch of
+    as many one-warp blocks as that takes. The scans and the
+    tail are one cooperative launch, so every block must be resident at
+    once: never more than sms * blocks_per_sm blocks of threads /
+    threads_per_add add chains. Chain c of a level takes adds c,
+    c + chains, ... of it (the widest level is phase A's first; with
+    T = 1 the tail's Wp)."""
+    G = threads_per_add
+    if (min(Wp, B, T, sms, blocks_per_sm, G) < 1 or B % T
+            or threads % 32 or 32 % (2 * G)):
+        raise ValueError("pbpr_full_geometry: no launch for "
+                         f"(Wp={Wp}, B={B}, T={T}, sms={sms}, "
+                         f"blocks_per_sm={blocks_per_sm}, threads={threads}, "
+                         f"threads_per_add={G})")
+    chains_per_block = threads // G
+    stage1 = -(-Wp * T // (32 // (2 * G)))
+    widest = max([Wp * (T // sm + T // sg)
+                  for _, sm, sg in pbpr_scan_levels(T)] + [Wp])
+    scan = min(-(-widest // chains_per_block), sms * blocks_per_sm)
+    return stage1, scan, -(-widest // (scan * chains_per_block))
+
+
+@functools.lru_cache(maxsize=None)
+def _pbpr_full_limits(curve: CurveParams, device: torch.device
+                      ) -> Tuple[int, int, int, int]:
+    """(SMs, resident blocks an SM, threads a block, threads an add) of
+    the scan kernel of pbpr_full."""
+    L, w = _profile("pbpr_full", curve)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        rc = _build.library().msm_pbpr_full_limits(
+            L, w, *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError("pbpr_full: occupancy query failed "
+                           f"(cudaError_t {rc})")
+    per_sm, sms, threads, per_add = (v.value for v in out)
+    return sms, per_sm, threads, per_add
+
+
+@functools.lru_cache(maxsize=None)
+def _pbpr_levels(T: int, device: torch.device) -> torch.Tensor:
+    """`pbpr_scan_levels(T)` flattened to int32 on the device: the table
+    the kernel's scan levels run from."""
+    return torch.tensor(pbpr_scan_levels(T), dtype=I32,
+                        device=device).reshape(-1)
+
+
 def pbpr_full(buckets: torch.Tensor, curve: CurveParams,
               threads: int) -> torch.Tensor:
     """Whole PBPR: (3, L, Wp, B) int16 buckets (slot b = multiplier b+1)
@@ -514,15 +583,22 @@ def pbpr_full(buckets: torch.Tensor, curve: CurveParams,
         return pbpr_full_plain(buckets, curve, threads)
     L, w = _profile("pbpr_full", curve)
     _need("pbpr_full", buckets, I16, 4)
-    if T > 512:
-        raise ValueError("pbpr_full: at most 512 threads per window")
+    if buckets.data_ptr() % 4:
+        raise ValueError("pbpr_full: the buckets must be 4-byte aligned")
+    sms, per_sm, nthreads, G = _pbpr_full_limits(curve, buckets.device)
+    stage1, scan, per_chain = pbpr_full_geometry(
+        Wp, B, T, sms, per_sm, nthreads, G)
+    levels = _pbpr_levels(T, buckets.device)
     out = torch.empty((3, L, Wp), dtype=I32, device=buckets.device)
-    scratch = torch.empty((2, Wp, 2, 3, L, T), dtype=I32,
-                          device=buckets.device)
+    xchg = torch.empty((2, 3, L, 2 * Wp * T), dtype=I16,
+                       device=buckets.device)
     rc = _build.library().msm_pbpr_full(
-        L, w, buckets.data_ptr(), out.data_ptr(), scratch.data_ptr(), Wp, B, T,
+        L, w, buckets.data_ptr(), out.data_ptr(), xchg.data_ptr(),
+        levels.data_ptr(), levels.numel() // 3, Wp, B, T, stage1, scan,
         _consts(curve, buckets.device).data_ptr(), _stream(buckets))
     _check("pbpr_full", rc)
+    LAUNCHED["pbpr_full"] = dict(stage1_blocks=stage1, scan_blocks=scan,
+                                 threads_per_add=G, adds_per_chain=per_chain)
     return out
 
 
