@@ -5,15 +5,22 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. print the card's name and power limit; require CUDA;
-  2. build the kernels of tpu_msm_torch/csrc (timed as set-up);
+  2. build the kernels of tpu_msm_torch/csrc (timed as set-up); print
+     what ptxas said of the redesigned kernels (`[ptxas]`: registers,
+     stack frame, spills) and, for the two on the word-wide multiply,
+     their instructions by kind from cuobjdump -sass (`[sass]`);
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
      and 2^20 (captured from a warm-up run of the device program, without
      GLV and with it): the CUDA kernel against its plain PyTorch version
      on the same CUDA inputs, bit-identical, with times from CUDA events
      (a kernel under QUEUE_BELOW_MS back to back is timed again queued
      behind a busy call, which leaves out its wrapper's host cost; both
-     times are printed). The six kernels of the main path at both
-     configurations;
+     times are printed; `encode_mont` and `padd_batch` also print their
+     bound by the 12-bit multiply's count, mont_mul_ops, beside their
+     own).
+     The six kernels of the main path at both configurations, and
+     `psub_batch` (the padd kernel negating q on load) against its own
+     plain version, `padd_batch` of `pneg_stacked`;
      `pbpr_stage1` on the buckets `pbpr_full` received; `pdbl_batch` on
      one (3, L, Wg, B+1) batch and on the (3, L, Wp) sum that
      `bucket_reduce` doubles; `globalize` on the first window group's
@@ -26,6 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      and (16, 8192), more columns than resident threads; `prefix_scan` at
      R = 1 and at 111 lanes with a point twice in a row and a point
      followed by its negative, for every number of threads per lane;
+     `padd_batch` and `psub_batch` at F = 1, 37 and 333 with infinity on
+     either side, P + P, P + (-P) and int16 limbs at the ends of the
+     ledger, and `encode_mont` on 0, 1 and p - 1;
      at 2^20, `pbpr_full` at PBPR_EDGES (T = 1, T = B, T = 1024 and 2048,
      one window, B = 2^15 with T = 32), with the geometry it launched
      (the narrow ones are held against plain versions run on the CPU
@@ -46,9 +56,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      largest size once more under SCHEDULE, a window group of 16 that
      gives the scan 131,072 lanes and `col_prefix` several columns a
      thread, EXACT, recorded and not made the default; and (`[latency]`)
-     one `padd_batch`, one scan step and one `pbpr_full` stage-1 step on
-     a single warp, from which the depth floors of `col_prefix`,
-     `prefix_scan` and `pbpr_full` follow;
+     one `padd_batch` on 32 lanes, and one `col_prefix` level, one scan
+     step and one `pbpr_full` stage-1 step on a single warp, from which
+     the depth floors of `col_prefix`, `prefix_scan` and `pbpr_full`
+     follow;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes,
      with four lane counts about the two edges of the launcher's rule,
      for every number of threads per lane;
@@ -84,7 +95,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_msm_torch import _build, to_affine  # noqa: E402
 from tpu_msm_torch.config import MSMConfig, default_config  # noqa: E402
-from tpu_msm_torch.constants import BN254_S12  # noqa: E402
+from tpu_msm_torch.constants import BN254_S12, int_to_limbs  # noqa: E402
 from tpu_msm_torch.cuzk import glv as glv_dev  # noqa: E402
 from tpu_msm_torch.cuzk import kernels  # noqa: E402
 from tpu_msm_torch.cuzk import pbpr  # noqa: E402
@@ -148,6 +159,22 @@ def mont_mul_ops(L: int) -> int:
     return 2 * L * (2 * L + 2)
 
 
+def mul_wide_mads(L: int, w: int) -> int:
+    """int32 multiply and multiply-add instructions of one word-wide
+    Montgomery multiply (csrc/mul_wide.cuh), each .lo and .hi half
+    counted: N = ceil(L w / 32) words, NF = NP = floor(L w / 32); N^2
+    word products for a b, then NF whole-word reductions and one of the
+    last bits, each an m digit (one .lo) and NP word products of m p.
+    315 at L = 22 (1,012 multiply-adds in Field::mul)."""
+    n, nf = -(-L * w // 32), L * w // 32
+    return 2 * n * n + (nf + 1) * (1 + 2 * nf)
+
+
+# The kernels whose Montgomery multiply is the word-wide one: their
+# operations bound counts mul_wide_mads, and mont_mul_ops beside it.
+WIDE = ("encode_mont", "padd_batch")
+
+
 def bound_ms(nbytes: int, ops: int):
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = ops / INT32_OPS_PER_S
@@ -158,11 +185,16 @@ def as_tuple(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def work(name: str, args, out) -> tuple:
+def work(name: str, args, out, wide: bool = True) -> tuple:
     """(bytes moved, int32 operations) of one call: each input read once,
-    each output written once; operations from the shapes."""
+    each output written once; operations from the shapes. A kernel of
+    WIDE counts its own multiply's mul_wide_mads (2 operations each, as
+    a multiply-add counts); with wide=False, the 12-bit multiply's
+    mont_mul_ops."""
     L = CURVE.num_limbs
     mm = mont_mul_ops(L)
+    if wide and name in WIDE:
+        mm = 2 * mul_wide_mads(L, CURVE.log_limb_size)
     nbytes = sum(a.numel() * a.element_size() for a in args + as_tuple(out)
                  if isinstance(a, torch.Tensor))
     if name == "encode_mont":
@@ -273,17 +305,17 @@ def timed_once(fn):
 @contextlib.contextmanager
 def spy(seen: dict, targets):
     """While active, keep (name, args, kwargs, output) of the first call of
-    every (module, name) in `targets`, tensors cloned; padd_batch is kept
-    once per dtype form."""
+    every (module, name) in `targets`, tensors cloned; padd_batch and
+    psub_batch are kept once per dtype form."""
     orig = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def wrap(name, fn):
         def call(*args, **kw):
             key = name
-            if name == "padd_batch":
+            if name in ("padd_batch", "psub_batch"):
                 od = kw.get("out_dtype", args[3] if len(args) > 3 else
                             torch.int32)
-                key = f"padd_batch[{args[0].dtype}->{od}]"
+                key = f"{name}[{args[0].dtype}->{od}]"
             out = fn(*args, **kw)
             if key not in seen:
                 keep = lambda a: a.clone() if isinstance(a, torch.Tensor) \
@@ -327,7 +359,7 @@ def capture_inputs(logn: int, glv: bool) -> dict:
     xs, ys, hw, _, _ = inputs(logn)
     hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
     dev = torch.device(DEVICE)
-    targets = [(kernels, k) for k in MAIN]
+    targets = [(kernels, k) for k in MAIN + ("psub_batch",)]
     targets += [(pipeline_cuda, "boundary_positions"), (glv_dev, "apply_glv")]
     with spy({}, targets) as seen:
         pipeline_cuda.windows_device(
@@ -338,11 +370,17 @@ def capture_inputs(logn: int, glv: bool) -> dict:
     return seen
 
 
-def compare(key: str, name: str, args, kw, tag: str, card: str, reps: int
+# A wrapper that launches another wrapper's kernel.
+KERNEL_OF = {"psub_batch": "padd_batch"}
+
+
+def compare(key: str, fn: str, args, kw, tag: str, card: str, reps: int
             ) -> dict:
-    """One kernel against its plain version on the same CUDA inputs."""
-    kern = getattr(kernels, name)
-    plain = getattr(kernels, name + "_plain")
+    """One kernel, through wrapper `fn`, against the wrapper's plain
+    version on the same CUDA inputs."""
+    name = KERNEL_OF.get(fn, fn)
+    kern = getattr(kernels, fn)
+    plain = getattr(kernels, fn + "_plain")
     got = kern(*args, **kw)
     want, plain_ms = timed_once(lambda: plain(*args, **kw))
     if plain_ms < PLAIN_COLD_MS:
@@ -366,22 +404,31 @@ def compare(key: str, name: str, args, kw, tag: str, card: str, reps: int
     t = queued_ms(call, QUEUE_REPS, busy) if queued else t_cuda
     nbytes, ops = work(name, args, got)
     b_ms, b_by = bound_ms(nbytes, ops)
+    extra, note = {}, ""
+    if name in WIDE:
+        b_old, by_old = bound_ms(nbytes, work(name, args, got, False)[1])
+        extra = dict(bound_ms_mont_mul_ops=b_old, bound_by_mont_mul_ops=by_old)
+        note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
+    if name == "padd_batch":
+        extra["launched"] = dict(kernels.LAUNCHED[name])
+        note += f" launched={extra['launched']}"
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
     how = "queued behind a busy call" if queued else "back to back"
     print(f"[kernel] {key} {tag} in={shape} "
           f"out={[tuple(o.shape) for o in as_tuple(got)]} "
           f"ms={t:.4f} ({how}) cuda_ms={t_cuda:.4f} (back to back, the "
           f"wrapper's host cost included) plain_ms={plain_ms:.1f} "
-          f"bound_ms={b_ms:.4f} ({b_by}) bit-identical max_abs_err={err} "
-          f"[{card}]", flush=True)
+          f"bound_ms={b_ms:.4f} ({b_by}){note} bit-identical "
+          f"max_abs_err={err} [{card}]", flush=True)
     return dict(name=name, ms=t, ms_cuda=t_cuda, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, **extra)
 
 
 def check_main_kernels(seen: dict, tag: str, card: str, reps: int) -> dict:
     """Phase 3 for the six kernels of the main path."""
     results = {key: compare(key, name, args, kw, tag, card, reps)
-               for key, (name, args, kw, _) in seen.items() if name in MAIN}
+               for key, (name, args, kw, _) in seen.items()
+               if KERNEL_OF.get(name, name) in MAIN}
     missing = set(MAIN) - {r["name"] for r in results.values()}
     if missing:
         raise AssertionError(f"kernels never called at {tag}: {missing}")
@@ -417,6 +464,54 @@ def same_as_plain(label: str, name: str, args, kw=None) -> None:
     if got.dtype != want.dtype or not torch.equal(got, want):
         raise AssertionError(f"[edge] {label}: kernel differs from its "
                              "plain version")
+
+
+def wide_edges(seen: dict, card: str) -> None:
+    """`padd_batch`, the in-kernel `psub_batch` and `encode_mont` against
+    their plain versions at shapes and values the main path may not
+    reach: F = 1; F = 37 and 333, no multiple of the 5 lanes of a warp;
+    infinity on either side, P + P and P + (-P); int16 limbs at both ends
+    of the (-2^12, 2^13) ledger; every dtype form. encode_mont on the
+    limbs of 0, 1 and p - 1."""
+    L, w = CURVE.num_limbs, CURVE.log_limb_size
+    pts = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
+    pts = pts.reshape(3, L, -1)                       # real G points, int32
+    rng = np.random.default_rng(5)
+    inf = kernels.inf_stacked(CURVE, (), DEVICE)
+    pick = lambda F: torch.from_numpy(rng.integers(0, pts.shape[2], F)).to(
+        DEVICE)
+    cases = {"F=1": (pts[..., :1], pts[..., 1:2])}
+    p, q = pts[..., pick(37)], pts[..., pick(37)]
+    p[..., 0], q[..., 1], p[..., 2], q[..., 2] = inf, inf, inf, inf
+    q[..., 3] = p[..., 3]                             # P + P
+    q[..., 4] = kernels.pneg_stacked(p[..., 4], CURVE)  # P + (-P)
+    cases["F=37 infinity, P+P, P+(-P)"] = (p, q)
+    ends = torch.tensor([-(1 << w) + 1, (1 << (w + 1)) - 1],
+                        dtype=torch.int32, device=DEVICE)
+    p, q = pts[..., pick(333)].clone(), pts[..., pick(333)].clone()
+    for t in (p, q):
+        at = torch.from_numpy(rng.random(t.shape) < 0.3).to(DEVICE)
+        at[:, L - 1] = False                          # top limbs stay small
+        t[at] = ends[torch.from_numpy(rng.integers(0, 2, int(at.sum()))
+                                      ).to(DEVICE)]
+    cases["F=333 limbs at the ledger's ends"] = (p, q)
+    n = 0
+    for label, (p, q) in cases.items():
+        for dt_in in (torch.int16, torch.int32):
+            a, b = p.to(dt_in).contiguous(), q.to(dt_in).contiguous()
+            for dt_out in (torch.int16, torch.int32):
+                for fn in ("padd_batch", "psub_batch"):
+                    same_as_plain(f"{fn} {label} {dt_in}->{dt_out}", fn,
+                                  (a, b, CURVE, dt_out))
+                    n += 1
+    print(f"[edge] padd_batch and psub_batch bit-identical to their plain "
+          f"versions in {n} launches: {', '.join(cases)}; int16 and int32 in "
+          f"and out [{card}]", flush=True)
+    xs = torch.tensor([int_to_limbs(v, L, w) for v in (0, 1, CURVE.p - 1)],
+                      dtype=torch.int32).T.contiguous().to(DEVICE)
+    same_as_plain("encode_mont of 0, 1, p - 1", "encode_mont", (xs, CURVE))
+    print(f"[edge] encode_mont bit-identical to its plain version on the "
+          f"limbs of 0, 1 and p - 1 [{card}]", flush=True)
 
 
 def edge_shapes(seen: dict, card: str) -> None:
@@ -671,9 +766,15 @@ def lane_sweep(card: str) -> dict:
 PBPR_STEP_BT = (32, 256)
 
 
+# Column counts of the two col_prefix calls on one warp (one window,
+# log2 C levels) whose difference gives the time of one level.
+COL_LEVEL_C = (2, 32)
+
+
 def latency(card: str, scan_G: int) -> dict:
-    """One complete add, one scan step and one pbpr_full stage-1 step on a
-    single warp: 32 lanes (8 for pbpr_full, four threads each)."""
+    """One `padd_batch` launch on 32 lanes; one col_prefix level, one scan
+    step and one pbpr_full stage-1 step on a single warp (32 lanes; 8 for
+    pbpr_full, four threads each)."""
     L, R = CURVE.num_limbs, 128
     rng = np.random.default_rng(11)
     lazy = lambda shape: torch.from_numpy(rng.integers(
@@ -686,6 +787,14 @@ def latency(card: str, scan_G: int) -> dict:
     pay = torch.from_numpy((rng.permutation(32 * R) << 1).astype(np.int32)
                            ).to(DEVICE)[None]
     padd_ms = queued_ms(lambda: kernels.padd_batch(p, q, CURVE), 50, busy)
+    padd_geo = dict(kernels.LAUNCHED["padd_batch"])
+    # col_prefix on one window: one block, C threads of one warp,
+    # max(log2 C, 1) levels a launch; the two calls differ by 4 levels
+    cols = {C: lazy((1, C)) for C in COL_LEVEL_C}
+    col = {C: queued_ms(lambda: kernels.col_prefix(cols[C], CURVE), 50, busy)
+           for C in COL_LEVEL_C}
+    lv = [max(C.bit_length() - 1, 1) for C in COL_LEVEL_C]
+    col_level = (col[COL_LEVEL_C[1]] - col[COL_LEVEL_C[0]]) / (lv[1] - lv[0])
     step = {G: cuda_ms(lambda: kernels.prefix_scan(
         table, pay, CURVE, 32, _threads_per_lane=G), 20) / R
         for G in kernels.SCAN_THREADS_PER_LANE}
@@ -697,14 +806,19 @@ def latency(card: str, scan_G: int) -> dict:
           for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
     extra = (hi // lo).bit_length() - 1
     pbpr_step = (pb[hi] - pb[lo]) / (hi - lo + extra)
-    print(f"[latency] 32 lanes, one warp of lanes: padd_batch {padd_ms:.4f} "
-          f"ms a launch; prefix_scan (R={R}) ms a step by threads per lane "
+    print(f"[latency] padd_batch on 32 lanes {padd_ms:.4f} ms a launch "
+          f"(launched {padd_geo}); one warp of lanes: col_prefix "
+          f"{col_level:.5f} ms a level, from one window of C columns (C = "
+          + ", ".join(f"{C} {t:.4f} ms" for C, t in col.items())
+          + f"); prefix_scan (R={R}) ms a step by threads per lane "
           + ", ".join(f"{G}: {t:.5f}" for G, t in step.items())
           + f" (the 2^{max(SIZES)} shape runs {scan_G}); pbpr_full stage-1 "
           f"step (two adds at once) {pbpr_step:.5f} ms, from (1, 8 * Bt) "
           f"buckets at T = 8: Bt = {lo} {pb[lo]:.4f} ms, Bt = {hi} "
           f"{pb[hi]:.4f} ms [{card}]", flush=True)
-    return dict(padd_ms=padd_ms, scan_step_ms=step, pbpr_step_ms=pbpr_step,
+    return dict(padd_ms=padd_ms, padd_launched=padd_geo,
+                col_prefix_level_ms=col_level, col_prefix_one_warp_ms=col,
+                scan_step_ms=step, pbpr_step_ms=pbpr_step,
                 pbpr_one_warp_ms=pb)
 
 
@@ -783,6 +897,7 @@ def check_size(logn: int, card: str):
     sweep = scan_sweep(seen, tag, card, reps)
     if logn == min(SIZES):
         edge_shapes(seen, card)
+        wide_edges(seen, card)
     pbpr_edge = pbpr_edges(seen, card) if logn == max(SIZES) else None
     tbuf, S = first_group(seen)
     buckets = seen["pbpr_full"][1][0]
@@ -822,7 +937,7 @@ def main_path(logn: int, card: str, glv: bool = False):
     """Phase 6 (or, with glv, phase 7) at one size. Returns the launch
     counts of the user call, the timings, the threads per lane that the
     user call's scans were launched with, and the geometry its pbpr_full
-    was launched with."""
+    and its last padd_batch were launched with."""
     n = 1 << logn
     cfg = config(logn, glv)
     _, _, hw, base, want = inputs(logn)
@@ -839,6 +954,7 @@ def main_path(logn: int, card: str, glv: bool = False):
     launches = dict(kernels.LAUNCHES)
     scan_G = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
     pbpr_geo = dict(kernels.LAUNCHED["pbpr_full"])
+    padd_geo = dict(kernels.LAUNCHED["padd_batch"])
     if not ref.jac_eq(CURVE, got, want):
         raise AssertionError(f"2^{logn} {label}: MSM result differs from "
                              "the oracle")
@@ -848,10 +964,11 @@ def main_path(logn: int, card: str, glv: bool = False):
     used = {k: v for k, v in launches.items() if v}
     print(f"[{label}] n=2^{logn} tpu_variable_base_msm EXACT in {t_user:.2f} s"
           f" (host pack included) launches={used}, the scan with {scan_G} "
-          f"threads a lane, pbpr_full launched {pbpr_geo} [{card}]",
-          flush=True)
+          f"threads a lane, pbpr_full launched {pbpr_geo}, the last "
+          f"padd_batch launched {padd_geo} [{card}]", flush=True)
 
-    return (launches, *timed_runs(cfg, logn, label, card), scan_G, pbpr_geo)
+    return (launches, *timed_runs(cfg, logn, label, card), scan_G, pbpr_geo,
+            padd_geo)
 
 
 def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str):
@@ -955,6 +1072,58 @@ def affine_check(logn: int, card: str, glv: bool) -> float:
     return ms
 
 
+# Element types as the mangled template arguments name them.
+MANGLED_TYPES = {"s": "int16", "i": "int32"}
+
+
+def template_args(fn: str, name: str) -> list:
+    """The template arguments of the mangled `<name><...>` in `fn`: each
+    int (Li<n>E) as a string, each element type by name."""
+    out = []
+    for m in re.finditer(r"Li(\d+)E|([a-z])|(E)", fn.split(name + "I", 1)[1]):
+        if m[3]:
+            break
+        out.append(m[1] or MANGLED_TYPES.get(m[2], m[2]))
+    return out
+
+
+# What the [sass] lines count, by opcode (IMAD.WIDE and IMAD.HI apart
+# from the other IMAD forms): the multiply-adds, the loads and stores by
+# state space (LD and ST without a suffix are generic), calls.
+SASS_KINDS = ("IMAD.WIDE", "IMAD.HI", "IMAD", "IADD3", "LD", "LDS", "LDG",
+              "LDL", "LDC", "ST", "STS", "STG", "STL", "CALL")
+
+
+def sass_counts(stem: str) -> dict:
+    """Instruction counts of every L = 22 kernel of csrc/<stem>.cu, read
+    from its object file with cuobjdump -sass. A kernel's listing holds
+    the out-of-line functions it calls (padd_batch's msm::mul_wide)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(_build.BUILD_DIR / f"{stem}.o")],
+                          capture_output=True, text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            targs = (template_args(m[1], "_kernel") if "_kernelI" in m[1]
+                     else [None])
+            cur = None
+            if targs[0] == str(CURVE.num_limbs):
+                cur = f"{kernel_name(m[1])}<{', '.join(targs)}>"
+                out[cur] = dict.fromkeys(("total",) + SASS_KINDS, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if cur and m:
+            op = m[2]
+            kind = next((k for k in ("IMAD.WIDE", "IMAD.HI") if
+                         op.startswith(k)), op.split(".")[0])
+            out[cur]["total"] += 1
+            if kind in out[cur]:
+                out[cur][kind] += 1
+    return out
+
+
 def kernel_name(fn: str) -> str:
     """`name` of a mangled `<name>_kernel<...>` symbol: the identifier
     that its length, in decimal, precedes."""
@@ -982,22 +1151,28 @@ def main() -> int:
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {_build.build_seconds})", flush=True)
     resources = {}
-    for stem in ("col_prefix", "prefix_scan", "pbpr_full"):
+    for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
+                 "padd_batch"):
         for fn, regs, stack, st, ld in _build.resources(stem):
-            # kernel name and template arguments <L, W[, G]> from the
-            # mangled name
-            kname = kernel_name(fn)
-            targs = re.findall(r"Li(\d+)E",
-                               fn.split("_kernelI")[1].split("Ev")[0])
+            # kernel name and template arguments <L, W[, G, types]> from
+            # the mangled name
+            targs = template_args(fn, "_kernel")
             if int(targs[0]) != CURVE.num_limbs:
                 continue
-            resources[f"{stem}.{kname}<{', '.join(targs)}>"] = dict(
+            resources[f"{stem}.{kernel_name(fn)}<{', '.join(targs)}>"] = dict(
                 registers=regs, stack_bytes=stack, spill_store_bytes=st,
                 spill_load_bytes=ld)
     for k, v in resources.items():
         print(f"[ptxas] {k}: {v} [{card}]", flush=True)
+    sass = {}
+    for stem in WIDE:
+        for fn, counts in sass_counts(stem).items():
+            sass[f"{stem}.{fn}"] = counts
+            print(f"[sass] {stem}.{fn}: " + ", ".join(
+                f"{k} {v}" for k, v in counts.items() if v or k == "LD")
+                + f" [{card}]", flush=True)
 
-    return run_all(card, t_start, resources)
+    return run_all(card, t_start, resources, sass)
 
 
 def warm_plain() -> None:
@@ -1006,6 +1181,7 @@ def warm_plain() -> None:
     which can take seconds."""
     z = kernels.inf_stacked(CURVE, (2,), DEVICE)
     kernels.padd_batch_plain(z, z, CURVE)
+    kernels.psub_batch_plain(z, z, CURVE)
     kernels.pdbl_batch_plain(z, CURVE)
     kernels.encode_mont_plain(z[0], CURVE)
     kernels.decompose_digits_plain(
@@ -1013,7 +1189,7 @@ def warm_plain() -> None:
     torch.cuda.synchronize()
 
 
-def run_all(card: str, t_start: float, resources: dict) -> int:
+def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     """Phases 3 to 10."""
     warm_plain()
     checks = {logn: check_size(logn, card) for logn in SIZES}
@@ -1070,8 +1246,14 @@ def run_all(card: str, t_start: float, resources: dict) -> int:
                     f"plain_ms_glv{sfx}": rg["plain_ms"],
                     f"bound_ms_glv{sfx}": rg["bound_ms"],
                     f"max_abs_err_glv{sfx}": rg["max_abs_err"]})
+            if name in WIDE:
+                entry[f"bound_ms_mont_mul_ops{sfx}"] = r[
+                    "bound_ms_mont_mul_ops"]
             if name == "padd_batch":
                 entry[f"launches_reduce{sfx}"] = c["reduce_launches"][name]
+                entry[f"launched{sfx}"] = runs[logn][5]
+                entry[f"ms_psub{sfx}"] = c["main"][
+                    f"psub_batch[{torch.int32}->{torch.int16}]"]["ms"]
             if name == "pbpr_full":
                 # as the user call launched it (kernels.LAUNCHED)
                 entry[f"launched{sfx}"] = runs[logn][4]
@@ -1087,7 +1269,7 @@ def run_all(card: str, t_start: float, resources: dict) -> int:
         if name == "col_prefix":
             levels = max(default_config(1 << max(SIZES), CURVE
                                         ).columns.bit_length() - 1, 1)
-            entry["depth_floor_ms"] = levels * lat["padd_ms"]
+            entry["depth_floor_ms"] = levels * lat["col_prefix_level_ms"]
         if name == "pbpr_full":
             # (Bt + 1) stage-1 steps, 2 log2 T scan levels, log2 Bt
             # doublings and one add, each taken as one stage-1 step
@@ -1123,7 +1305,7 @@ def run_all(card: str, t_start: float, resources: dict) -> int:
         "latency_32_lanes": lat, "scan_by_lanes": lanes_ms,
         "pbpr_full_edges": checks[max(SIZES)]["pbpr_edges"],
         "rest_ms": {f"2^{k}": v for k, v in rests.items()},
-        "ptxas": resources,
+        "ptxas": resources, "sass": sass,
         "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

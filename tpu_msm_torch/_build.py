@@ -37,7 +37,8 @@ SIGNATURES = {
     "msm_prefix_scan": [_I, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _P, _P],
     "msm_col_prefix": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "msm_col_prefix_limits": [_I, _I, _P, _P, _P],
-    "msm_padd_batch": [_I, _I, _I, _I, _P, _P, _P, _I64, _P, _P],
+    "msm_padd_batch": [_I, _I, _I, _I, _P, _P, _P, _I64, _I, _I, _I, _I,
+                       _P, _P, _P],
     "msm_pbpr_full": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                       _P],
     "msm_pbpr_full_limits": [_I, _I, _P, _P, _P, _P],

@@ -24,7 +24,8 @@ The first six are the main path (`pipeline_cuda.windows_device`);
 (`cuzk/pbpr.py`), and `globalize` is the full-stream form of the G = T + S
 step that the main path takes only at the bucket-region ends.
 
-`psub_batch` is `padd_batch` of `pneg_stacked(q)`; `pneg_stacked` and
+`psub_batch` is `padd_batch` of `pneg_stacked(q)`; on a CUDA tensor the
+padd kernel negates q itself as it loads it. `pneg_stacked` and
 `inf_stacked` stay plain torch, as the JAX package keeps them in XLA.
 Stacked points are (3, L, *batch) tensors: coordinate, limb, lanes.
 """
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -56,8 +57,9 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
-"""The geometry that the last launch of `prefix_scan`, `col_prefix` and
-`pbpr_full` passed to its kernel, written where the kernel launches."""
+"""The geometry that the last launch of `prefix_scan`, `col_prefix`,
+`padd_batch` and `pbpr_full` passed to its kernel, written where the
+kernel launches."""
 
 
 def reset_launches() -> None:
@@ -104,6 +106,30 @@ def _consts_host(curve: CurveParams) -> list:
 @functools.lru_cache(maxsize=None)
 def _consts(curve: CurveParams, device: torch.device) -> torch.Tensor:
     return torch.tensor(_consts_host(curve), dtype=I32, device=device)
+
+
+def _wide_consts_host(curve: CurveParams) -> list:
+    """The words of `WideConsts<L, W>` (csrc/mul_wide.cuh): p in the
+    floor(L w / 32) whole words that the multiply reduces one at a time,
+    n0 = -p^-1 mod 2^32, and R^2 mod p (R = 2^(L w)) in ceil(L w / 32)
+    words. Refuses a profile the word-wide multiply cannot take: L w a
+    multiple of 32 (no last partial step) or p too wide for the words."""
+    bits = curve.num_limbs * curve.log_limb_size
+    nf, n = bits // 32, -(-bits // 32)
+    if bits % 32 == 0 or curve.p >> (32 * nf):
+        raise ValueError(f"{curve.name}: the word-wide multiply needs L*w "
+                         "not a multiple of 32 and p < 2^(32 floor(L*w/32))")
+    words = lambda v, k: [(v >> (32 * i)) & 0xFFFFFFFF for i in range(k)]
+    n0 = -pow(curve.p, -1, 1 << 32) % (1 << 32)
+    return words(curve.p, nf) + [n0] + words(curve.r2_mod_p, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_consts(curve: CurveParams) -> ctypes.Array:
+    """`_wide_consts_host` in host memory; the C entry copies it into the
+    kernel's parameter struct. Cached, so its address stays valid."""
+    words = _wide_consts_host(curve)
+    return (ctypes.c_uint32 * len(words))(*words)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -178,7 +204,7 @@ def encode_mont(xs: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     out = torch.empty_like(xs)
     rc = _build.library().msm_encode_mont(
         L, w, xs.data_ptr(), out.data_ptr(), xs.shape[1],
-        _consts(curve, xs.device).data_ptr(), _stream(xs))
+        ctypes.addressof(_wide_consts(curve)), _stream(xs))
     _check("encode_mont", rc)
     return out
 
@@ -418,32 +444,104 @@ def padd_batch_plain(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
                   ).to(out_dtype)
 
 
-def padd_batch(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
-               out_dtype=I32) -> torch.Tensor:
-    """Complete projective add on stacked (3, L, *batch) int16 or int32
-    lazy points (values < 4p); returns the same shape in `out_dtype`."""
-    if p.shape != q.shape or p.dtype != q.dtype:
-        raise ValueError("padd_batch: p and q must share shape and dtype")
-    if not _on_cuda("padd_batch", p, q):
-        return padd_batch_plain(p, q, curve, out_dtype)
-    L, w = _profile("padd_batch", curve)
+def psub_batch_plain(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
+                     out_dtype=I32) -> torch.Tensor:
+    return padd_batch_plain(p, pneg_stacked(q, curve), curve, out_dtype)
+
+
+PADD_THREADS_PER_LANE = 6
+"""Threads of a warp that share a lane of the padd kernel
+(csrc/padd_batch.cu kG)."""
+PADD_MAX_WARPS = 4
+"""Warps a block of the padd kernel at most (csrc/padd_batch.cu kMaxWarps)."""
+
+
+class PaddGeometry(NamedTuple):
+    threads_per_lane: int
+    warps: int
+    lanes_per_block: int
+    blocks: int
+    threads: int
+    shared_bytes: int
+
+
+def padd_batch_geometry(F: int, sms: int, num_limbs: int = 22,
+                        limb_bits: int = 12) -> PaddGeometry:
+    """One padd_batch launch over F lanes on a card of `sms` SMs: a pure
+    function, so the CPU tests can hold it.
+
+    PADD_THREADS_PER_LANE (6) threads of one warp share a lane, 5 lanes a
+    warp (its last two threads idle). A lane keeps 15 L + 1 int32 words
+    in shared memory (csrc/padd_batch.cu LaneMem), beside the block's
+    copies of `Consts<L>` and `WideConsts<L, w>`. The rule: the fewest
+    warps a block, from 1 to PADD_MAX_WARPS, that keep to one block an SM.
+    So up to PADD_MAX_WARPS * 5 * sms lanes (2,640 on 132 SMs: the
+    reduction path's launches, F = 1) a launch is one block on each of at
+    most `sms` SMs and at most one warp a scheduler; above, blocks of four
+    warps (the main path's 16,388 and 32,769 lanes)."""
+    if F < 1 or sms < 1 or num_limbs < 1 or limb_bits < 1:
+        raise ValueError("padd_batch_geometry: F, sms, num_limbs and "
+                         "limb_bits must be >= 1")
+    G = PADD_THREADS_PER_LANE
+    per_warp = 32 // G
+    warps = min(PADD_MAX_WARPS, -(-F // (per_warp * sms)))
+    lanes = warps * per_warp
+    L, bits = num_limbs, num_limbs * limb_bits
+    # dynamic (the lanes) + static (Consts<L>, WideConsts<L, w>)
+    shared = 4 * (lanes * (15 * L | 1) + (8 * L + 3)
+                  + (bits // 32 + 1 + -(-bits // 32)))
+    return PaddGeometry(G, warps, lanes, -(-F // lanes), 32 * warps, shared)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _padd_launch(name: str, p: torch.Tensor, q: torch.Tensor,
+                 curve: CurveParams, out_dtype, negate: bool) -> torch.Tensor:
+    L, w = _profile(name, curve)
     if p.dtype not in _BITS or out_dtype not in _BITS:
-        raise ValueError("padd_batch: dtypes must be int16 or int32")
+        raise ValueError(f"{name}: dtypes must be int16 or int32")
     p, q = p.contiguous(), q.contiguous()
     F = p[0, 0].numel()
+    geo = padd_batch_geometry(F, _sm_count(p.device), L, w)
     out = torch.empty(p.shape, dtype=out_dtype, device=p.device)
     rc = _build.library().msm_padd_batch(
         L, w, _BITS[p.dtype], _BITS[out_dtype], p.data_ptr(), q.data_ptr(),
-        out.data_ptr(), F,
-        _consts(curve, p.device).data_ptr(), _stream(p))
+        out.data_ptr(), F, int(negate), geo.threads_per_lane, geo.warps,
+        geo.blocks, _consts(curve, p.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(p))
     _check("padd_batch", rc)
+    LAUNCHED["padd_batch"] = geo._asdict()
     return out
+
+
+def _same_points(name: str, p: torch.Tensor, q: torch.Tensor) -> None:
+    if p.shape != q.shape or p.dtype != q.dtype:
+        raise ValueError(f"{name}: p and q must share shape and dtype")
+
+
+def padd_batch(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
+               out_dtype=I32) -> torch.Tensor:
+    """Complete projective add on stacked (3, L, *batch) int16 or int32
+    lazy points (values < 4p); returns the same shape in `out_dtype`.
+    `padd_batch_geometry` picks the launch."""
+    _same_points("padd_batch", p, q)
+    if not _on_cuda("padd_batch", p, q):
+        return padd_batch_plain(p, q, curve, out_dtype)
+    return _padd_launch("padd_batch", p, q, curve, out_dtype, False)
 
 
 def psub_batch(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
                out_dtype=I32) -> torch.Tensor:
-    """p - q on stacked batches (q.y must be < 4p)."""
-    return padd_batch(p, pneg_stacked(q, curve), curve, out_dtype)
+    """p - q on stacked batches (q.y must be < 4p): `padd_batch` of
+    `pneg_stacked(q)`. On a CUDA tensor the padd kernel computes y -> 4p -
+    y in q's dtype as it loads q, and no negated copy is made."""
+    _same_points("psub_batch", p, q)
+    if not _on_cuda("psub_batch", p, q):
+        return padd_batch(p, pneg_stacked(q, curve), curve, out_dtype)
+    return _padd_launch("psub_batch", p, q, curve, out_dtype, True)
 
 
 # ---------------------------------------------------------------------------
