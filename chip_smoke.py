@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card's name and power limit; require CUDA;
   2. build the kernels of tpu_msm_torch/csrc (timed as set-up); print
      what ptxas said of the redesigned kernels (`[ptxas]`: registers,
-     stack frame, spills) and, for the two on the word-wide multiply,
+     stack frame, spills) and, for the four on the word-wide multiply,
      their instructions by kind from cuobjdump -sass (`[sass]`);
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
      and 2^20 (captured from a warm-up run of the device program, without
@@ -15,9 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the same CUDA inputs, bit-identical, with times from CUDA events
      (a kernel under QUEUE_BELOW_MS back to back is timed again queued
      behind a busy call, which leaves out its wrapper's host cost; both
-     times are printed; `encode_mont` and `padd_batch` also print their
-     bound by the 12-bit multiply's count, mont_mul_ops, beside their
-     own).
+     times are printed; the four kernels on the word-wide multiply,
+     `encode_mont`, `padd_batch`, `pbpr_stage1` and `globalize`, also
+     print their bound by the 12-bit multiply's count, mont_mul_ops,
+     beside their own).
      The six kernels of the main path at both configurations, and
      `psub_batch` (the padd kernel negating q on load) against its own
      plain version, `padd_batch` of `pneg_stacked`;
@@ -35,7 +36,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      followed by its negative, for every number of threads per lane;
      `padd_batch` and `psub_batch` at F = 1, 37 and 333 with infinity on
      either side, P + P, P + (-P) and int16 limbs at the ends of the
-     ledger, and `encode_mont` on 0, 1 and p - 1;
+     ledger, and `encode_mont` on 0, 1 and p - 1; `pbpr_stage1` at
+     (Wp, B, T) = STAGE1_EDGES (T = 1 with an odd lane count, T = B, a
+     slice of 3 buckets) with infinity and P + P in the chains, int16 and
+     int32 buckets; `globalize` at (R, F) = GLOBALIZE_EDGES (F = 1, R = 1,
+     F no multiple of a block's lanes) with S = T (P + P), S = -T
+     (P + (-P)) and S at infinity, every dtype pair;
      at 2^20, `pbpr_full` at PBPR_EDGES (T = 1, T = B, T = 1024 and 2048,
      one window, B = 2^15 with T = 32), with the geometry it launched
      (the narrow ones are held against plain versions run on the CPU
@@ -57,9 +63,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      gives the scan 131,072 lanes and `col_prefix` several columns a
      thread, EXACT, recorded and not made the default; and (`[latency]`)
      one `padd_batch` on 32 lanes, and one `col_prefix` level, one scan
-     step and one `pbpr_full` stage-1 step on a single warp, from which
-     the depth floors of `col_prefix`, `prefix_scan` and `pbpr_full`
-     follow;
+     step, one `pbpr_full` stage-1 step and one `pbpr_stage1` step on a
+     single warp, from which the depth floors of `col_prefix`,
+     `prefix_scan`, `pbpr_full` and `pbpr_stage1` follow;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes,
      with four lane counts about the two edges of the launcher's rule,
      for every number of threads per lane;
@@ -172,7 +178,7 @@ def mul_wide_mads(L: int, w: int) -> int:
 
 # The kernels whose Montgomery multiply is the word-wide one: their
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
-WIDE = ("encode_mont", "padd_batch")
+WIDE = ("encode_mont", "padd_batch", "pbpr_stage1", "globalize")
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -409,7 +415,7 @@ def compare(key: str, fn: str, args, kw, tag: str, card: str, reps: int
         b_old, by_old = bound_ms(nbytes, work(name, args, got, False)[1])
         extra = dict(bound_ms_mont_mul_ops=b_old, bound_by_mont_mul_ops=by_old)
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
-    if name == "padd_batch":
+    if name in ("padd_batch", "pbpr_stage1", "globalize"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
@@ -458,10 +464,11 @@ def scan_sweep(seen: dict, tag: str, card: str, reps: int) -> dict:
 
 def same_as_plain(label: str, name: str, args, kw=None) -> None:
     kw = kw or {}
-    got = getattr(kernels, name)(*args, **kw)
-    want = getattr(kernels, name + "_plain")(*args)
+    got = as_tuple(getattr(kernels, name)(*args, **kw))
+    want = as_tuple(getattr(kernels, name + "_plain")(*args))
     torch.cuda.synchronize()
-    if got.dtype != want.dtype or not torch.equal(got, want):
+    if any(g.dtype != w.dtype or not torch.equal(g, w)
+           for g, w in zip(got, want, strict=True)):
         raise AssertionError(f"[edge] {label}: kernel differs from its "
                              "plain version")
 
@@ -559,6 +566,65 @@ def edge_shapes(seen: dict, card: str) -> None:
           + ", ".join(done) + ", each with "
           f"{kernels.SCAN_THREADS_PER_LANE} threads per lane and with the "
           f"launcher's pick [{card}]", flush=True)
+
+
+# (Wp, B, T) of pbpr_stage1's [edge] shapes, cut from the buckets of the
+# smallest size: T = 1 (one lane a window, a chain of B + 1 steps, and 3
+# lanes, no multiple of the 2 lanes a warp), T = B (one bucket a slice),
+# and slices of 3 buckets over 224 lanes.
+STAGE1_EDGES = ((3, 64, 1), (16, 512, 512), (7, 96, 32))
+# (R, F) of globalize's [edge] shapes: F = 1, R = 1, and F no multiple of
+# the 20 lanes of a block.
+GLOBALIZE_EDGES = ((3, 1), (1, 37), (5, 333))
+
+
+def stage1_globalize_edges(seen: dict, card: str) -> None:
+    """`pbpr_stage1` and `globalize` against their plain versions at shapes
+    and values the two sizes may not reach, on the real points of the
+    captured run. In each slice of 3 or more buckets the second from the
+    top is infinity and the third equals the top one, so m adds P + P and
+    g adds P + P a step before; S of `globalize` is T's first row (P + P),
+    its negative (P + (-P)) and infinity at its first three lanes."""
+    L = CURVE.num_limbs
+    buckets = seen["pbpr_full"][1][0]                   # (3, L, Wp, B)
+    inf = kernels.inf_stacked(CURVE, (), DEVICE).to(torch.int16)
+    n, done = 0, []
+    for Wp, B, T in STAGE1_EDGES:
+        b = buckets[:, :, :Wp, :B].clone()
+        Bt = B // T
+        if Bt >= 3:
+            top = torch.arange(T, device=DEVICE) * Bt + Bt - 1
+            b[..., top - 1] = inf[:, :, None, None]
+            b[..., top - 2] = b[..., top]
+        for dt in (torch.int16, torch.int32):
+            label = f"pbpr_stage1 (Wp, B, T) = {(Wp, B, T)} {dt}"
+            same_as_plain(label, "pbpr_stage1", (b.to(dt).contiguous(), CURVE,
+                                                 T))
+            n += 1
+        done.append(f"{(Wp, B, T)} launched "
+                    f"{dict(kernels.LAUNCHED['pbpr_stage1'])}")
+    print(f"[edge] pbpr_stage1 bit-identical to its plain version in {n} "
+          f"launches, int16 and int32 buckets, infinity and P + P in the "
+          f"chains: {'; '.join(done)} [{card}]", flush=True)
+    tbuf, S = first_group(seen)
+    n = 0
+    for R, F in GLOBALIZE_EDGES:
+        t = tbuf[:, :, :R, :F].contiguous()
+        sp = S[..., :F].clone()
+        sp[..., 0] = t[:, :, 0, 0]                                 # P + P
+        if F > 2:
+            sp[..., 1] = kernels.pneg_stacked(t[:, :, 0, 1], CURVE)  # P + (-P)
+            sp[..., 2] = inf
+        for dt_in in (torch.int16, torch.int32):
+            for dt_out in (torch.int16, torch.int32):
+                same_as_plain(f"globalize (R, F) = {(R, F)} {dt_in}->{dt_out}",
+                              "globalize", (t.to(dt_in), sp.to(dt_in), CURVE,
+                                            dt_out))
+                n += 1
+    print(f"[edge] globalize bit-identical to its plain version in {n} "
+          f"launches at (R, F) = {', '.join(map(str, GLOBALIZE_EDGES))}, "
+          f"S = T, -T and infinity, every dtype pair; launched "
+          f"{dict(kernels.LAUNCHED['globalize'])} [{card}]", flush=True)
 
 
 # (Wp, B, T) of pbpr_full's [edge] shapes, cut from the buckets of the
@@ -773,8 +839,9 @@ COL_LEVEL_C = (2, 32)
 
 def latency(card: str, scan_G: int) -> dict:
     """One `padd_batch` launch on 32 lanes; one col_prefix level, one scan
-    step and one pbpr_full stage-1 step on a single warp (32 lanes; 8 for
-    pbpr_full, four threads each)."""
+    step, one pbpr_full stage-1 step and one pbpr_stage1 step on a single
+    warp (32 lanes; 8 for pbpr_full, four threads each, and for
+    pbpr_stage1, twelve threads each, two a warp)."""
     L, R = CURVE.num_limbs, 128
     rng = np.random.default_rng(11)
     lazy = lambda shape: torch.from_numpy(rng.integers(
@@ -806,6 +873,12 @@ def latency(card: str, scan_G: int) -> dict:
           for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
     extra = (hi // lo).bit_length() - 1
     pbpr_step = (pb[hi] - pb[lo]) / (hi - lo + extra)
+    # pbpr_stage1 on the same shapes: the two calls differ by Bt1 - Bt0
+    # steps, each one add of each chain at once
+    s1 = {Bt: cuda_ms(lambda: kernels.pbpr_stage1(b, CURVE, 8), 10)
+          for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
+    s1_geo = dict(kernels.LAUNCHED["pbpr_stage1"])
+    stage1_step = (s1[hi] - s1[lo]) / (hi - lo)
     print(f"[latency] padd_batch on 32 lanes {padd_ms:.4f} ms a launch "
           f"(launched {padd_geo}); one warp of lanes: col_prefix "
           f"{col_level:.5f} ms a level, from one window of C columns (C = "
@@ -815,11 +888,15 @@ def latency(card: str, scan_G: int) -> dict:
           + f" (the 2^{max(SIZES)} shape runs {scan_G}); pbpr_full stage-1 "
           f"step (two adds at once) {pbpr_step:.5f} ms, from (1, 8 * Bt) "
           f"buckets at T = 8: Bt = {lo} {pb[lo]:.4f} ms, Bt = {hi} "
-          f"{pb[hi]:.4f} ms [{card}]", flush=True)
+          f"{pb[hi]:.4f} ms; pbpr_stage1 step (two adds at once) "
+          f"{stage1_step:.5f} ms, from the same buckets: Bt = {lo} "
+          f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo} "
+          f"[{card}]", flush=True)
     return dict(padd_ms=padd_ms, padd_launched=padd_geo,
                 col_prefix_level_ms=col_level, col_prefix_one_warp_ms=col,
                 scan_step_ms=step, pbpr_step_ms=pbpr_step,
-                pbpr_one_warp_ms=pb)
+                pbpr_one_warp_ms=pb, pbpr_stage1_step_ms=stage1_step,
+                pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo)
 
 
 def first_group(seen: dict):
@@ -898,6 +975,7 @@ def check_size(logn: int, card: str):
     if logn == min(SIZES):
         edge_shapes(seen, card)
         wide_edges(seen, card)
+        stage1_globalize_edges(seen, card)
     pbpr_edge = pbpr_edges(seen, card) if logn == max(SIZES) else None
     tbuf, S = first_group(seen)
     buckets = seen["pbpr_full"][1][0]
@@ -1152,7 +1230,7 @@ def main() -> int:
           f"(nvcc: {_build.build_seconds})", flush=True)
     resources = {}
     for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
-                 "padd_batch"):
+                 "padd_batch", "pbpr_stage1", "globalize"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name
@@ -1249,6 +1327,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             if name in WIDE:
                 entry[f"bound_ms_mont_mul_ops{sfx}"] = r[
                     "bound_ms_mont_mul_ops"]
+            if name in ("pbpr_stage1", "globalize"):
+                entry[f"launched{sfx}"] = r["launched"]
             if name == "padd_batch":
                 entry[f"launches_reduce{sfx}"] = c["reduce_launches"][name]
                 entry[f"launched{sfx}"] = runs[logn][5]
@@ -1279,6 +1359,11 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             depth = (Bt + 1 + 2 * (T.bit_length() - 1)
                      + Bt.bit_length() - 1 + 1)
             entry["depth_floor_ms"] = depth * lat["pbpr_step_ms"]
+        if name == "pbpr_stage1":
+            # Bt + 1 steps, the m and g chains one step apart
+            cfg = default_config(1 << max(SIZES), CURVE)
+            Bt = cfg.half_columns // min(cfg.pbpr_threads, cfg.half_columns)
+            entry["depth_floor_ms"] = (Bt + 1) * lat["pbpr_stage1_step_ms"]
         if name == "prefix_scan":
             for key, run in (("", runs), ("_glv", runs_glv)):
                 R = (2 if key else 1) * (1 << max(SIZES)) // default_config(

@@ -43,8 +43,10 @@ SIGNATURES = {
                       _P],
     "msm_pbpr_full_limits": [_I, _I, _P, _P, _P, _P],
     "msm_pdbl_batch": [_I, _I, _P, _P, _I64, _P, _P],
-    "msm_pbpr_stage1": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "msm_globalize": [_I, _I, _I, _I, _P, _P, _P, _I64, _I64, _P, _P],
+    "msm_pbpr_stage1": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                        _P, _P],
+    "msm_globalize": [_I, _I, _I, _I, _P, _P, _P, _I64, _I64, _I, _I, _I,
+                      _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -58,8 +58,8 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
 
 LAUNCHED = {}
 """The geometry that the last launch of `prefix_scan`, `col_prefix`,
-`padd_batch` and `pbpr_full` passed to its kernel, written where the
-kernel launches."""
+`padd_batch`, `pbpr_full`, `pbpr_stage1` and `globalize` passed to its
+kernel, written where the kernel launches."""
 
 
 def reset_launches() -> None:
@@ -486,11 +486,17 @@ def padd_batch_geometry(F: int, sms: int, num_limbs: int = 22,
     per_warp = 32 // G
     warps = min(PADD_MAX_WARPS, -(-F // (per_warp * sms)))
     lanes = warps * per_warp
-    L, bits = num_limbs, num_limbs * limb_bits
     # dynamic (the lanes) + static (Consts<L>, WideConsts<L, w>)
-    shared = 4 * (lanes * (15 * L | 1) + (8 * L + 3)
-                  + (bits // 32 + 1 + -(-bits // 32)))
+    shared = 4 * (lanes * (15 * num_limbs | 1)
+                  + _static_shared_words(num_limbs, limb_bits))
     return PaddGeometry(G, warps, lanes, -(-F // lanes), 32 * warps, shared)
+
+
+def _static_shared_words(num_limbs: int, limb_bits: int) -> int:
+    """int32 words of a block's copies of `Consts<L>` and
+    `WideConsts<L, w>`."""
+    bits = num_limbs * limb_bits
+    return (8 * num_limbs + 3) + (bits // 32 + 1 + -(-bits // 32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -732,12 +738,89 @@ def pdbl_batch(p: torch.Tensor, curve: CurveParams) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+PBPR_STAGE1_THREADS_PER_CHAIN = 6
+"""Threads of a warp that share each of a lane's two add chains in the
+stage-1 kernel (csrc/padd_lane.cuh kAddG); a lane is twice as many."""
+PBPR_STAGE1_MAX_WARPS = 4
+"""Warps a block of the stage-1 kernel at most (csrc/pbpr_stage1.cu
+kMaxWarps)."""
+PBPR_STAGE1_REGISTERS = 64
+"""Registers a thread of the stage-1 kernel at most (csrc/pbpr_stage1.cu
+kRegisters, held by its __launch_bounds__)."""
+
+# What an SM of the H100 holds at once (compute capability 9.0): the
+# residency that pbpr_stage1_geometry reckons with.
+SM_SHARED_BYTES = 233_472         # 228 KB of shared memory
+BLOCK_SHARED_BYTES = 232_448      # 227 KB a block at most
+BLOCK_RESERVED_SHARED = 1_024     # taken by the system for each block
+SM_BLOCKS, SM_WARPS, SM_REGISTERS = 32, 64, 65_536
+
+
+class Stage1Geometry(NamedTuple):
+    threads_per_chain: int
+    lanes_per_warp: int
+    warps: int
+    lanes_per_block: int
+    blocks: int
+    threads: int
+    shared_bytes: int
+    blocks_per_sm: int
+    waves: int
+
+
+def pbpr_stage1_geometry(Wp: int, B: int, T: int, sms: int,
+                         num_limbs: int = 22, limb_bits: int = 12
+                         ) -> Stage1Geometry:
+    """One pbpr_stage1 launch over the Wp * T lanes on a card of `sms`
+    SMs: a pure function, so the CPU tests can hold it.
+
+    A lane is 12 threads of one warp (PBPR_STAGE1_THREADS_PER_CHAIN for
+    the m add, as many for the g add), 2 lanes a warp, and keeps 36 L + 1
+    int32 words in shared memory (csrc/pbpr_stage1.cu LaneMem), beside
+    the block's copies of `Consts<L>` and `WideConsts<L, w>`. A lane is a
+    chain of Bt + 1 steps, so the launch takes as many waves of blocks as
+    the card needs to hold every lane once: the blocks an SM holds are
+    bounded by its shared memory (each block also takes
+    BLOCK_RESERVED_SHARED), its registers (PBPR_STAGE1_REGISTERS a
+    thread), and its block and warp slots. The rule: the fewest waves,
+    then the fewest warps a block (1 to PBPR_STAGE1_MAX_WARPS), which
+    spreads the lanes most evenly over the SMs."""
+    G = PBPR_STAGE1_THREADS_PER_CHAIN
+    if min(Wp, B, T, sms, num_limbs, limb_bits) < 1 or B % T:
+        raise ValueError("pbpr_stage1_geometry: no launch for "
+                         f"(Wp={Wp}, B={B}, T={T}, sms={sms}, "
+                         f"num_limbs={num_limbs}, limb_bits={limb_bits})")
+    per_warp = 32 // (2 * G)
+    lanes = Wp * T
+    best = None
+    for warps in range(1, PBPR_STAGE1_MAX_WARPS + 1):
+        per_block = warps * per_warp
+        shared = 4 * (per_block * (36 * num_limbs | 1)
+                      + _static_shared_words(num_limbs, limb_bits))
+        if shared > BLOCK_SHARED_BYTES:
+            break
+        per_sm = min(SM_BLOCKS, SM_WARPS // warps,
+                     SM_REGISTERS // (PBPR_STAGE1_REGISTERS * 32 * warps),
+                     SM_SHARED_BYTES // (shared + BLOCK_RESERVED_SHARED))
+        blocks = -(-lanes // per_block)
+        waves = -(-blocks // (sms * per_sm))
+        geo = Stage1Geometry(G, per_warp, warps, per_block, blocks,
+                             32 * warps, shared, per_sm, waves)
+        if best is None or waves < best.waves:
+            best = geo
+    if best is None:
+        raise ValueError("pbpr_stage1_geometry: a lane does not fit a block's "
+                         f"shared memory (num_limbs={num_limbs})")
+    return best
+
+
 def pbpr_stage1(buckets: torch.Tensor, curve: CurveParams,
                 threads: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """cuZK Alg. 4 stage 1: (3, L, Wp, B) int16 or int32 buckets (slot b =
     multiplier b+1) -> (m, g), each (3, L, Wp, T) int32, T = min(threads,
     B). Slice t holds buckets t*Bt .. t*Bt + Bt-1 (Bt = B / T), walked from
-    the top down: m_t is the slice sum, g_t = sum_j (j+1) * bucket_{t,j}."""
+    the top down: m_t is the slice sum, g_t = sum_j (j+1) * bucket_{t,j}.
+    `pbpr_stage1_geometry` picks the launch."""
     _, _, Wp, B = buckets.shape
     T = _pbpr_threads("pbpr_stage1", B, threads)
     if not _on_cuda("pbpr_stage1", buckets):
@@ -747,13 +830,23 @@ def pbpr_stage1(buckets: torch.Tensor, curve: CurveParams,
         raise ValueError("pbpr_stage1: expected a 4-d int16 or int32 tensor, "
                          f"got {buckets.dtype} {tuple(buckets.shape)}")
     buckets = buckets.contiguous()
+    if buckets.dtype == I16 and (buckets.data_ptr() % 4
+                                 or buckets.numel() % 2):
+        raise ValueError("pbpr_stage1: int16 buckets must be 4-byte aligned "
+                         "and of an even element count")
+    if buckets.numel() >> 31:
+        raise ValueError("pbpr_stage1: the kernel indexes the buckets in 31 "
+                         "bits")
+    geo = pbpr_stage1_geometry(Wp, B, T, _sm_count(buckets.device), L, w)
     m = torch.empty((3, L, Wp, T), dtype=I32, device=buckets.device)
     g = torch.empty_like(m)
     rc = _build.library().msm_pbpr_stage1(
         L, w, _BITS[buckets.dtype], buckets.data_ptr(), m.data_ptr(),
-        g.data_ptr(), Wp, B, T,
-        _consts(curve, buckets.device).data_ptr(), _stream(buckets))
+        g.data_ptr(), Wp, B, T, geo.threads_per_chain, geo.warps, geo.blocks,
+        _consts(curve, buckets.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(buckets))
     _check("pbpr_stage1", rc)
+    LAUNCHED["pbpr_stage1"] = geo._asdict()
     return m, g
 
 
@@ -774,7 +867,9 @@ def globalize(tbuf: torch.Tensor, s: torch.Tensor, curve: CurveParams,
     stream position, the per-lane exclusive column prefix broadcast over
     the R rows. tbuf: (3, L, R, F) from `prefix_scan`; s: (3, L, F), the
     flattened (3, L, Wg, C) of `col_prefix`; both int16 or both int32.
-    Returns (3, L, R, F) in `out_dtype`."""
+    Returns (3, L, R, F) in `out_dtype`. The kernel is padd_batch's over
+    the R * F positions (`padd_batch_geometry` picks the launch), reading
+    S at position mod F."""
     if (tbuf.dim() != 4 or s.dim() != 3 or s.shape != tbuf.shape[:2]
             + tbuf.shape[3:] or s.dtype != tbuf.dtype):
         raise ValueError("globalize: expected T (3, L, R, F) and S (3, L, F) "
@@ -787,10 +882,16 @@ def globalize(tbuf: torch.Tensor, s: torch.Tensor, curve: CurveParams,
         raise ValueError("globalize: dtypes must be int16 or int32")
     tbuf, s = tbuf.contiguous(), s.contiguous()
     _, _, R, F = tbuf.shape
+    if R * F >> 32:
+        raise ValueError("globalize: the kernel takes fewer than 2^32 "
+                         "positions")
+    geo = padd_batch_geometry(R * F, _sm_count(tbuf.device), L, w)
     out = torch.empty(tbuf.shape, dtype=out_dtype, device=tbuf.device)
     rc = _build.library().msm_globalize(
         L, w, _BITS[tbuf.dtype], _BITS[out_dtype], tbuf.data_ptr(),
-        s.data_ptr(), out.data_ptr(), R * F, F,
-        _consts(curve, tbuf.device).data_ptr(), _stream(tbuf))
+        s.data_ptr(), out.data_ptr(), R * F, F, geo.threads_per_lane,
+        geo.warps, geo.blocks, _consts(curve, tbuf.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(tbuf))
     _check("globalize", rc)
+    LAUNCHED["globalize"] = geo._asdict()
     return out
