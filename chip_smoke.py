@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card's name and power limit; require CUDA;
   2. build the kernels of tpu_msm_torch/csrc (timed as set-up); print
      what ptxas said of the redesigned kernels (`[ptxas]`: registers,
-     stack frame, spills) and, for the four on the word-wide multiply,
+     stack frame, spills) and, for the five on the word-wide multiply,
      their instructions by kind from cuobjdump -sass (`[sass]`);
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
      and 2^20 (captured from a warm-up run of the device program, without
@@ -15,10 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the same CUDA inputs, bit-identical, with times from CUDA events
      (a kernel under QUEUE_BELOW_MS back to back is timed again queued
      behind a busy call, which leaves out its wrapper's host cost; both
-     times are printed; the four kernels on the word-wide multiply,
-     `encode_mont`, `padd_batch`, `pbpr_stage1` and `globalize`, also
-     print their bound by the 12-bit multiply's count, mont_mul_ops,
-     beside their own).
+     times are printed; the five kernels on the word-wide multiply,
+     `encode_mont`, `padd_batch`, `pdbl_batch`, `pbpr_stage1` and
+     `globalize`, also print their bound by the 12-bit multiply's count,
+     mont_mul_ops, beside their own).
      The six kernels of the main path at both configurations, and
      `psub_batch` (the padd kernel negating q on load) against its own
      plain version, `padd_batch` of `pneg_stacked`;
@@ -41,7 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      slice of 3 buckets) with infinity and P + P in the chains, int16 and
      int32 buckets; `globalize` at (R, F) = GLOBALIZE_EDGES (F = 1, R = 1,
      F no multiple of a block's lanes) with S = T (P + P), S = -T
-     (P + (-P)) and S at infinity, every dtype pair;
+     (P + (-P)) and S at infinity, every dtype pair; `pdbl_batch` at
+     F = 1, 7, 8, 9 (about the 8 lanes of a warp) and 16, on all-infinity
+     lanes and on limbs at the ends of the ledger;
      at 2^20, `pbpr_full` at PBPR_EDGES (T = 1, T = B, T = 1024 and 2048,
      one window, B = 2^15 with T = 32), with the geometry it launched
      (the narrow ones are held against plain versions run on the CPU
@@ -62,10 +64,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      largest size once more under SCHEDULE, a window group of 16 that
      gives the scan 131,072 lanes and `col_prefix` several columns a
      thread, EXACT, recorded and not made the default; and (`[latency]`)
-     one `padd_batch` on 32 lanes, and one `col_prefix` level, one scan
-     step, one `pbpr_full` stage-1 step and one `pbpr_stage1` step on a
-     single warp, from which the depth floors of `col_prefix`,
-     `prefix_scan`, `pbpr_full` and `pbpr_stage1` follow;
+     one `padd_batch` on 32 lanes, one `pdbl_batch` on 16 lanes, and one
+     `col_prefix` level, one scan step, one `pbpr_full` stage-1 step, one
+     `pbpr_stage1` step and one doubling on a single warp, from which the
+     depth floors of `col_prefix`, `prefix_scan`, `pbpr_full`,
+     `pbpr_stage1` and `pdbl_batch` on 16 lanes follow;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes,
      with four lane counts about the two edges of the launcher's rule,
      for every number of threads per lane;
@@ -178,7 +181,8 @@ def mul_wide_mads(L: int, w: int) -> int:
 
 # The kernels whose Montgomery multiply is the word-wide one: their
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
-WIDE = ("encode_mont", "padd_batch", "pbpr_stage1", "globalize")
+WIDE = ("encode_mont", "padd_batch", "pdbl_batch", "pbpr_stage1",
+        "globalize")
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -415,7 +419,7 @@ def compare(key: str, fn: str, args, kw, tag: str, card: str, reps: int
         b_old, by_old = bound_ms(nbytes, work(name, args, got, False)[1])
         extra = dict(bound_ms_mont_mul_ops=b_old, bound_by_mont_mul_ops=by_old)
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
-    if name in ("padd_batch", "pbpr_stage1", "globalize"):
+    if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
@@ -566,6 +570,41 @@ def edge_shapes(seen: dict, card: str) -> None:
           + ", ".join(done) + ", each with "
           f"{kernels.SCAN_THREADS_PER_LANE} threads per lane and with the "
           f"launcher's pick [{card}]", flush=True)
+
+
+# Lane counts of pdbl_batch's [edge] launches: one lane, the 8 lanes of
+# a warp at 4 threads a doubling and one either side, the reduction
+# path's 16.
+PDBL_EDGES = (1, 7, 8, 9, 16)
+
+
+def pdbl_edges(seen: dict, card: str) -> None:
+    """`pdbl_batch` against its plain version at PDBL_EDGES lanes of real
+    points of the captured run (the stage-3 sums G), on all-infinity
+    lanes, and on 333 lanes whose limbs lie, three in ten, at the ends of
+    the (-2^12, 2^13) ledger."""
+    L, w = CURVE.num_limbs, CURVE.log_limb_size
+    pts = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
+    pts = pts.reshape(3, L, -1)
+    rng = np.random.default_rng(9)
+    cases = {f"F={F}": pts[..., :F].contiguous() for F in PDBL_EDGES}
+    cases["F=16 all at infinity"] = kernels.inf_stacked(CURVE, (16,),
+                                                        DEVICE)
+    ends = torch.tensor([-(1 << w) + 1, (1 << (w + 1)) - 1],
+                        dtype=torch.int32, device=DEVICE)
+    p = pts[..., torch.from_numpy(rng.integers(0, pts.shape[2], 333)).to(
+        DEVICE)].clone()
+    at = torch.from_numpy(rng.random(p.shape) < 0.3).to(DEVICE)
+    at[:, L - 1] = False                              # top limbs stay small
+    p[at] = ends[torch.from_numpy(rng.integers(0, 2, int(at.sum()))).to(
+        DEVICE)]
+    cases["F=333 limbs at the ledger's ends"] = p
+    geos = []
+    for label, p in cases.items():
+        same_as_plain(f"pdbl_batch {label}", "pdbl_batch", (p, CURVE))
+        geos.append(f"{label} {dict(kernels.LAUNCHED['pdbl_batch'])}")
+    print(f"[edge] pdbl_batch bit-identical to its plain version in "
+          f"{len(cases)} launches: {'; '.join(geos)} [{card}]", flush=True)
 
 
 # (Wp, B, T) of pbpr_stage1's [edge] shapes, cut from the buckets of the
@@ -838,10 +877,11 @@ COL_LEVEL_C = (2, 32)
 
 
 def latency(card: str, scan_G: int) -> dict:
-    """One `padd_batch` launch on 32 lanes; one col_prefix level, one scan
-    step, one pbpr_full stage-1 step and one pbpr_stage1 step on a single
-    warp (32 lanes; 8 for pbpr_full, four threads each, and for
-    pbpr_stage1, twelve threads each, two a warp)."""
+    """One `padd_batch` launch on 32 lanes and one `pdbl_batch` launch on
+    16; one col_prefix level, one scan step, one pbpr_full stage-1 step,
+    one pbpr_stage1 step and one doubling on a single warp (32 lanes; 8
+    for pbpr_full, four threads each, and for pbpr_stage1, twelve threads
+    each, two a warp; one lane for pdbl_batch)."""
     L, R = CURVE.num_limbs, 128
     rng = np.random.default_rng(11)
     lazy = lambda shape: torch.from_numpy(rng.integers(
@@ -855,6 +895,10 @@ def latency(card: str, scan_G: int) -> dict:
                            ).to(DEVICE)[None]
     padd_ms = queued_ms(lambda: kernels.padd_batch(p, q, CURVE), 50, busy)
     padd_geo = dict(kernels.LAUNCHED["padd_batch"])
+    dbl = {F: lazy((F,)).to(torch.int32) for F in (16, 1)}
+    dbl_ms = {F: queued_ms(lambda: kernels.pdbl_batch(d, CURVE), 50, busy)
+              for F, d in dbl.items()}
+    dbl_geo = dict(kernels.LAUNCHED["pdbl_batch"])
     # col_prefix on one window: one block, C threads of one warp,
     # max(log2 C, 1) levels a launch; the two calls differ by 4 levels
     cols = {C: lazy((1, C)) for C in COL_LEVEL_C}
@@ -880,7 +924,9 @@ def latency(card: str, scan_G: int) -> dict:
     s1_geo = dict(kernels.LAUNCHED["pbpr_stage1"])
     stage1_step = (s1[hi] - s1[lo]) / (hi - lo)
     print(f"[latency] padd_batch on 32 lanes {padd_ms:.4f} ms a launch "
-          f"(launched {padd_geo}); one warp of lanes: col_prefix "
+          f"(launched {padd_geo}); pdbl_batch on 16 lanes {dbl_ms[16]:.4f} "
+          f"ms a launch, one doubling on a lone warp {dbl_ms[1]:.4f} ms "
+          f"(launched {dbl_geo}); one warp of lanes: col_prefix "
           f"{col_level:.5f} ms a level, from one window of C columns (C = "
           + ", ".join(f"{C} {t:.4f} ms" for C, t in col.items())
           + f"); prefix_scan (R={R}) ms a step by threads per lane "
@@ -893,6 +939,8 @@ def latency(card: str, scan_G: int) -> dict:
           f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo} "
           f"[{card}]", flush=True)
     return dict(padd_ms=padd_ms, padd_launched=padd_geo,
+                pdbl_16_lanes_ms=dbl_ms[16], pdbl_one_warp_ms=dbl_ms[1],
+                pdbl_one_warp_launched=dbl_geo,
                 col_prefix_level_ms=col_level, col_prefix_one_warp_ms=col,
                 scan_step_ms=step, pbpr_step_ms=pbpr_step,
                 pbpr_one_warp_ms=pb, pbpr_stage1_step_ms=stage1_step,
@@ -976,6 +1024,7 @@ def check_size(logn: int, card: str):
         edge_shapes(seen, card)
         wide_edges(seen, card)
         stage1_globalize_edges(seen, card)
+        pdbl_edges(seen, card)
     pbpr_edge = pbpr_edges(seen, card) if logn == max(SIZES) else None
     tbuf, S = first_group(seen)
     buckets = seen["pbpr_full"][1][0]
@@ -1230,7 +1279,7 @@ def main() -> int:
           f"(nvcc: {_build.build_seconds})", flush=True)
     resources = {}
     for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
-                 "padd_batch", "pbpr_stage1", "globalize"):
+                 "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name
@@ -1327,8 +1376,14 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             if name in WIDE:
                 entry[f"bound_ms_mont_mul_ops{sfx}"] = r[
                     "bound_ms_mont_mul_ops"]
-            if name in ("pbpr_stage1", "globalize"):
+            if name in ("pdbl_batch", "pbpr_stage1", "globalize"):
                 entry[f"launched{sfx}"] = r["launched"]
+            if name == "pdbl_batch":
+                # the (3, L, Wp) sum that bucket_reduce doubles
+                rw = c["main"]["pdbl_batch[Wp]"]
+                entry.update({f"ms_Wp{sfx}": rw["ms"],
+                              f"bound_ms_Wp{sfx}": rw["bound_ms"],
+                              f"launched_Wp{sfx}": rw["launched"]})
             if name == "padd_batch":
                 entry[f"launches_reduce{sfx}"] = c["reduce_launches"][name]
                 entry[f"launched{sfx}"] = runs[logn][5]
@@ -1364,6 +1419,9 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             cfg = default_config(1 << max(SIZES), CURVE)
             Bt = cfg.half_columns // min(cfg.pbpr_threads, cfg.half_columns)
             entry["depth_floor_ms"] = (Bt + 1) * lat["pbpr_stage1_step_ms"]
+        if name == "pdbl_batch":
+            # the (3, L, Wp) shape: one doubling, on a lone warp
+            entry["depth_floor_ms_Wp"] = lat["pdbl_one_warp_ms"]
         if name == "prefix_scan":
             for key, run in (("", runs), ("_glv", runs_glv)):
                 R = (2 if key else 1) * (1 << max(SIZES)) // default_config(

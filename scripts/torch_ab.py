@@ -13,8 +13,11 @@ under the default schedule):
   - `pbpr_stage1` at (Wp, B, T) = (16, 32768, 512) and (20, 4096, 256)
     and `globalize` at (R, F) = (128, 8192) and (32, 8192): CUDA events
     around 5 back-to-back calls;
-  - `padd_batch` on 32,769 and on 16 lanes, queued behind a sleep on
-    the card, so that the wrapper's host cost is left out;
+  - `padd_batch` and `pdbl_batch` on 32,769 and on 16 lanes, queued
+    behind a sleep on the card, so that the wrapper's host cost is left
+    out;
+  - what ptxas said of `pdbl_batch`'s kernels at L = 22 (registers,
+    stack frame, spill stores and loads) in the checkout's own build;
   - `bucket_reduce` at the 2^20 shapes: the wall time (median of 5),
     and the device time of its stage 2 (1,022 dependent `padd_batch`
     launches on 16 lanes) enqueued behind a sleep;
@@ -36,6 +39,7 @@ def one(root: str) -> None:
     import torch
 
     import chip_smoke as cs
+    from tpu_msm_torch import _build
     from tpu_msm_torch.constants import BN254_S12 as C
     from tpu_msm_torch.cuzk import kernels, pbpr
 
@@ -71,6 +75,16 @@ def one(root: str) -> None:
         reps = lambda: [kernels.padd_batch(p, q, C) for _ in range(50)]
         out.append(f"padd_batch F={F} {behind_sleep(reps) / 50:.4f} ms "
                    "a launch, queued")
+    for F in (32769, 16):
+        p = lazy((F,)).int()
+        reps = lambda: [kernels.pdbl_batch(p, C) for _ in range(50)]
+        out.append(f"pdbl_batch F={F} {behind_sleep(reps) / 50:.4f} ms "
+                   "a launch, queued")
+    for fn, regs, stack, st, ld in _build.resources("pdbl_batch"):
+        if f"Li{L}E" in fn:
+            out.append(f"ptxas pdbl_batch {fn}: {regs} registers, {stack} B "
+                       f"stack frame, {st} B spill stores, {ld} B spill "
+                       "loads")
     cfg = cs.config(20, False)
     b = lazy((cfg.num_windows, cfg.half_columns))
     pbpr.bucket_reduce(b, cfg)

@@ -204,50 +204,12 @@ struct Field {
       out.z[i] = z3[i];
     }
   }
-
-  // RCB Algorithm 9, complete doubling (rows.pdbl_rows).
-  static __device__ __noinline__ void pdbl(const Pt<L>& p, Pt<L>& out,
-                                           const Consts<L>& K) {
-    int32_t t0[L], t1[L], t2[L], zz[L], u[L], x3[L], y3[L], z3[L];
-    mul(p.y, p.y, t0, K);
-    smul(t0, 8, z3);
-    mul(p.y, p.z, t1, K);
-    mul(p.z, p.z, zz, K);
-    mul(zz, K.b3m, t2, K);
-    mul(t2, z3, x3, K);
-    add(t0, t2, y3);
-    mul(t1, z3, z3, K);
-    smul(t2, 3, t2);
-    sub(t0, t2, K.kp6, t0);
-    mul(t0, y3, u, K);
-    add(x3, u, y3);
-    mul(p.x, p.y, u, K);
-    mul(t0, u, x3, K);
-    smul(x3, 2, x3);
-#pragma unroll
-    for (int i = 0; i < L; i++) {
-      out.x[i] = x3[i];
-      out.y[i] = y3[i];
-      out.z[i] = z3[i];
-    }
-  }
 };
 
-// Stacked point layouts: coordinate c, limb i, lane f at
-// base[(c * L + i) * stride + f].
-template <int L, typename T>
-__device__ __forceinline__ void load_pt(const T* base, int64_t stride, int64_t f,
-                                        Pt<L>& p) {
-#pragma unroll
-  for (int i = 0; i < L; i++) {
-    p.x[i] = static_cast<int32_t>(base[(int64_t)i * stride + f]);
-    p.y[i] = static_cast<int32_t>(base[(int64_t)(L + i) * stride + f]);
-    p.z[i] = static_cast<int32_t>(base[(int64_t)(2 * L + i) * stride + f]);
-  }
-}
-
-// Plain truncating casts: exact for int16 by the (-2^W, 2^(W+1)) limb
-// bound of every point result when W <= 13.
+// A point stored in the stacked layout, coordinate c, limb i, lane f at
+// base[(c * L + i) * stride + f], with plain truncating casts: exact for
+// int16 by the (-2^W, 2^(W+1)) limb bound of every point result when
+// W <= 13.
 template <int L, typename T>
 __device__ __forceinline__ void store_pt(T* base, int64_t stride, int64_t f,
                                          const Pt<L>& p) {

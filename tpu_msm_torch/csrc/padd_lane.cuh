@@ -1,6 +1,7 @@
 // A complete projective add shared by kAddG threads of one warp, on
 // points and scratch in shared memory, with the word-wide multiply: the add of
-// padd_batch.cu, globalize.cu and pbpr_stage1.cu.
+// padd_batch.cu, globalize.cu and pbpr_stage1.cu. Beside it, the complete
+// doubling of pdbl_batch.cu in the same manner (`DblPhases`, below the add).
 //
 // The add (RCB Algorithm 7, Field::padd) runs in four phases, and the
 // caller puts a warp barrier after each: the six independent products
@@ -116,6 +117,81 @@ struct Phases {
   }
 };
 
+// The complete doubling (RCB Algorithm 9, ops/rows.py pdbl_rows) in
+// three product levels, kDblG threads of one warp a doubling, with a warp
+// barrier after each phase: level 1, the four independent products P0..P3 =
+// y y, y z, z z, x y; level 2, P4 = (z z) b3m (one thread: it needs P2);
+// the adds, T0 = 8 P0, T1 = P0 - 3 P4 + 6p, T2 = P0 + P4; level 3, the
+// four products P4 T0, P1 T0, T1 T2, T1 P3; the sum (2 T1 P3, P4 T0 +
+// T1 T2, P1 T0). Thread g takes product g of levels 1 and 3 and limbs
+// g, g + kDblG, ... of the adds, so the chain is three multiplies deep
+// (2 threads a doubling, 16 lanes a warp, were timed too: slower on the
+// 16 lanes that the reduction path doubles, level on 16,388; PERF.md).
+// The operands and their order are those of pbpr_full.cu's
+// Shared::pdbl_level1/level2/mid/level3/finish (and of pdbl_rows), each
+// product one msm::mul_wide call, so the result is bit-identical to
+// them: no product is regrouped (z (z b3m) is the same value mod p in
+// other limbs). The point's own words take
+// level 3's products, as no phase after level 1 reads the point: P4 T0
+// into y, P1 T0 into z, T1 P3 into x, T1 T2 into P0, which level 3 does
+// not read; the sum ends in the point's words in place.
+constexpr int kDblG = 4;   // threads of one warp that share a doubling
+
+template <int L>
+struct DblScratch {
+  static constexpr int P = 0, T = 5 * L, WORDS = 8 * L;   // P0..P4, T0..T2
+};
+
+template <int L, int W>
+struct DblPhases {
+  static constexpr int G = kDblG;
+  using S = DblScratch<L>;
+  using WC = WideConsts<L, W>;
+
+  // Product g of level 1 (g < kDblG = 4, the level's products).
+  static __device__ __forceinline__ void level1(const int32_t* p, int32_t* s,
+                                                int g, const WC& KW) {
+    const int32_t* a = p + (g == 3 ? 0 : g == 2 ? 2 * L : L);
+    const int32_t* b = p + (g == 0 || g == 3 ? L : 2 * L);
+    mul_wide<L, W>(a, b, s + S::P + g * L, KW);
+  }
+
+  static __device__ __forceinline__ void level2(int32_t* s, int g,
+                                                const Consts<L>& K,
+                                                const WC& KW) {
+    if (g == 0) mul_wide<L, W>(s + S::P + 2 * L, K.b3m, s + S::P + 4 * L, KW);
+  }
+
+  static __device__ __forceinline__ void mid(int32_t* s, int g,
+                                             const Consts<L>& K) {
+    for (int i = g; i < L; i += G) {
+      const int32_t a = s[S::P + i], e = s[S::P + 4 * L + i];
+      int32_t* T = s + S::T + i;
+      T[0] = a * 8;
+      T[L] = a - e * 3 + K.kp6[i];
+      T[2 * L] = a + e;
+    }
+  }
+
+  static __device__ __forceinline__ void level3(int32_t* p, int32_t* s,
+                                                int g, const WC& KW) {
+    const int32_t* P = s + S::P;
+    const int32_t* T = s + S::T;
+    const int32_t* a = g == 0 ? P + 4 * L : g == 1 ? P + L : T + L;
+    const int32_t* b = g < 2 ? T : g == 2 ? T + 2 * L : P + 3 * L;
+    int32_t* o = g == 0 ? p + L : g == 1 ? p + 2 * L : g == 2 ? s + S::P : p;
+    mul_wide<L, W>(a, b, o, KW);
+  }
+
+  static __device__ __forceinline__ void finish(int32_t* p, const int32_t* s,
+                                                int g) {
+    for (int i = g; i < L; i += G) {
+      p[i] = p[i] * 2;
+      p[L + i] = p[L + i] + s[S::P + i];
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the lanes of a one-shot batch add
 // ---------------------------------------------------------------------------
@@ -207,13 +283,12 @@ __device__ __forceinline__ void padd_block(const Tin* __restrict__ p,
   }
 }
 
-// Launch a batch-add kernel on `warps` warps a block, with its lanes'
-// shared memory; the launch's cudaError_t.
-template <int L, typename... Params, typename... Args>
-int launch_padd_lanes(void (*kernel)(Params...), int warps, int blocks,
-                      cudaStream_t stream, Args... args) {
-  const size_t smem = (size_t)warps * kPaddLanesPerWarp *
-                      PaddLane<L>::STRIDE * sizeof(int32_t);
+// Launch a kernel of lanes on `warps` warps a block, with `warp_words`
+// int32 words of dynamic shared memory a warp; the launch's cudaError_t.
+template <typename... Params, typename... Args>
+int launch_lanes(void (*kernel)(Params...), int warps, int warp_words,
+                 int blocks, cudaStream_t stream, Args... args) {
+  const size_t smem = (size_t)warps * warp_words * sizeof(int32_t);
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -221,6 +296,15 @@ int launch_padd_lanes(void (*kernel)(Params...), int warps, int blocks,
   kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
       args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch a batch-add kernel on `warps` warps a block, with its lanes'
+// shared memory.
+template <int L, typename... Params, typename... Args>
+int launch_padd_lanes(void (*kernel)(Params...), int warps, int blocks,
+                      cudaStream_t stream, Args... args) {
+  return launch_lanes(kernel, warps, kPaddLanesPerWarp * PaddLane<L>::STRIDE,
+                      blocks, stream, args...);
 }
 
 // fn(Tin{}, Tout{}) for element widths in_bits and out_bits, each 16 or

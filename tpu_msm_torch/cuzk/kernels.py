@@ -58,8 +58,8 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
 
 LAUNCHED = {}
 """The geometry that the last launch of `prefix_scan`, `col_prefix`,
-`padd_batch`, `pbpr_full`, `pbpr_stage1` and `globalize` passed to its
-kernel, written where the kernel launches."""
+`padd_batch`, `pbpr_full`, `pdbl_batch`, `pbpr_stage1` and `globalize`
+passed to its kernel, written where the kernel launches."""
 
 
 def reset_launches() -> None:
@@ -715,9 +715,51 @@ def pdbl_batch_plain(p: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     return _stack(rows.pdbl_rows(_unstack(p), curve))
 
 
+PDBL_THREADS_PER_DOUBLING = 4
+"""Threads of a warp that share a doubling (csrc/padd_lane.cuh kDblG)."""
+PDBL_MAX_WARPS = 4
+"""Warps a block of the doubling kernel at most (csrc/pdbl_batch.cu
+kMaxWarps)."""
+
+
+class PdblGeometry(NamedTuple):
+    threads_per_doubling: int
+    warps: int
+    lanes_per_block: int
+    blocks: int
+    threads: int
+    shared_bytes: int
+
+
+def pdbl_batch_geometry(F: int, sms: int, num_limbs: int = 22,
+                        limb_bits: int = 12) -> PdblGeometry:
+    """One pdbl_batch launch over F lanes on a card of `sms` SMs: a pure
+    function, so the CPU tests can hold it.
+
+    PDBL_THREADS_PER_DOUBLING (4) threads of one warp share a lane, 8
+    lanes a warp. A lane keeps 11 L + 1 int32 words in shared memory
+    (csrc/pdbl_batch.cu DblLane), beside the block's copies of
+    `Consts<L>` and `WideConsts<L, w>`. The rule, `padd_batch_geometry`'s:
+    the fewest warps a block, from 1 to PDBL_MAX_WARPS, that keep to one
+    block an SM. So a small batch (the reduction path's 16 lanes) is
+    spread one warp a block over the SMs, and a large one (32,769 lanes)
+    fills blocks of four warps."""
+    if F < 1 or sms < 1 or num_limbs < 1 or limb_bits < 1:
+        raise ValueError("pdbl_batch_geometry: F, sms, num_limbs and "
+                         "limb_bits must be >= 1")
+    G = PDBL_THREADS_PER_DOUBLING
+    per_warp = 32 // G
+    warps = min(PDBL_MAX_WARPS, -(-F // (per_warp * sms)))
+    lanes = warps * per_warp
+    shared = 4 * (lanes * (11 * num_limbs | 1)
+                  + _static_shared_words(num_limbs, limb_bits))
+    return PdblGeometry(G, warps, lanes, -(-F // lanes), 32 * warps, shared)
+
+
 def pdbl_batch(p: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     """Complete projective doubling on a stacked (3, L, *batch) int32 lazy
-    point batch (values < 4p); returns the same shape in int32."""
+    point batch (values < 4p); returns the same shape in int32.
+    `pdbl_batch_geometry` picks the launch."""
     if not _on_cuda("pdbl_batch", p):
         return pdbl_batch_plain(p, curve)
     L, w = _profile("pdbl_batch", curve)
@@ -725,11 +767,15 @@ def pdbl_batch(p: torch.Tensor, curve: CurveParams) -> torch.Tensor:
         raise ValueError("pdbl_batch: expected a (3, L, *batch) int32 tensor, "
                          f"got {p.dtype} {tuple(p.shape)}")
     p = p.contiguous()
+    F = p[0, 0].numel()
+    geo = pdbl_batch_geometry(F, _sm_count(p.device), L, w)
     out = torch.empty_like(p)
     rc = _build.library().msm_pdbl_batch(
-        L, w, p.data_ptr(), out.data_ptr(), p[0, 0].numel(),
-        _consts(curve, p.device).data_ptr(), _stream(p))
+        L, w, p.data_ptr(), out.data_ptr(), F, geo.threads_per_doubling,
+        geo.warps, geo.blocks, _consts(curve, p.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(p))
     _check("pdbl_batch", rc)
+    LAUNCHED["pdbl_batch"] = geo._asdict()
     return out
 
 
