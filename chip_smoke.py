@@ -6,9 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. print the card's name and power limit; require CUDA;
   2. build the kernels of tpu_msm_torch/csrc (timed as set-up); print
-     what ptxas said of the redesigned kernels (`[ptxas]`: registers,
-     stack frame, spills) and, for the five on the word-wide multiply,
-     their instructions by kind from cuobjdump -sass (`[sass]`);
+     what ptxas said of the redesigned kernels at BN254_S12 and at every
+     profile of PROFILES (`[ptxas]`: registers, stack frame, spills)
+     and, for the five on the word-wide multiply, their instructions by
+     kind from cuobjdump -sass (`[sass]`);
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
      and 2^20 (captured from a warm-up run of the device program, without
      GLV and with it): the CUDA kernel against its plain PyTorch version
@@ -78,11 +79,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      host Horner at 2^16 and 2^20 under torch.profiler: the device time
      of the PyTorch ops outside the port's kernels, op by op, beside the
      kernels' own, and the d2h, decode and Horner on the host clock;
-  9. the `pbpr_full` edges whose plain versions ran on the CPU;
- 10. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
+  9. every profile of PROFILES (`run_profile`: BLS12_377_S12 at 2^16
+     and 2^20, BN254_S13 and BLS12_377_S13 at 2^16, each with its own
+     inputs from gen_planar_inputs(seed=99, k_base=64)): at each size
+     the nine kernels against their plain versions on the shapes its run
+     gives them, timed against their bounds, the scan for both numbers
+     of threads per lane, the reduction and globalisation checks; the
+     MSM EXACT at each size, counted and timed; for BLS12_377_S12 also
+     the GLV MSM, to_affine and the [latency] line; a [where] line for
+     each size;
+ 10. the `pbpr_full` edges whose plain versions ran on the CPU;
+ 11. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
     with all nine kernels (pbpr_full with the geometry the user call
-    launched, from kernels.LAUNCHED);
- 11. last line {"ok": true, "device": {...}}.
+    launched, from kernels.LAUNCHED; under "profiles" each kernel's
+    time, bound, launches and error at each profile of PROFILES);
+ 12. last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -104,7 +115,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_msm_torch import _build, to_affine  # noqa: E402
 from tpu_msm_torch.config import MSMConfig, default_config  # noqa: E402
-from tpu_msm_torch.constants import BN254_S12, int_to_limbs  # noqa: E402
+from tpu_msm_torch.constants import (BLS12_377_S12,  # noqa: E402
+                                     BLS12_377_S13, BN254_S12, BN254_S13,
+                                     int_to_limbs)
 from tpu_msm_torch.cuzk import glv as glv_dev  # noqa: E402
 from tpu_msm_torch.cuzk import kernels  # noqa: E402
 from tpu_msm_torch.cuzk import pbpr  # noqa: E402
@@ -114,8 +127,15 @@ from tpu_msm_torch.cuzk.pipeline import (get_pipeline,  # noqa: E402
 from tpu_msm_torch.reference import curve as ref  # noqa: E402
 from tpu_msm_torch.utils import preprocess  # noqa: E402
 
-CURVE = BN254_S12
+CURVE = BN254_S12   # the profile of phases 3 to 8
 SIZES = (16, 20)
+# The profiles beyond BN254_S12 that the script drives through the main
+# path (`run_profile`), each at its sizes: at every size each kernel is
+# held against its plain version and timed, and the reduction and
+# globalisation paths run. PROFILE_FULL also runs GLV and to_affine.
+PROFILES = ((BLS12_377_S12, (16, 20)), (BN254_S13, (16,)),
+            (BLS12_377_S13, (16,)))
+PROFILE_FULL = BLS12_377_S12
 DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
         "padd_batch", "pbpr_full")
@@ -172,11 +192,13 @@ def mul_wide_mads(L: int, w: int) -> int:
     """int32 multiply and multiply-add instructions of one word-wide
     Montgomery multiply (csrc/mul_wide.cuh), each .lo and .hi half
     counted: N = ceil(L w / 32) words, NF = NP = floor(L w / 32); N^2
-    word products for a b, then NF whole-word reductions and one of the
-    last bits, each an m digit (one .lo) and NP word products of m p.
-    315 at L = 22 (1,012 multiply-adds in Field::mul)."""
+    word products for a b, then NF whole-word reductions and, where L w
+    is no multiple of 32, one of the last bits, each an m digit (one .lo)
+    and NP word products of m p. 315 at L = 22 (1,012 multiply-adds in
+    Field::mul), 588 at BLS12_377_S12 (2,112)."""
     n, nf = -(-L * w // 32), L * w // 32
-    return 2 * n * n + (nf + 1) * (1 + 2 * nf)
+    steps = nf + (1 if L * w % 32 else 0)
+    return 2 * n * n + steps * (1 + 2 * nf)
 
 
 # The kernels whose Montgomery multiply is the word-wide one: their
@@ -195,16 +217,16 @@ def as_tuple(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def work(name: str, args, out, wide: bool = True) -> tuple:
+def work(curve, name: str, args, out, wide: bool = True) -> tuple:
     """(bytes moved, int32 operations) of one call: each input read once,
     each output written once; operations from the shapes. A kernel of
     WIDE counts its own multiply's mul_wide_mads (2 operations each, as
     a multiply-add counts); with wide=False, the 12-bit multiply's
     mont_mul_ops."""
-    L = CURVE.num_limbs
+    L = curve.num_limbs
     mm = mont_mul_ops(L)
     if wide and name in WIDE:
-        mm = 2 * mul_wide_mads(L, CURVE.log_limb_size)
+        mm = 2 * mul_wide_mads(L, curve.log_limb_size)
     nbytes = sum(a.numel() * a.element_size() for a in args + as_tuple(out)
                  if isinstance(a, torch.Tensor))
     if name == "encode_mont":
@@ -273,24 +295,25 @@ def queued_ms(fn, reps: int, blocker) -> float:
     return s.elapsed_time(e) / reps
 
 
-_BUSY = []
+_BUSY = {}
 
 
-def busy() -> None:
-    """Some 18 ms of one warp on the card (a scan lane of 2,048 steps):
-    the call that keeps the card busy while the launches of a `queued_ms`
-    measurement are enqueued behind it."""
-    if not _BUSY:
-        L, R = CURVE.num_limbs, 2048
+def busy(curve) -> None:
+    """Some 18 ms (BN254_S12) of one warp on the card (a scan lane of
+    2,048 steps): the call that keeps the card busy while the launches of
+    a `queued_ms` measurement are enqueued behind it, made once a
+    profile."""
+    if curve.name not in _BUSY:
+        L, R = curve.num_limbs, 2048
         rng = np.random.default_rng(11)
         table = torch.from_numpy(rng.integers(
-            0, 1 << CURVE.log_limb_size, (32 * R, 2 * L)).astype(np.int16)
+            0, 1 << curve.log_limb_size, (32 * R, 2 * L)).astype(np.int16)
             ).to(DEVICE)
         pay = torch.from_numpy((rng.permutation(32 * R) << 1).astype(
             np.int32)).to(DEVICE)[None]
-        _BUSY.append(lambda: kernels.prefix_scan(table, pay, CURVE, 32,
-                                                 _threads_per_lane=2))
-    _BUSY[0]()
+        _BUSY[curve.name] = lambda: kernels.prefix_scan(
+            table, pay, curve, 32, _threads_per_lane=2)
+    _BUSY[curve.name]()
 
 
 # A kernel faster than this (CUDA events around back-to-back calls) is
@@ -347,26 +370,28 @@ def spy(seen: dict, targets):
 _INPUTS = {}
 
 
-def inputs(logn: int):
-    """(xs, ys, hw, base, oracle result) of one size, made once."""
-    if logn not in _INPUTS:
+def inputs(curve, logn: int):
+    """(xs, ys, hw, base, oracle result) of one size of a profile, made
+    once."""
+    key = (curve.name, logn)
+    if key not in _INPUTS:
         xs, ys, hw, base = preprocess.gen_planar_inputs(
-            CURVE, 1 << logn, seed=99, k_base=64)
-        _INPUTS[logn] = (xs, ys, hw, base,
-                         preprocess.expected_msm(base, hw, CURVE))
-    return _INPUTS[logn]
+            curve, 1 << logn, seed=99, k_base=64)
+        _INPUTS[key] = (xs, ys, hw, base,
+                        preprocess.expected_msm(base, hw, curve))
+    return _INPUTS[key]
 
 
-def config(logn: int, glv: bool):
-    return dataclasses.replace(default_config(1 << logn, CURVE), glv=glv)
+def config(curve, logn: int, glv: bool):
+    return dataclasses.replace(default_config(1 << logn, curve), glv=glv)
 
 
-def capture_inputs(logn: int, glv: bool) -> dict:
+def capture_inputs(curve, logn: int, glv: bool) -> dict:
     """Run the device program once and keep the first call of every
     kernel wrapper of the main path, of `boundary_positions` and, under
     GLV, of `apply_glv`."""
     n = 1 << logn
-    xs, ys, hw, _, _ = inputs(logn)
+    xs, ys, hw, _, _ = inputs(curve, logn)
     hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
     dev = torch.device(DEVICE)
     targets = [(kernels, k) for k in MAIN + ("psub_batch",)]
@@ -375,7 +400,8 @@ def capture_inputs(logn: int, glv: bool) -> dict:
         pipeline_cuda.windows_device(
             torch.from_numpy(xs.astype(np.int32)).to(dev),
             torch.from_numpy(ys.astype(np.int32)).to(dev),
-            torch.from_numpy(hw.astype(np.int32)).to(dev), config(logn, glv))
+            torch.from_numpy(hw.astype(np.int32)).to(dev),
+            config(curve, logn, glv))
         torch.cuda.synchronize()
     return seen
 
@@ -384,10 +410,10 @@ def capture_inputs(logn: int, glv: bool) -> dict:
 KERNEL_OF = {"psub_batch": "padd_batch"}
 
 
-def compare(key: str, fn: str, args, kw, tag: str, card: str, reps: int
-            ) -> dict:
+def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
+            reps: int) -> dict:
     """One kernel, through wrapper `fn`, against the wrapper's plain
-    version on the same CUDA inputs."""
+    version on the same CUDA inputs, then timed."""
     name = KERNEL_OF.get(fn, fn)
     kern = getattr(kernels, fn)
     plain = getattr(kernels, fn + "_plain")
@@ -401,8 +427,8 @@ def compare(key: str, fn: str, args, kw, tag: str, card: str, reps: int
     err = 0
     for g, w in zip(as_tuple(got), as_tuple(want), strict=True):
         if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"{key}: shape/dtype {g.shape} {g.dtype}"
-                                 f" vs plain {w.shape} {w.dtype}")
+            raise AssertionError(f"{key}: shape/dtype {g.shape} {g.dtype} "
+                                 f"vs plain {w.shape} {w.dtype}")
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64)
                             ).abs().max()))
     if err:
@@ -411,12 +437,14 @@ def compare(key: str, fn: str, args, kw, tag: str, card: str, reps: int
     call = lambda: kern(*args, **kw)
     t_cuda = cuda_ms(call, reps)
     queued = t_cuda < QUEUE_BELOW_MS
-    t = queued_ms(call, QUEUE_REPS, busy) if queued else t_cuda
-    nbytes, ops = work(name, args, got)
+    t = (queued_ms(call, QUEUE_REPS, lambda: busy(curve)) if queued
+         else t_cuda)
+    nbytes, ops = work(curve, name, args, got)
     b_ms, b_by = bound_ms(nbytes, ops)
     extra, note = {}, ""
     if name in WIDE:
-        b_old, by_old = bound_ms(nbytes, work(name, args, got, False)[1])
+        b_old, by_old = bound_ms(nbytes, work(curve, name, args, got,
+                                            False)[1])
         extra = dict(bound_ms_mont_mul_ops=b_old, bound_by_mont_mul_ops=by_old)
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
     if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize"):
@@ -424,19 +452,20 @@ def compare(key: str, fn: str, args, kw, tag: str, card: str, reps: int
         note += f" launched={extra['launched']}"
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
     how = "queued behind a busy call" if queued else "back to back"
-    print(f"[kernel] {key} {tag} in={shape} "
+    print(f"[kernel] {curve.name} {key} {tag} in={shape} "
           f"out={[tuple(o.shape) for o in as_tuple(got)]} "
           f"ms={t:.4f} ({how}) cuda_ms={t_cuda:.4f} (back to back, the "
           f"wrapper's host cost included) plain_ms={plain_ms:.1f} "
-          f"bound_ms={b_ms:.4f} ({b_by}){note} bit-identical "
-          f"max_abs_err={err} [{card}]", flush=True)
+          f"bound_ms={b_ms:.4f} ({b_by}){note} x{t / b_ms:.2f} bound; "
+          f"bit-identical max_abs_err={err} [{card}]", flush=True)
     return dict(name=name, ms=t, ms_cuda=t_cuda, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err, **extra)
 
 
-def check_main_kernels(seen: dict, tag: str, card: str, reps: int) -> dict:
+def check_main_kernels(curve, seen: dict, tag: str, card: str,
+                       reps: int) -> dict:
     """Phase 3 for the six kernels of the main path."""
-    results = {key: compare(key, name, args, kw, tag, card, reps)
+    results = {key: compare(curve, key, name, args, kw, tag, card, reps)
                for key, (name, args, kw, _) in seen.items()
                if KERNEL_OF.get(name, name) in MAIN}
     missing = set(MAIN) - {r["name"] for r in results.values()}
@@ -445,7 +474,7 @@ def check_main_kernels(seen: dict, tag: str, card: str, reps: int) -> dict:
     return results
 
 
-def scan_sweep(seen: dict, tag: str, card: str, reps: int) -> dict:
+def scan_sweep(curve, seen: dict, tag: str, card: str, reps: int) -> dict:
     """`prefix_scan` on the captured inputs for every number of threads
     per lane: bit-identical to the captured output, and timed."""
     _, args, kw, (want,) = seen["prefix_scan"]
@@ -458,7 +487,8 @@ def scan_sweep(seen: dict, tag: str, card: str, reps: int) -> dict:
             raise AssertionError(f"prefix_scan at {tag}: {G} threads per "
                                  "lane differ from the main path's output")
         times[G] = cuda_ms(call, reps)
-    print(f"[scan-G] {tag} R={want.shape[2]} lanes={want.shape[3]}: ms by "
+    print(f"[scan-G] {curve.name} {tag} R={want.shape[2]} "
+          f"lanes={want.shape[3]}: ms by "
           "threads per lane "
           + ", ".join(f"{G}: {t:.4f}" for G, t in times.items())
           + f"; the wrapper launched {picked}; all bit-identical [{card}]",
@@ -645,7 +675,7 @@ def stage1_globalize_edges(seen: dict, card: str) -> None:
     print(f"[edge] pbpr_stage1 bit-identical to its plain version in {n} "
           f"launches, int16 and int32 buckets, infinity and P + P in the "
           f"chains: {'; '.join(done)} [{card}]", flush=True)
-    tbuf, S = first_group(seen)
+    tbuf, S = first_group(CURVE, seen)
     n = 0
     for R, F in GLOBALIZE_EDGES:
         t = tbuf[:, :, :R, :F].contiguous()
@@ -763,10 +793,10 @@ def rest_split(logn: int) -> dict:
     summed apart. Then, on the host clock (median of 5), the d2h of the
     window sums, their decode and the host Horner, on the device output
     of the same program."""
-    cfg = config(logn, False)
+    cfg = config(CURVE, logn, False)
     pipe = get_pipeline(cfg, DEVICE)
     n = 1 << logn
-    xs, ys, hw, _, want = inputs(logn)
+    xs, ys, hw, _, want = inputs(CURVE, logn)
     dev_in = [torch.from_numpy(a).to(DEVICE) for a in (
         xs.astype(np.int16), ys.astype(np.int16),
         np.concatenate([hw, np.zeros((2, n), np.uint32)]).astype(np.uint16))]
@@ -876,54 +906,59 @@ PBPR_STEP_BT = (32, 256)
 COL_LEVEL_C = (2, 32)
 
 
-def latency(card: str, scan_G: int) -> dict:
+def latency(curve, card: str, scan_G: int) -> dict:
     """One `padd_batch` launch on 32 lanes and one `pdbl_batch` launch on
     16; one col_prefix level, one scan step, one pbpr_full stage-1 step,
     one pbpr_stage1 step and one doubling on a single warp (32 lanes; 8
     for pbpr_full, four threads each, and for pbpr_stage1, twelve threads
     each, two a warp; one lane for pdbl_batch)."""
-    L, R = CURVE.num_limbs, 128
+    L, R = curve.num_limbs, 128
     rng = np.random.default_rng(11)
     lazy = lambda shape: torch.from_numpy(rng.integers(
-        0, 1 << CURVE.log_limb_size, (3, L) + shape).astype(np.int16)
+        0, 1 << curve.log_limb_size, (3, L) + shape).astype(np.int16)
         ).to(DEVICE)
     p, q = lazy((32,)), lazy((32,))
     table = torch.from_numpy(rng.integers(
-        0, 1 << CURVE.log_limb_size, (32 * R, 2 * L)).astype(np.int16)
+        0, 1 << curve.log_limb_size, (32 * R, 2 * L)).astype(np.int16)
         ).to(DEVICE)
     pay = torch.from_numpy((rng.permutation(32 * R) << 1).astype(np.int32)
                            ).to(DEVICE)[None]
-    padd_ms = queued_ms(lambda: kernels.padd_batch(p, q, CURVE), 50, busy)
+    blocker = lambda: busy(curve)
+    padd_ms = queued_ms(lambda: kernels.padd_batch(p, q, curve), 50,
+                        blocker)
     padd_geo = dict(kernels.LAUNCHED["padd_batch"])
     dbl = {F: lazy((F,)).to(torch.int32) for F in (16, 1)}
-    dbl_ms = {F: queued_ms(lambda: kernels.pdbl_batch(d, CURVE), 50, busy)
+    dbl_ms = {F: queued_ms(lambda: kernels.pdbl_batch(d, curve), 50,
+                           blocker)
               for F, d in dbl.items()}
     dbl_geo = dict(kernels.LAUNCHED["pdbl_batch"])
     # col_prefix on one window: one block, C threads of one warp,
     # max(log2 C, 1) levels a launch; the two calls differ by 4 levels
     cols = {C: lazy((1, C)) for C in COL_LEVEL_C}
-    col = {C: queued_ms(lambda: kernels.col_prefix(cols[C], CURVE), 50, busy)
+    col = {C: queued_ms(lambda: kernels.col_prefix(cols[C], curve), 50,
+                        blocker)
            for C in COL_LEVEL_C}
     lv = [max(C.bit_length() - 1, 1) for C in COL_LEVEL_C]
     col_level = (col[COL_LEVEL_C[1]] - col[COL_LEVEL_C[0]]) / (lv[1] - lv[0])
     step = {G: cuda_ms(lambda: kernels.prefix_scan(
-        table, pay, CURVE, 32, _threads_per_lane=G), 20) / R
+        table, pay, curve, 32, _threads_per_lane=G), 20) / R
         for G in kernels.SCAN_THREADS_PER_LANE}
     # pbpr_full on one window of 8 lanes: the two calls differ by
     # Bt1 - Bt0 stage-1 steps and log2(Bt1 / Bt0) doublings, each about
     # as deep as a step
     lo, hi = PBPR_STEP_BT
-    pb = {Bt: cuda_ms(lambda: kernels.pbpr_full(b, CURVE, 8), 10)
+    pb = {Bt: cuda_ms(lambda: kernels.pbpr_full(b, curve, 8), 10)
           for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
     extra = (hi // lo).bit_length() - 1
     pbpr_step = (pb[hi] - pb[lo]) / (hi - lo + extra)
     # pbpr_stage1 on the same shapes: the two calls differ by Bt1 - Bt0
     # steps, each one add of each chain at once
-    s1 = {Bt: cuda_ms(lambda: kernels.pbpr_stage1(b, CURVE, 8), 10)
+    s1 = {Bt: cuda_ms(lambda: kernels.pbpr_stage1(b, curve, 8), 10)
           for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
     s1_geo = dict(kernels.LAUNCHED["pbpr_stage1"])
     stage1_step = (s1[hi] - s1[lo]) / (hi - lo)
-    print(f"[latency] padd_batch on 32 lanes {padd_ms:.4f} ms a launch "
+    print(f"[latency] {curve.name}: padd_batch on 32 lanes {padd_ms:.4f} "
+          f"ms a launch "
           f"(launched {padd_geo}); pdbl_batch on 16 lanes {dbl_ms[16]:.4f} "
           f"ms a launch, one doubling on a lone warp {dbl_ms[1]:.4f} ms "
           f"(launched {dbl_geo}); one warp of lanes: col_prefix "
@@ -947,18 +982,19 @@ def latency(card: str, scan_G: int) -> dict:
                 pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo)
 
 
-def first_group(seen: dict):
+def first_group(curve, seen: dict):
     """(T, S) of the first window group: the scan output (3, L, R, F) and
     the column prefix flattened to (3, L, F)."""
     tbuf = seen["prefix_scan"][3][0]
     S = seen["col_prefix"][3][0]
-    return tbuf, S.reshape(3, CURVE.num_limbs, tbuf.shape[3])
+    return tbuf, S.reshape(3, curve.num_limbs, tbuf.shape[3])
 
 
-def reduction_path(seen: dict, logn: int, card: str, full_ms: float):
+def reduction_path(curve, seen: dict, logn: int, card: str,
+                   full_ms: float):
     """Phase 4 at one size. Returns the launch counts of the path and the
     (3, L, Wp) sum that the path hands to `pdbl_batch`."""
-    cfg = config(logn, False)
+    cfg = config(curve, logn, False)
     pipe = get_pipeline(cfg, DEVICE)
     buckets = seen["pbpr_full"][1][0]
     want = pipe._decode_windows(seen["pbpr_full"][3][0])
@@ -970,7 +1006,7 @@ def reduction_path(seen: dict, logn: int, card: str, full_ms: float):
     launches = dict(kernels.LAUNCHES)
     got = pipe._decode_windows(got)
     for w, (a, b) in enumerate(zip(got, want, strict=True)):
-        if not ref.jac_eq(CURVE, a, b):
+        if not ref.jac_eq(curve, a, b):
             raise AssertionError(f"2^{logn}: bucket_reduce differs from "
                                  f"pbpr_full in window {w}")
     idle = [k for k in ("pbpr_stage1", "pdbl_batch", "padd_batch")
@@ -981,7 +1017,8 @@ def reduction_path(seen: dict, logn: int, card: str, full_ms: float):
              for _ in range(3)]
     ms = statistics.median(times)
     used = {k: v for k, v in launches.items() if v}
-    print(f"[reduce] n=2^{logn} bucket_reduce (3, L, {buckets.shape[2]}, "
+    print(f"[reduce] {curve.name} n=2^{logn} bucket_reduce (3, L, "
+          f"{buckets.shape[2]}, "
           f"{buckets.shape[3]}) T={cfg.pbpr_threads}: equal in the group to "
           f"pbpr_full in all {len(want)} windows; median {ms:.2f} ms of "
           f"{[round(t, 2) for t in times]} against pbpr_full {full_ms:.2f} ms;"
@@ -989,15 +1026,15 @@ def reduction_path(seen: dict, logn: int, card: str, full_ms: float):
     return launches, ms, dbl["pdbl_batch"][1][0]
 
 
-def globalise_check(seen: dict, logn: int, card: str) -> int:
+def globalise_check(curve, seen: dict, logn: int, card: str) -> int:
     """Phase 5 at one size. Returns the launches it made (one)."""
-    cfg = config(logn, False)
-    tbuf, S = first_group(seen)
-    L, Wg = CURVE.num_limbs, cfg.subtask_group
+    cfg = config(curve, logn, False)
+    tbuf, S = first_group(curve, seen)
+    L, Wg = curve.num_limbs, cfg.subtask_group
     jt = seen["boundary_positions"][3][2][:Wg].long()
     want = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
     kernels.reset_launches()
-    G = kernels.globalize(tbuf, S, CURVE)
+    G = kernels.globalize(tbuf, S, curve)
     got = G.reshape(3, L, -1)[:, :, jt]
     torch.cuda.synchronize()
     launches = kernels.LAUNCHES["globalize"]
@@ -1006,47 +1043,70 @@ def globalise_check(seen: dict, logn: int, card: str) -> int:
     if got.dtype != want.dtype or not torch.equal(got, want):
         raise AssertionError(f"2^{logn}: globalize(T, S) at the region ends "
                              "differs from the main path's G")
-    print(f"[globalise] n=2^{logn} globalize(T {tuple(tbuf.shape)}, "
+    print(f"[globalise] {curve.name} n=2^{logn} globalize(T "
+          f"{tuple(tbuf.shape)}, "
           f"S {tuple(S.shape)}) at the {tuple(jt.shape)} region ends: "
           f"bit-identical to the main path's G [{card}]", flush=True)
     return launches
 
 
+def check_nine(curve, seen: dict, logn: int, card: str, reps: int,
+               full_ms: float) -> dict:
+    """Phase 3 for `pbpr_stage1`, `globalize` and `pdbl_batch`
+    (`off_path`), and phases 4 and 5 (`full_ms`: pbpr_full's time,
+    beside the reduction path's)."""
+    results = off_path(curve, seen, logn, card, reps)
+    red = reduction_path(curve, seen, logn, card, full_ms)
+    results["pdbl_batch[Wp]"] = compare(
+        curve, "pdbl_batch[Wp]", "pdbl_batch", (red[2], curve), {},
+        f"n=2^{logn}", card, reps)
+    glob = globalise_check(curve, seen, logn, card)
+    return dict(results=results, reduce_launches=red[0], reduce_ms=red[1],
+                globalize_launches=glob)
+
+
+def off_path(curve, seen: dict, logn: int, card: str, reps: int) -> dict:
+    """`pbpr_stage1`, `globalize` and `pdbl_batch` against their plain
+    versions on the captured run's buckets,
+    the first window group's scan output and column prefix, and the
+    stage-3 sums G."""
+    cfg = config(curve, logn, False)
+    tbuf, S = first_group(curve, seen)
+    buckets = seen["pbpr_full"][1][0]
+    gall = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
+    T = min(cfg.pbpr_threads, cfg.half_columns)
+    calls = {"pbpr_stage1": ("pbpr_stage1", (buckets, curve, T)),
+             "globalize": ("globalize", (tbuf, S, curve)),
+             "pdbl_batch[Wg,B+1]": ("pdbl_batch", (gall, curve))}
+    return {key: compare(curve, key, fn, args, {}, f"n=2^{logn}", card, reps)
+            for key, (fn, args) in calls.items()}
+
+
 def check_size(logn: int, card: str):
     """Phases 3 to 5 at one size."""
     reps = 5 if logn < 20 else 3
-    cfg = config(logn, False)
-    seen = capture_inputs(logn, False)
+    seen = capture_inputs(CURVE, logn, False)
     tag = f"n=2^{logn}"
-    results = check_main_kernels(seen, tag, card, reps)
-    sweep = scan_sweep(seen, tag, card, reps)
+    results = check_main_kernels(CURVE, seen, tag, card, reps)
+    sweep = scan_sweep(CURVE, seen, tag, card, reps)
     if logn == min(SIZES):
         edge_shapes(seen, card)
         wide_edges(seen, card)
         stage1_globalize_edges(seen, card)
         pdbl_edges(seen, card)
     pbpr_edge = pbpr_edges(seen, card) if logn == max(SIZES) else None
-    tbuf, S = first_group(seen)
-    buckets = seen["pbpr_full"][1][0]
-    gall = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
-    results["pbpr_stage1"] = compare(
-        "pbpr_stage1", "pbpr_stage1",
-        (buckets, CURVE, min(cfg.pbpr_threads, cfg.half_columns)), {}, tag,
-        card, reps)
-    results["globalize"] = compare("globalize", "globalize",
-                                   (tbuf, S, CURVE), {}, tag, card, reps)
-    results["pdbl_batch[Wg,B+1]"] = compare(
-        "pdbl_batch[Wg,B+1]", "pdbl_batch", (gall, CURVE), {}, tag, card, reps)
-    red = reduction_path(seen, logn, card, results["pbpr_full"]["ms"])
-    results["pdbl_batch[Wp]"] = compare(
-        "pdbl_batch[Wp]", "pdbl_batch", (red[2], CURVE), {}, tag, card, reps)
-    glob = globalise_check(seen, logn, card)
+    nine = check_nine(CURVE, seen, logn, card, reps,
+                      results["pbpr_full"]["ms"])
+    results.update(nine["results"])
+    red = (nine["reduce_launches"], nine["reduce_ms"])
+    glob = nine["globalize_launches"]
 
-    del seen, tbuf, S, buckets, gall
+    del seen
     torch.cuda.empty_cache()
-    seen = capture_inputs(logn, True)
-    results_glv = check_main_kernels(seen, f"n=2^{logn} glv", card, reps)
-    sweep_glv = scan_sweep(seen, f"n=2^{logn} glv", card, reps)
+    seen = capture_inputs(CURVE, logn, True)
+    results_glv = check_main_kernels(CURVE, seen, f"n=2^{logn} glv", card,
+                                     reps)
+    sweep_glv = scan_sweep(CURVE, seen, f"n=2^{logn} glv", card, reps)
     _, args, kw, _ = seen["apply_glv"]
     glv_ms = cuda_ms(lambda: glv_dev.apply_glv(*args, **kw), reps)
     print(f"[apply_glv] n=2^{logn}: {glv_ms:.2f} ms for "
@@ -1060,14 +1120,14 @@ def check_size(logn: int, card: str):
                 pbpr_edges=pbpr_edge)
 
 
-def main_path(logn: int, card: str, glv: bool = False):
+def main_path(curve, logn: int, card: str, glv: bool = False):
     """Phase 6 (or, with glv, phase 7) at one size. Returns the launch
     counts of the user call, the timings, the threads per lane that the
     user call's scans were launched with, and the geometry its pbpr_full
     and its last padd_batch were launched with."""
     n = 1 << logn
-    cfg = config(logn, glv)
-    _, _, hw, base, want = inputs(logn)
+    cfg = config(curve, logn, glv)
+    _, _, hw, base, want = inputs(curve, logn)
     points = [base[i % len(base)] for i in range(n)]
     scalars = preprocess.halfwords_to_ints(hw)
     label = "msm-glv" if glv else "msm"
@@ -1075,21 +1135,22 @@ def main_path(logn: int, card: str, glv: bool = False):
     kernels.reset_launches()
     kernels.LAUNCHED.clear()
     t0 = time.perf_counter()
-    got = tpu_variable_base_msm(points, scalars, curve=CURVE, device=DEVICE,
+    got = tpu_variable_base_msm(points, scalars, curve=curve, device=DEVICE,
                                 config=cfg if glv else None)
     t_user = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     scan_G = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
     pbpr_geo = dict(kernels.LAUNCHED["pbpr_full"])
     padd_geo = dict(kernels.LAUNCHED["padd_batch"])
-    if not ref.jac_eq(CURVE, got, want):
+    if not ref.jac_eq(curve, got, want):
         raise AssertionError(f"2^{logn} {label}: MSM result differs from "
                              "the oracle")
     idle = [k for k in MAIN if launches[k] == 0]
     if idle:
         raise AssertionError(f"2^{logn} {label}: kernels not launched: {idle}")
     used = {k: v for k, v in launches.items() if v}
-    print(f"[{label}] n=2^{logn} tpu_variable_base_msm EXACT in {t_user:.2f} s"
+    print(f"[{label}] {curve.name} n=2^{logn} tpu_variable_base_msm EXACT "
+          f"in {t_user:.2f} s"
           f" (host pack included) launches={used}, the scan with {scan_G} "
           f"threads a lane, pbpr_full launched {pbpr_geo}, the last "
           f"padd_batch launched {padd_geo} [{card}]", flush=True)
@@ -1103,7 +1164,7 @@ def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str):
     apart, then window_sums + host Horner; median of 3, each EXACT."""
     n = 1 << logn
     pipe = get_pipeline(cfg, DEVICE)
-    xs, ys, hw, _, want = inputs(logn)
+    xs, ys, hw, _, want = inputs(cfg.curve, logn)
     wire = (xs.astype(np.int16), ys.astype(np.int16),
             np.concatenate([hw, np.zeros((2, n), np.uint32)]).astype(np.uint16))
     times, h2ds = [], []
@@ -1115,14 +1176,15 @@ def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str):
         t1 = time.perf_counter()
         acc = pipe.horner(pipe.window_sums(*dev_in))
         t2 = time.perf_counter()
-        if not ref.jac_eq(CURVE, acc, want):
+        if not ref.jac_eq(cfg.curve, acc, want):
             raise AssertionError(f"2^{logn} {label}: timed run differs from "
                                  "the oracle")
         h2ds.append((t1 - t0) * 1e3)
         times.append((t2 - t1) * 1e3)
     ms, h2d = statistics.median(times), statistics.median(h2ds)
     lanes = (2 if cfg.glv else 1) * n
-    print(f"[{label}] n=2^{logn} s={cfg.window_size} W={cfg.num_windows} "
+    print(f"[{label}] {cfg.curve.name} n=2^{logn} s={cfg.window_size} "
+          f"W={cfg.num_windows} "
           f"groups={cfg.num_groups} stream={lanes} lanes C={cfg.columns} "
           f"T={cfg.pbpr_threads} Wg={cfg.subtask_group}: device+decode+"
           f"horner median {ms:.2f} ms of {[round(t, 2) for t in times]}, "
@@ -1166,22 +1228,22 @@ def where_line(label: str, logn: int, launches: dict, results: dict,
     return sum(per.values())
 
 
-def affine_check(logn: int, card: str, glv: bool) -> float:
+def affine_check(curve, logn: int, card: str, glv: bool) -> float:
     """Phase 8: `to_affine` on the card against the host decode."""
     n = 1 << logn
-    cfg = config(logn, glv)
+    cfg = config(curve, logn, glv)
     pipe = get_pipeline(cfg, DEVICE)
-    xs, ys, hw, _, _ = inputs(logn)
+    xs, ys, hw, _, _ = inputs(curve, logn)
     hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
     g = pipeline_cuda.windows_device(
         *(torch.from_numpy(a.astype(np.int32)).to(DEVICE)
           for a in (xs, ys, hw)), cfg)
     want = pipe._decode_windows(g)
-    (ax, ay, inf), ms = timed_once(lambda: to_affine(g, CURVE))
+    (ax, ay, inf), ms = timed_once(lambda: to_affine(g, curve))
     if ax.device != g.device or ax.shape != g.shape[1:]:
         raise AssertionError("to_affine: wrong device or shape")
-    w = CURVE.log_limb_size
-    vals = lambda t: [CURVE.from_mont(sum(int(v) << (w * i) for i, v in
+    w = curve.log_limb_size
+    vals = lambda t: [curve.from_mont(sum(int(v) << (w * i) for i, v in
                                           enumerate(col)))
                       for col in t.cpu().numpy().T.tolist()]
     got = list(zip(vals(ax), vals(ay), inf.cpu().tolist()))
@@ -1192,11 +1254,84 @@ def affine_check(logn: int, card: str, glv: bool) -> float:
                                  "host decode")
     if not all(is_inf for _, _, is_inf in got[len(want):]):
         raise AssertionError("to_affine: a pad window is not at infinity")
-    print(f"[affine] n=2^{logn}{' glv' if glv else ''} to_affine on the "
+    print(f"[affine] {curve.name} n=2^{logn}{' glv' if glv else ''} "
+          f"to_affine on the "
           f"(3, L, {g.shape[2]}) window sums ({g.shape[2] - len(want)} pad "
           f"windows at infinity): equal to the host decode in all {len(want)} windows, "
           f"infinity masks agree; {ms:.1f} ms [{card}]", flush=True)
     return ms
+
+
+def run_profile(curve, sizes, card: str) -> dict:
+    """A profile beyond BN254_S12 through the main path. At each size:
+    the six kernels of the main path, `pbpr_stage1`, `globalize` and
+    `pdbl_batch` against their plain versions on the shapes the run gives
+    them, the scan for every number of threads per lane, the reduction
+    and globalisation paths (phases 3 to 5). Then the MSM at every size,
+    EXACT, counted and timed (phase 6); for PROFILE_FULL the GLV MSM and
+    the [latency] line (phase 7) and to_affine (phase 8) at the smallest
+    size; a [where] line for each size."""
+    t0 = time.perf_counter()
+    warm_plain(curve)
+    checked, nine = {}, {}
+    for logn in sizes:
+        reps = 5 if logn < 20 else 3
+        tag = f"n=2^{logn}"
+        seen = capture_inputs(curve, logn, False)
+        checked[logn] = check_main_kernels(curve, seen, tag, card, reps)
+        scan_sweep(curve, seen, tag, card, reps)
+        nine[logn] = check_nine(curve, seen, logn, card, reps,
+                                checked[logn]["pbpr_full"]["ms"])
+        del seen
+        torch.cuda.empty_cache()
+    runs = {logn: main_path(curve, logn, card) for logn in sizes}
+    out = dict(checked=checked, nine=nine, runs=runs)
+    if curve is PROFILE_FULL:
+        small = min(sizes)
+        out["glv"] = main_path(curve, small, card, glv=True)
+        out["affine_ms"] = affine_check(curve, small, card, glv=False)
+        out["latency"] = latency(curve, card, runs[max(sizes)][3])
+    for logn in sizes:
+        where_line("where", logn, runs[logn][0], checked[logn],
+                   runs[logn][1], card, f" ({curve.name})")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[profile] {curve.name}: every phase passed in "
+          f"{out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def profile_entry(name: str, prof: dict) -> dict:
+    """What the JSON line keeps of one kernel at one profile of PROFILES:
+    the time, bound, launches, error and plain time at each size of its
+    MSM."""
+    out = {}
+    sizes = sorted(prof["runs"])
+    for logn in sizes:
+        sfx = "" if logn == max(sizes) else f"_2p{logn}"
+        nine = prof["nine"][logn]
+        r = next(v for v in (*prof["checked"][logn].values(),
+                             *nine["results"].values()) if v["name"] == name)
+        if name in MAIN:
+            launches = prof["runs"][logn][0][name]
+        elif name == "globalize":
+            launches = nine["globalize_launches"]
+        else:
+            launches = nine["reduce_launches"][name]
+        out.update({f"launches{sfx}": launches, f"ms{sfx}": r["ms"],
+                    f"bound_ms{sfx}": r["bound_ms"],
+                    f"bound_by{sfx}": r["bound_by"],
+                    f"x_bound{sfx}": r["ms"] / r["bound_ms"],
+                    f"max_abs_err{sfx}": r["max_abs_err"],
+                    f"plain_ms{sfx}": r["plain_ms"],
+                    f"library_ms{sfx}": None})
+        if name in WIDE:
+            out[f"bound_ms_mont_mul_ops{sfx}"] = r["bound_ms_mont_mul_ops"]
+    return out
+
+
+# The limb counts whose kernels the [ptxas] and [sass] lines report:
+# BN254_S12's and those of PROFILES (TINY62's L = 6 is left out).
+PTXAS_LIMBS = (CURVE.num_limbs,) + tuple(c.num_limbs for c, _ in PROFILES)
 
 
 # Element types as the mangled template arguments name them.
@@ -1222,7 +1357,8 @@ SASS_KINDS = ("IMAD.WIDE", "IMAD.HI", "IMAD", "IADD3", "LD", "LDS", "LDG",
 
 
 def sass_counts(stem: str) -> dict:
-    """Instruction counts of every L = 22 kernel of csrc/<stem>.cu, read
+    """Instruction counts of every kernel of csrc/<stem>.cu at the limb
+    counts PTXAS_LIMBS, read
     from its object file with cuobjdump -sass. A kernel's listing holds
     the out-of-line functions it calls (padd_batch's msm::mul_wide)."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -1235,7 +1371,7 @@ def sass_counts(stem: str) -> dict:
             targs = (template_args(m[1], "_kernel") if "_kernelI" in m[1]
                      else [None])
             cur = None
-            if targs[0] == str(CURVE.num_limbs):
+            if targs[0] in map(str, PTXAS_LIMBS):
                 cur = f"{kernel_name(m[1])}<{', '.join(targs)}>"
                 out[cur] = dict.fromkeys(("total",) + SASS_KINDS, 0)
             continue
@@ -1284,7 +1420,7 @@ def main() -> int:
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name
             targs = template_args(fn, "_kernel")
-            if int(targs[0]) != CURVE.num_limbs:
+            if int(targs[0]) not in PTXAS_LIMBS:
                 continue
             resources[f"{stem}.{kernel_name(fn)}<{', '.join(targs)}>"] = dict(
                 registers=regs, stack_bytes=stack, spill_store_bytes=st,
@@ -1302,15 +1438,15 @@ def main() -> int:
     return run_all(card, t_start, resources, sass)
 
 
-def warm_plain() -> None:
+def warm_plain(curve) -> None:
     """The plain point formulas once on two lanes, so that no compared
     plain version is timed with PyTorch's first-use set-up on the card,
     which can take seconds."""
-    z = kernels.inf_stacked(CURVE, (2,), DEVICE)
-    kernels.padd_batch_plain(z, z, CURVE)
-    kernels.psub_batch_plain(z, z, CURVE)
-    kernels.pdbl_batch_plain(z, CURVE)
-    kernels.encode_mont_plain(z[0], CURVE)
+    z = kernels.inf_stacked(curve, (2,), DEVICE)
+    kernels.padd_batch_plain(z, z, curve)
+    kernels.psub_batch_plain(z, z, curve)
+    kernels.pdbl_batch_plain(z, curve)
+    kernels.encode_mont_plain(z[0], curve)
     kernels.decompose_digits_plain(
         torch.zeros((18, 2), dtype=torch.int32, device=DEVICE), 13, 20)
     torch.cuda.synchronize()
@@ -1318,16 +1454,18 @@ def warm_plain() -> None:
 
 def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     """Phases 3 to 10."""
-    warm_plain()
+    warm_plain(CURVE)
     checks = {logn: check_size(logn, card) for logn in SIZES}
-    runs = {logn: main_path(logn, card) for logn in SIZES}
-    runs_glv = {logn: main_path(logn, card, glv=True) for logn in SIZES}
+    runs = {logn: main_path(CURVE, logn, card) for logn in SIZES}
+    runs_glv = {logn: main_path(CURVE, logn, card, glv=True)
+                for logn in SIZES}
     sched_ms, sched_launches = schedule_run(card)
-    lat = latency(card, runs[max(SIZES)][3])
+    lat = latency(CURVE, card, runs[max(SIZES)][3])
     lanes_ms = lane_sweep(card)
-    affine_ms = affine_check(min(SIZES), card, glv=False)
-    affine_check(min(SIZES), card, glv=True)
+    affine_ms = affine_check(CURVE, min(SIZES), card, glv=False)
+    affine_check(CURVE, min(SIZES), card, glv=True)
     rests = {logn: rest_split(logn) for logn in SIZES}
+    profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
     cpu_checks(checks[max(SIZES)]["pbpr_edges"], card)
 
     for logn in SIZES:
@@ -1430,6 +1568,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                     R * lat["scan_step_ms"][run[max(SIZES)][3]])
         entry["bit_exact"] = True
         entry["at"] = f"n=2^{max(SIZES)} (suffix _2p16: n=2^16)"
+        entry["profiles"] = {c: profile_entry(name, prof)
+                             for c, prof in profiles.items()}
         entries.append(entry)
     pick = lambda d, i: {f"2^{k}": v[i] for k, v in d.items()}
     print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s"
@@ -1449,6 +1589,14 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         "pbpr_full_edges": checks[max(SIZES)]["pbpr_edges"],
         "rest_ms": {f"2^{k}": v for k, v in rests.items()},
         "ptxas": resources, "sass": sass,
+        "profiles": {c: dict(
+            msm_ms={f"2^{k}": v[1] for k, v in prof["runs"].items()},
+            h2d_ms={f"2^{k}": v[2] for k, v in prof["runs"].items()},
+            msm_glv_ms=prof["glv"][1] if "glv" in prof else None,
+            to_affine_ms=prof.get("affine_ms"),
+            bucket_reduce_ms={f"2^{k}": v["reduce_ms"]
+                              for k, v in prof["nine"].items()},
+            seconds=prof["seconds"]) for c, prof in profiles.items()},
         "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,7 +68,9 @@ def jproj(a):
 
 
 @pytest.mark.parametrize("name", ["tiny62", "bn254", "bn254_s12",
-                                  "bn254_s13"])
+                                  "bn254_s13", "bn254_f13", "bls12_377",
+                                  "bls12_377_s12", "bls12_377_s13",
+                                  "bls12_377_f12"])
 def test_profile_constants_match(name):
     J, T = jc.CURVES[name], tc.CURVES[name]
     for f in ("p", "scalar_modulus", "b_coeff", "gen_x", "gen_y",

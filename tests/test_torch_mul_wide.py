@@ -5,15 +5,19 @@ Python, and the launch geometry of csrc/padd_batch.cu.
 does it: Field::canon's int32 ripple, the canonical limbs packed into
 32-bit words, CIOS rows of 64-bit multiply-adds split into a low and a
 high word, one whole-word reduction per row for floor(L w / 32) rows,
-then one reduction of the last L w mod 32 bits, and the result unpacked
-to w-bit limbs. It must give `rows.mont_mul_rows` (the twin of
-Field::mul, itself held against the JAX package) bit for bit on TINY62
-and BN254_S12: over the whole canonical range [0, 2^(L w)), at the edge
-values, and on signed-lazy limbs from real `padd_rows` outputs. It also
+then one reduction of the last L w mod 32 bits (none where L w is a
+multiple of 32, BLS12_377_S12's 384: there t keeps a word more), and the
+result unpacked to w-bit limbs. It must give `rows.mont_mul_rows` (the
+twin of Field::mul, itself held against the JAX package) bit for bit on
+TINY62, BN254_S12, BN254_S13, BLS12_377_S12 and BLS12_377_S13: over the
+whole canonical range [0, 2^(L w)), at the edge values (up to 54p and
+2^(L w) - 1), and on signed-lazy limbs from real `padd_rows` outputs. It also
 counts its multiply halves, which `chip_smoke.py` takes for the kernels'
 operations bound. `padd_lane` replays the padd kernel's phases on one
 lane's shared words (p2 in T, the sum in p1's words, q.y negated on load
 in q's dtype) against `padd_batch_plain` and `psub_batch_plain`."""
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -29,8 +33,10 @@ from tpu_msm_torch.ops import rows
 
 torch.set_num_threads(1)
 
-CURVES = {"tiny62": tc.TINY62, "bn254_s12": tc.BN254_S12}
-JAX_CURVES = {"tiny62": jc.TINY62, "bn254_s12": jc.BN254_S12}
+NAMES = ["tiny62", "bn254_s12", "bn254_s13", "bls12_377_s12",
+         "bls12_377_s13"]
+CURVES = {name: tc.CURVES[name] for name in NAMES}
+JAX_CURVES = {name: jc.CURVES[name] for name in NAMES}
 M32 = np.uint64(0xFFFFFFFF)
 S32 = np.uint64(32)
 
@@ -45,6 +51,7 @@ class Words:
         self.N = -(-self.bits // 32)
         self.NF = self.NP = self.bits // 32
         self.RB = self.bits - 32 * self.NF
+        self.TOP = self.N if self.RB else self.N + 1   # top word of t
         k = tk._wide_consts_host(curve)
         self.p = [np.uint64(v) for v in k[:self.NP]]
         self.n0 = np.uint64(k[self.NP])
@@ -102,24 +109,33 @@ def add(t, c):
 
 
 def mont(a: list, b: list, K: Words) -> list:
-    N, NF, NP, RB = K.N, K.NF, K.NP, K.RB
+    N, NF, NP, RB, TOP = K.N, K.NF, K.NP, K.RB, K.TOP
     zero = np.zeros_like(a[0])
-    t = [zero] * (N + 1)
+    t = [zero] * (TOP + 1)
     for i in range(N):
-        assert not t[N].any()                 # t < 2^(32 N) before a row
+        if RB:
+            assert not t[N].any()             # t < 2^(32 N) before a row
+        else:
+            assert (t[N] <= 1).all() and not t[N + 1].any()  # < 2^(32N+1)
         c = zero
         for j in range(N):
             t[j], c = mac(K, a[j], b[i], t[j], c)
-        t[N] = c
+        if RB:
+            t[N] = c
+        else:
+            t[N], t[N + 1] = add(t[N], c)
         if i < NF:
             K.halves += 1
             m = (t[0] * K.n0) & M32
             _, c = mac(K, m, K.p[0], t[0], zero)
             for j in range(1, NP):
                 t[j - 1], c = mac(K, m, K.p[j], t[j], c)
-            for j in range(NP, N + 1):
+            for j in range(NP, TOP + 1):
                 t[j - 1], c = add(t[j], c)
-            t[N] = c
+            t[TOP] = c
+    if not RB:                                # every word reduced
+        assert not t[N + 1].any()
+        return t[:N]
     K.halves += 1
     m = (t[0] * K.n0) & np.uint64((1 << RB) - 1)
     c = zero
@@ -152,7 +168,7 @@ def random_canonical(curve, rng, n) -> np.ndarray:
 
 def edge_values(curve) -> list:
     p = curve.p
-    return [0, 1, p - 1, p, 2 * p - 1, 32 * p, curve.mont_radix - 1]
+    return [0, 1, p - 1, p, 2 * p - 1, 32 * p, 54 * p, curve.mont_radix - 1]
 
 
 def lazy_from_padd(curve, rng, n) -> np.ndarray:
@@ -180,7 +196,7 @@ def check(a: np.ndarray, b: np.ndarray, curve) -> None:
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("name", ["tiny62", "bn254_s12"])
+@pytest.mark.parametrize("name", NAMES)
 def test_mul_words_random_canonical(name, seed):
     curve = CURVES[name]
     rng = np.random.default_rng(100 + seed)
@@ -188,7 +204,7 @@ def test_mul_words_random_canonical(name, seed):
           curve)
 
 
-@pytest.mark.parametrize("name", ["tiny62", "bn254_s12"])
+@pytest.mark.parametrize("name", NAMES)
 def test_mul_words_edges(name):
     """Every pair of 0, 1, p - 1, p, 2p - 1, 32p and 2^(L w) - 1, also
     against the JAX package's mont_mul_rows."""
@@ -202,7 +218,7 @@ def test_mul_words_edges(name):
     assert np.array_equal(mul_words(a, b, Words(curve)), want)
 
 
-@pytest.mark.parametrize("name", ["tiny62", "bn254_s12"])
+@pytest.mark.parametrize("name", NAMES)
 def test_mul_words_lazy_padd_outputs(name):
     curve = CURVES[name]
     rng = np.random.default_rng(7)
@@ -212,7 +228,7 @@ def test_mul_words_lazy_padd_outputs(name):
     check(a, a, curve)
 
 
-@pytest.mark.parametrize("name", ["tiny62", "bn254_s12"])
+@pytest.mark.parametrize("name", NAMES)
 def test_encode_by_r2_words(name):
     """encode_mont multiplies by the pre-packed words of R^2: the same as
     packing R^2's limbs, and as to_mont_rows."""
@@ -227,8 +243,10 @@ def test_encode_by_r2_words(name):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("name,L,w,halves", [("tiny62", 6, 12, 33),
-                                             ("bn254_s12", 22, 12, 315)])
+@pytest.mark.parametrize("name,L,w,halves", [
+    ("tiny62", 6, 12, 33), ("bn254_s12", 22, 12, 315),
+    ("bn254_s13", 21, 13, 315), ("bls12_377_s12", 32, 12, 588),
+    ("bls12_377_s13", 30, 13, 663)])
 def test_wide_constants_and_operation_count(name, L, w, halves):
     curve = CURVES[name]
     K = Words(curve)
@@ -239,11 +257,21 @@ def test_wide_constants_and_operation_count(name, L, w, halves):
     mul_words(limbs([1], curve), limbs([2], curve), K)
     assert K.halves == halves == chip_smoke.mul_wide_mads(L, w)
     assert chip_smoke.mont_mul_ops(L) == 2 * L * (2 * L + 2)
+    assert len(tk._wide_consts_host(curve)) == K.NP + 1 + K.N
+    assert (K.N, K.NF, K.RB) == {
+        "tiny62": (3, 2, 8), "bn254_s12": (9, 8, 8), "bn254_s13": (9, 8, 17),
+        "bls12_377_s12": (12, 12, 0), "bls12_377_s13": (13, 12, 6)}[name]
 
 
 def test_wide_constants_refuse_other_layouts():
-    with pytest.raises(ValueError):      # L w = 256, a multiple of 32
-        tk._wide_consts_host(tc.BN254)
+    """p must fit the whole words: BN254 on 21 limbs of 12 bits (252
+    bits, 7 whole words) is refused; L w a multiple of 32 is not (BN254's
+    16 limbs of 16 bits: 8 words, p < 2^256)."""
+    with pytest.raises(ValueError):
+        tk._wide_consts_host(dataclasses.replace(tc.BN254, num_limbs=21,
+                                                 log_limb_size=12))
+    assert tk._wide_consts_host(tc.BN254)[:8] == [
+        (tc.BN254.p >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +328,7 @@ def padd_lane(p: np.ndarray, q: np.ndarray, curve, negate: bool,
 
 @pytest.mark.parametrize("dtype", [np.int16, np.int32])
 @pytest.mark.parametrize("negate", [False, True])
-@pytest.mark.parametrize("name", ["tiny62", "bn254_s12"])
+@pytest.mark.parametrize("name", NAMES)
 def test_padd_lane_phases(name, negate, dtype):
     """The kernel's phases give padd_batch_plain / psub_batch_plain bit for
     bit, on lazy points with limbs at both ends of the (-2^w, 2^(w+1))

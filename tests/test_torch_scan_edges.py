@@ -3,7 +3,8 @@ their CUDA kernels add, on CPU tensors.
 
 The plain versions against the JAX package, bit for bit, as in
 test_torch_kernels.py (TINY62: the Pallas kernels in interpret mode;
-BN254_S12: tpu_msm/ops/rows.py run eagerly), on real curve points:
+BN254_S12 and, for the scan, BN254_S13's odd L: tpu_msm/ops/rows.py run
+eagerly), on real curve points:
 `col_prefix` at C = 1, C = 2 and Wg = 3, with columns at infinity, two
 equal neighbouring columns (the add is a doubling) and a column followed
 by its negative (the running sum passes through infinity); `prefix_scan`
@@ -26,8 +27,9 @@ from tpu_msm_torch.reference import curve as ref
 
 torch.set_num_threads(1)
 
-CURVES = {"tiny62": (jc.TINY62, tc.TINY62), "bn254_s12": (jc.BN254_S12,
-                                                         tc.BN254_S12)}
+CURVES = {"tiny62": (jc.TINY62, tc.TINY62),
+          "bn254_s12": (jc.BN254_S12, tc.BN254_S12),
+          "bn254_s13": (jc.BN254_S13, tc.BN254_S13)}
 
 
 def t(a):
@@ -222,6 +224,17 @@ def test_prefix_scan_edges_s12_vs_pmadd_chain(case, R):
     assert np.array_equal(got.numpy(), scan_by_rows(J, X, Y, pay, Wg, C, R))
 
 
+@pytest.mark.parametrize("case,R", SCAN_CASES)
+def test_prefix_scan_edges_s13_vs_pmadd_chain(case, R):
+    """BN254_S13: L = 21 limbs of 13 bits, whose 84-byte rows the kernel
+    copies in 4-byte pieces, and whose multiply takes the mid-loop fold."""
+    J, T = CURVES["bn254_s13"]
+    Wg, C = 3, 2
+    X, Y, pay, rows16 = scan_inputs(T, Wg, C, R, case)
+    got = tk.prefix_scan(t(rows16), t(pay), T, C)
+    assert np.array_equal(got.numpy(), scan_by_rows(J, X, Y, pay, Wg, C, R))
+
+
 def test_prefix_scan_lane_passes_through_infinity():
     _, T = CURVES["bn254_s12"]
     Wg, C, R = 3, 2, 4
@@ -308,6 +321,30 @@ def test_prefix_scan_geometry_takes_a_named_G(G, lanes):
     got, blocks, per_block = tk.prefix_scan_geometry(lanes, 132, G)
     assert got == G and per_block == (tk.SCAN_THREADS // 32) * (32 // G)
     assert (blocks - 1) * per_block < lanes <= blocks * per_block
+
+
+@pytest.mark.parametrize("L,G,piece,shared", [
+    (22, 2, 8, 64 * (8 * 22 + 8 + 4 * 419)),
+    (22, 6, 8, 20 * (8 * 22 + 8 + 4 * 419)),
+    (21, 2, 4, 64 * (8 * 21 + 8 + 4 * 399)),
+    (21, 6, 4, 20 * (8 * 21 + 8 + 4 * 399)),
+    (32, 2, 8, 172_800), (30, 2, 8, 64 * (8 * 30 + 8 + 4 * 571)),
+    (6, 6, 8, 20 * (8 * 6 + 8 + 4 * 115))])
+def test_prefix_scan_smem_pieces_and_bytes(L, G, piece, shared):
+    """A row of 2 L int16 is copied in 8-byte pieces where L is even and
+    in 4-byte pieces where it is odd, a whole number either way; the
+    block's bytes (rows and payloads twice, the lanes' states) fit the
+    227 KB a block can have at every profile of the library. (On the
+    card the launch refuses a count other than its kernel's own.)"""
+    got = tk.prefix_scan_smem(L, G)
+    assert got.piece_bytes == piece and (4 * L) % piece == 0
+    assert got.shared_bytes == shared <= tk.BLOCK_SHARED_BYTES
+    for Lp, _ in tk.CUDA_PROFILES:
+        for Gp in tk.SCAN_THREADS_PER_LANE:
+            assert tk.prefix_scan_smem(Lp, Gp).shared_bytes \
+                <= tk.BLOCK_SHARED_BYTES
+    with pytest.raises(ValueError):
+        tk.prefix_scan_smem(L, 3)
 
 
 def test_prefix_scan_geometry_refuses_other_G():

@@ -41,6 +41,7 @@ class MSMConfig:
     glv: bool = False
 
     def __post_init__(self):
+        self.curve.require_signed("MSMConfig")
         s = self.window_size
         if not (2 <= s <= 16):
             raise ValueError("window_size must be in [2, 16]")

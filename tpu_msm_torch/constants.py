@@ -3,7 +3,9 @@
 A standalone copy of the part of `tpu_msm/constants.py` this package
 needs (the port imports nothing of `tpu_msm`): the `CurveParams` bundle,
 the limb helpers, the signed fold interval of the deferred-carry
-Montgomery loop, and the profiles TINY62, BN254, BN254_S12 and BN254_S13.
+Montgomery loop, and the profiles of BN254 (BN254, BN254_S12, BN254_S13,
+BN254_F13), of BLS12-377 (BLS12_377, BLS12_377_S12, BLS12_377_S13,
+BLS12_377_F12) and TINY62.
 Every derived quantity (R mod p, R^2, n0, k*p limbs) is computed here
 from first principles; the CUDA kernels receive them as a device tensor
 built by `cuzk/kernels.py`, never as literals in the sources.
@@ -62,6 +64,24 @@ class CurveParams:
     gen_y: int
     num_limbs: int = 16
     log_limb_size: int = 16
+    # A signed-lazy profile (ops/rows.py, csrc/field.cuh), the only kind
+    # the port computes on; the 16-bit base profiles and the JAX
+    # package's F profiles (its deferred-carry multiply) are data only.
+    signed: bool = False
+
+    def require_signed(self, who: str) -> None:
+        """Raise unless the port's signed-lazy arithmetic holds this
+        profile: a signed profile whose limbs have at most 13 bits (int16
+        storage of the limb range (-2^w, 2^(w+1))) and whose radix has at
+        least 7 bits of slack above p (every transient of the complete
+        formulas, operands up to 54 p, must fit; the JAX package asserts
+        the same floor for its signed profiles)."""
+        slack = self.num_limbs * self.log_limb_size - self.p.bit_length()
+        if not self.signed or self.log_limb_size > 13 or slack < 7:
+            raise ValueError(
+                f"{who}: {self.name} (L={self.num_limbs}, "
+                f"w={self.log_limb_size}, {slack} bits of slack) is no "
+                "signed profile with w <= 13 and slack >= 7")
 
     @functools.cached_property
     def limb_mask(self) -> int:
@@ -127,12 +147,43 @@ BN254 = CurveParams(
 
 # Signed-lazy production profile: 22 limbs of 12 bits in int32.
 BN254_S12 = dataclasses.replace(BN254, name="bn254_s12", num_limbs=22,
-                                log_limb_size=12)
+                                log_limb_size=12, signed=True)
 
 # 13-bit signed profile: one value-preserving mid-loop carry fold in the
 # Montgomery multiply (signed_fold_interval(13) == 15 < L = 21).
 BN254_S13 = dataclasses.replace(BN254, name="bn254_s13", num_limbs=21,
+                                log_limb_size=13, signed=True)
+
+# The F profiles (the JAX package's deferred-carry multiply of
+# ops/mont.py) are data only: `require_signed` refuses them, as it does
+# the base profiles (BN254_F13 also has 6 bits of slack, under the floor).
+BN254_F13 = dataclasses.replace(BN254, name="bn254_f13", num_limbs=20,
                                 log_limb_size=13)
+
+# BLS12-377 G1 (the curve of Aleo's snarkVM and of the ZPrize 2022 MSM
+# track): y^2 = x^3 + 1 over a 377-bit field, 253-bit group order.
+BLS12_377 = CurveParams(
+    name="bls12_377",
+    p=0x01AE3A4617C510EAC63B05C06CA1493B1A22D9F300F5138F1EF3622FBA094800170B5D44300000008508C00000000001,
+    scalar_modulus=0x12AB655E9A2CA55660B44D1E5C37B00159AA76FED00000010A11800000000001,
+    b_coeff=1,
+    gen_x=0x008848DEFE740A67C8FC6225BF87FF5485951E2CAA9D41BB188282C8BD37CB5CD5481512FFCD394EEAB9B16EB21BE9EF,
+    gen_y=0x01914A69C5102EFF1F674F5D30AFEEC4BD7FB348CA3E52D96D182AD44FB82305C2FE3D3634A9591AFD82DE55559C8EA6,
+    num_limbs=24,
+    log_limb_size=16,
+)
+
+# Signed-lazy BLS12-377 profiles: 32 limbs of 12 bits (L w = 384, a
+# multiple of 32: the word-wide multiply's last partial step vanishes),
+# and 30 limbs of 13 bits (390 bits, one mid-loop fold as BN254_S13).
+BLS12_377_S12 = dataclasses.replace(BLS12_377, name="bls12_377_s12",
+                                    num_limbs=32, log_limb_size=12,
+                                    signed=True)
+BLS12_377_S13 = dataclasses.replace(BLS12_377, name="bls12_377_s13",
+                                    num_limbs=30, log_limb_size=13,
+                                    signed=True)
+BLS12_377_F12 = dataclasses.replace(BLS12_377, name="bls12_377_f12",
+                                    num_limbs=32, log_limb_size=12)
 
 # Tiny 62-bit test curve (not cryptographic): y^2 = x^3 + 3, generator
 # (1, 2), exact group order as scalar_modulus. Same code paths as BN254
@@ -146,6 +197,9 @@ TINY62 = CurveParams(
     gen_y=2,
     num_limbs=6,
     log_limb_size=12,
+    signed=True,
 )
 
-CURVES = {c.name: c for c in (BN254, BN254_S12, BN254_S13, TINY62)}
+CURVES = {c.name: c for c in (BN254, BN254_S12, BN254_S13, BN254_F13,
+                               BLS12_377, BLS12_377_S12, BLS12_377_S13,
+                               BLS12_377_F12, TINY62)}

@@ -223,18 +223,24 @@ __device__ __forceinline__ void store_pt(T* base, int64_t stride, int64_t f,
 
 }  // namespace msm
 
-// Dispatch on the profiles this library is built for: BN254_S12 (L = 22)
-// and TINY62 (L = 6), both with 12-bit limbs. Any other (L, W) returns
-// cudaErrorInvalidValue; the Python wrappers refuse it before the call.
+// Dispatch on the profiles this library is built for: BN254_S12 (L = 22,
+// W = 12), BN254_S13 (21, 13), BLS12_377_S12 (32, 12), BLS12_377_S13
+// (30, 13) and TINY62 (6, 12). Any other (L, W) returns
+// cudaErrorInvalidValue; the Python wrappers refuse it before the call
+// (cuzk/kernels.py CUDA_PROFILES).
+#define MSM_PROFILE_CASE(L_, W_, LV, WV, ...)                    \
+  if ((L_) == (LV) && (W_) == (WV)) {                            \
+    constexpr int L = (LV), W = (WV);                            \
+    __VA_ARGS__;                                                 \
+  } else
+
 #define MSM_DISPATCH_PROFILE(L_, W_, ...)                        \
   do {                                                           \
-    if ((L_) == 22 && (W_) == 12) {                              \
-      constexpr int L = 22, W = 12;                              \
-      __VA_ARGS__;                                               \
-    } else if ((L_) == 6 && (W_) == 12) {                        \
-      constexpr int L = 6, W = 12;                               \
-      __VA_ARGS__;                                               \
-    } else {                                                     \
+    MSM_PROFILE_CASE(L_, W_, 22, 12, __VA_ARGS__)                \
+    MSM_PROFILE_CASE(L_, W_, 21, 13, __VA_ARGS__)                \
+    MSM_PROFILE_CASE(L_, W_, 32, 12, __VA_ARGS__)                \
+    MSM_PROFILE_CASE(L_, W_, 30, 13, __VA_ARGS__)                \
+    MSM_PROFILE_CASE(L_, W_, 6, 12, __VA_ARGS__) {               \
       return static_cast<int>(cudaErrorInvalidValue);            \
     }                                                            \
   } while (0)

@@ -13,21 +13,28 @@
 //               if i < NF: m = t[0] n0 mod 2^32, t = (t + m p) / 2^32
 //   then        m = t[0] n0 mod 2^RB,  t = (t + m p) / 2^RB
 // with NF = floor(L W / 32) whole words and RB = L W - 32 NF bits left,
-// n0 = -p^-1 mod 2^32. The result is unpacked to W-bit limbs; bits at
-// and above L W are dropped, as the old final ripple drops them. So it
-// is Field::mul bit for bit for every pair of operands, lazy limbs or
-// not (tests/test_torch_mul_wide.py replays these words in Python
-// against ops/rows.py mont_mul_rows).
+// n0 = -p^-1 mod 2^32. Where L W is a multiple of 32 (RB = 0), NF = N:
+// every row reduces a whole word and the last step does not exist. The
+// result is unpacked to W-bit limbs; bits at and above L W are dropped,
+// as the old final ripple drops them. So it is Field::mul bit for bit
+// for every pair of operands, lazy limbs or not
+// (tests/test_torch_mul_wide.py replays these words in Python against
+// ops/rows.py mont_mul_rows).
 //
-// BN254_S12 (L W = 264): N = 9, NF = 8, RB = 8; TINY62 (72): 3, 2, 8.
+// Words N, NF, RB: BN254_S12 (L W = 264) 9, 8, 8; BN254_S13 (273) 9, 8,
+// 17; BLS12_377_S12 (384) 12, 12, 0; BLS12_377_S13 (390) 13, 12, 6;
+// TINY62 (72) 3, 2, 8.
 // Each 32 x 32-bit product is one 64-bit multiply-add, a .lo and a .hi
-// half: 2 N^2 halves for a b, and (NF + 1)(1 + 2 NP) for the m digits
-// and m p, with NP = NF words of p. That is 315 int32 multiply and
-// multiply-add instructions at L = 22 (chip_smoke.py `mul_wide_mads`)
-// against Field::mul's 1,012 multiply-adds.
-// Needs RB > 0 and p < 2^(32 NF): the wrapper checks the curve
-// (cuzk/kernels.py `_wide_consts_host`). Then t < a + p < 2^(32 N)
-// after each reduction, and t fits N + 1 words throughout.
+// half: 2 N^2 halves for a b, and (NF + [RB > 0])(1 + 2 NP) for the m
+// digits and m p, with NP = NF words of p. That is 315 int32 multiply
+// and multiply-add instructions at L = 22 and 588 at BLS12_377_S12
+// (chip_smoke.py `mul_wide_mads`) against Field::mul's 1,012 and 2,112
+// multiply-adds.
+// Needs p < 2^(32 NF): the wrapper checks the curve (cuzk/kernels.py
+// `_wide_consts_host`). Then t < a + p after each reduction. With RB >
+// 0, a < 2^(L W) <= 2^(32 N - 1) and t fits N + 1 words throughout.
+// With RB = 0 a may reach 2^(32 N): t < 2^(32 N + 1) between rows, up to
+// 2^(32 N + 33) within one, so t keeps a word more (TOP = N + 1).
 #pragma once
 
 #include <cstdint>
@@ -44,7 +51,7 @@ struct Wide {
   static constexpr int NF = BITS / 32;         // whole words reduced
   static constexpr int RB = BITS - 32 * NF;    // bits reduced at the end
   static constexpr int NP = NF;                // words of p
-  static_assert(RB > 0, "the last reduction step needs L W % 32 != 0");
+  static constexpr int TOP = RB > 0 ? N : N + 1;   // top word of t
 };
 
 // The kernel parameter struct: passed by value, so it sits in the
@@ -95,12 +102,15 @@ struct MulWide {
                                               const uint32_t (&b)[N],
                                               uint32_t (&r)[N],
                                               const WideConsts<L, W>& K) {
-    uint32_t t[N + 1];
+    constexpr int TOP = D::TOP;
+    uint32_t t[TOP + 1];
 #pragma unroll
-    for (int k = 0; k <= N; k++) t[k] = 0;
+    for (int k = 0; k <= TOP; k++) t[k] = 0;
 #pragma unroll
     for (int i = 0; i < N; i++) {
-      // t += a b[i]; t < 2^(32 N) before, so the top carry fills t[N]
+      // t += a b[i]; with RB > 0, t < 2^(32 N) before, so the top carry
+      // fills t[N]; with RB = 0, t[N] <= 1 before, and the carry goes on
+      // into t[N + 1]
       uint32_t c = 0;
 #pragma unroll
       for (int j = 0; j < N; j++) {
@@ -108,7 +118,13 @@ struct MulWide {
         t[j] = static_cast<uint32_t>(s);
         c = static_cast<uint32_t>(s >> 32);
       }
-      t[N] = c;
+      if constexpr (RB > 0) {
+        t[N] = c;
+      } else {
+        const uint64_t s = static_cast<uint64_t>(t[N]) + c;
+        t[N] = static_cast<uint32_t>(s);
+        t[N + 1] = static_cast<uint32_t>(s >> 32);
+      }
       if (i < NF) {
         // t = (t + m p) / 2^32, the low word cancelled
         const uint32_t m = t[0] * K.n0;
@@ -121,31 +137,38 @@ struct MulWide {
           c = static_cast<uint32_t>(s >> 32);
         }
 #pragma unroll
-        for (int j = NP; j <= N; j++) {
+        for (int j = NP; j <= TOP; j++) {
           s = static_cast<uint64_t>(t[j]) + c;
           t[j - 1] = static_cast<uint32_t>(s);
           c = static_cast<uint32_t>(s >> 32);
         }
-        t[N] = c;
+        t[TOP] = c;
       }
     }
-    // the last RB bits: t = (t + m p) / 2^RB
-    const uint32_t m = (t[0] * K.n0) & ((1u << RB) - 1);
-    uint32_t c = 0;
+    if constexpr (RB > 0) {
+      // the last RB bits: t = (t + m p) / 2^RB
+      const uint32_t m = (t[0] * K.n0) & ((1u << RB) - 1);
+      uint32_t c = 0;
 #pragma unroll
-    for (int j = 0; j < NP; j++) {
-      const uint64_t s = static_cast<uint64_t>(m) * K.p[j] + t[j] + c;
-      t[j] = static_cast<uint32_t>(s);
-      c = static_cast<uint32_t>(s >> 32);
+      for (int j = 0; j < NP; j++) {
+        const uint64_t s = static_cast<uint64_t>(m) * K.p[j] + t[j] + c;
+        t[j] = static_cast<uint32_t>(s);
+        c = static_cast<uint32_t>(s >> 32);
+      }
+#pragma unroll
+      for (int j = NP; j <= N; j++) {
+        const uint64_t s = static_cast<uint64_t>(t[j]) + c;
+        t[j] = static_cast<uint32_t>(s);
+        c = static_cast<uint32_t>(s >> 32);
+      }
+#pragma unroll
+      for (int k = 0; k < N; k++)
+        r[k] = (t[k] >> RB) | (t[k + 1] << (32 - RB));
+    } else {
+      // every word reduced: t[N], the bits at and above L W, is dropped
+#pragma unroll
+      for (int k = 0; k < N; k++) r[k] = t[k];
     }
-#pragma unroll
-    for (int j = NP; j <= N; j++) {
-      const uint64_t s = static_cast<uint64_t>(t[j]) + c;
-      t[j] = static_cast<uint32_t>(s);
-      c = static_cast<uint32_t>(s >> 32);
-    }
-#pragma unroll
-    for (int k = 0; k < N; k++) r[k] = (t[k] >> RB) | (t[k + 1] << (32 - RB));
   }
 };
 

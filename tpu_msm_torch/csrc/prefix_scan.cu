@@ -32,14 +32,18 @@
 // G = 6 a warp holds 5 lanes and its last two threads exit at once.
 // The gather runs ahead of the arithmetic: the 4 L-byte row of step r + 1
 // and the payload of step r + 2 are copied to shared memory by cp.async
-// (8-byte pieces shared out among the lane's threads) before the add of
-// step r starts, so the random read is not in the chain. The 3 L int16
-// stores of a step are shared out among the lane's threads too.
+// (pieces shared out among the lane's threads: 8 bytes where L is even,
+// 4 where it is odd, as at BN254_S13's L = 21, whose 84-byte rows are no
+// whole number of 8-byte pieces) before the add of step r starts, so the
+// random read is not in the chain. The 3 L int16 stores of a step are
+// shared out among the lane's threads too.
 // Per step: the sorted payload idx << 1 | sign, the int16 (x, y) row of
 // point idx from the points-major table, the sign (y -> 2p - y), the
 // mixed add, T written as int16. Layouts (see cuzk/pipeline_cuda.py):
-//   rows (n, 2L) int16, 8-byte aligned; pay (Wg, n) int32;
+//   rows (n, 2L) int16, aligned to the piece; pay (Wg, n) int32;
 //   out (3, L, R, Wg * C) int16.
+#include <type_traits>
+
 #include "field.cuh"
 
 namespace {
@@ -167,11 +171,23 @@ __device__ __forceinline__ void pmadd_shared(int32_t* m, int g, unsigned mask,
   }
 }
 
-// Bytes of dynamic shared memory of a block.
+// The piece of a row that one cp.async copies: 8 bytes (two x or y
+// limbs of int16 pairs) where the 4 L-byte row is a whole number of
+// them, else 4. Q pieces a row.
+template <int L>
+struct RowPiece {
+  using T = typename std::conditional<L % 2 == 0, int2, int32_t>::type;
+  static constexpr int Q = 4 * L / static_cast<int>(sizeof(T));
+};
+
+// Bytes of dynamic shared memory of a block: the double-buffered rows
+// and payloads of its lanes, then their states. The launch refuses a
+// caller whose count (cuzk/kernels.py `prefix_scan_smem`) differs.
 template <int L, int G>
 constexpr size_t scan_smem_bytes() {
   constexpr int LPB = kWarps * (32 / G);
-  return 2 * LPB * (L / 2) * sizeof(int2) + 2 * LPB * sizeof(int32_t) +
+  return 2 * LPB * RowPiece<L>::Q * sizeof(typename RowPiece<L>::T) +
+         2 * LPB * sizeof(int32_t) +
          LPB * LaneMem<L>::STRIDE * sizeof(int32_t);
 }
 
@@ -180,16 +196,17 @@ __global__ void __launch_bounds__(kThreads)
 scan_kernel(const int16_t* __restrict__ rows, const int32_t* __restrict__ pay,
             int16_t* __restrict__ out, int Wg, int C, int R, int64_t n,
             const int32_t* __restrict__ kc) {
-  static_assert(L % 2 == 0, "a row of 2 L int16 must be whole 8-byte pieces");
   static_assert(G == 2 || G == 6, "built for 2 or 6 threads a lane");
   constexpr int LPW = 32 / G;          // lanes a warp
   constexpr int LPB = kWarps * LPW;    // lanes a block
-  constexpr int Q = L / 2;             // 8-byte pieces a row
+  using Piece = typename RowPiece<L>::T;
+  constexpr int Q = RowPiece<L>::Q;    // pieces a row
   using M = LaneMem<L>;
   __shared__ msm::Consts<L> K;
-  extern __shared__ int2 dyn[];
-  int2* rowbuf = dyn;                                     // [2][LPB][Q]
-  int32_t* paybuf = reinterpret_cast<int32_t*>(dyn + 2 * LPB * Q);  // [2][LPB]
+  extern __shared__ int2 dyn[];        // 8-byte aligned
+  Piece* rowbuf = reinterpret_cast<Piece*>(dyn);          // [2][LPB][Q]
+  // [2][LPB] payloads after the rows
+  int32_t* paybuf = reinterpret_cast<int32_t*>(rowbuf + 2 * LPB * Q);
   int32_t* lanes = paybuf + 2 * LPB;                      // [LPB][STRIDE]
   msm::load_consts<L>(K, kc);
   const int warp = threadIdx.x >> 5;
@@ -204,7 +221,7 @@ scan_kernel(const int16_t* __restrict__ rows, const int32_t* __restrict__ pay,
   const int64_t wl = f / C, c = f % C;
   const int32_t* p = pay + wl * n + c * (int64_t)R;
   const int64_t stride = (int64_t)R * F;   // one (coord, limb) plane
-  const int2* table = reinterpret_cast<const int2*>(rows);
+  const Piece* table = reinterpret_cast<const Piece*>(rows);
   int32_t* m = lanes + slot * M::STRIDE;   // the lane's state
   for (int i = g; i < L; i += G) {         // the running point: infinity
     m[M::X1 + i] = 0;
@@ -246,10 +263,13 @@ scan_kernel(const int16_t* __restrict__ rows, const int32_t* __restrict__ pay,
 
 template <int L, int W, int G>
 int launch(const int16_t* rows, const int32_t* pay, int16_t* out, int Wg,
-           int C, int R, int64_t n, const int32_t* consts,
-           cudaStream_t stream) {
+           int C, int R, int64_t n, int64_t shared_bytes,
+           const int32_t* consts, cudaStream_t stream) {
   // G = 2 keeps 64 lanes a block: above the 48 KB a kernel gets unasked
   constexpr size_t smem = scan_smem_bytes<L, G>();
+  // the caller's reckoning (cuzk/kernels.py prefix_scan_smem) must agree
+  if (shared_bytes != static_cast<int64_t>(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t rc = cudaFuncSetAttribute(
       scan_kernel<L, W, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -264,17 +284,21 @@ int launch(const int16_t* rows, const int32_t* pay, int16_t* out, int Wg,
 
 }  // namespace
 
-// threads_per_lane: G, 2 or 6; any other value is refused.
+// threads_per_lane: G, 2 or 6; any other value is refused, as is a
+// shared_bytes other than the block's scan_smem_bytes<L, G>.
 extern "C" int msm_prefix_scan(int num_limbs, int limb_bits, const int16_t* rows,
                                const int32_t* pay, int16_t* out, int Wg, int C,
                                int R, int64_t n, int threads_per_lane,
-                               const int32_t* consts, void* stream) {
+                               int64_t shared_bytes, const int32_t* consts,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   MSM_DISPATCH_PROFILE(num_limbs, limb_bits, {
     if (threads_per_lane == 2)
-      return launch<L, W, 2>(rows, pay, out, Wg, C, R, n, consts, s);
+      return launch<L, W, 2>(rows, pay, out, Wg, C, R, n, shared_bytes,
+                             consts, s);
     if (threads_per_lane == 6)
-      return launch<L, W, 6>(rows, pay, out, Wg, C, R, n, consts, s);
+      return launch<L, W, 6>(rows, pay, out, Wg, C, R, n, shared_bytes,
+                             consts, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }

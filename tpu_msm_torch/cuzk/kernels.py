@@ -47,8 +47,10 @@ I32 = torch.int32
 # Element widths the dtype-templated kernels are instantiated for.
 _BITS = {I16: 16, I32: 32}
 
-# Profiles the CUDA library is instantiated for: (num_limbs, limb bits).
-CUDA_PROFILES = {(22, 12), (6, 12)}
+# Profiles the CUDA library is instantiated for: (num_limbs, limb bits):
+# BN254_S12, BN254_S13, BLS12_377_S12, BLS12_377_S13 and TINY62
+# (csrc/field.cuh MSM_DISPATCH_PROFILE).
+CUDA_PROFILES = {(22, 12), (21, 13), (32, 12), (30, 13), (6, 12)}
 
 LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "prefix_scan", "col_prefix", "padd_batch",
@@ -85,6 +87,7 @@ def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
 
 
 def _profile(name: str, curve: CurveParams) -> Tuple[int, int]:
+    curve.require_signed(name)
     prof = (curve.num_limbs, curve.log_limb_size)
     if prof not in CUDA_PROFILES:
         raise ValueError(f"{name}: no CUDA instantiation for profile "
@@ -112,13 +115,14 @@ def _wide_consts_host(curve: CurveParams) -> list:
     """The words of `WideConsts<L, W>` (csrc/mul_wide.cuh): p in the
     floor(L w / 32) whole words that the multiply reduces one at a time,
     n0 = -p^-1 mod 2^32, and R^2 mod p (R = 2^(L w)) in ceil(L w / 32)
-    words. Refuses a profile the word-wide multiply cannot take: L w a
-    multiple of 32 (no last partial step) or p too wide for the words."""
+    words. Where L w is a multiple of 32 (BLS12_377_S12) both counts are
+    L w / 32 and the multiply has no last partial step. Refuses a profile
+    whose p is too wide for the whole words."""
     bits = curve.num_limbs * curve.log_limb_size
     nf, n = bits // 32, -(-bits // 32)
-    if bits % 32 == 0 or curve.p >> (32 * nf):
-        raise ValueError(f"{curve.name}: the word-wide multiply needs L*w "
-                         "not a multiple of 32 and p < 2^(32 floor(L*w/32))")
+    if curve.p >> (32 * nf):
+        raise ValueError(f"{curve.name}: the word-wide multiply needs "
+                         "p < 2^(32 floor(L*w/32))")
     words = lambda v, k: [(v >> (32 * i)) & 0xFFFFFFFF for i in range(k)]
     n0 = -pow(curve.p, -1, 1 << 32) % (1 << 32)
     return words(curve.p, nf) + [n0] + words(curve.r2_mod_p, n)
@@ -284,6 +288,30 @@ SCAN_THREADS_PER_LANE = (2, 6)
 """The values of G the scan kernel is built for."""
 
 
+class ScanSmem(NamedTuple):
+    piece_bytes: int
+    shared_bytes: int
+
+
+def prefix_scan_smem(num_limbs: int, threads_per_lane: int) -> ScanSmem:
+    """The row piece and the dynamic shared bytes of a scan block: a pure
+    function, so the CPU tests can hold it; the launch refuses a count
+    other than its kernel's own (csrc/prefix_scan.cu `scan_smem_bytes`).
+
+    A row of the table is 2 L int16, 4 L bytes, copied by cp.async in
+    8-byte pieces where L is even and in 4-byte pieces where it is odd
+    (BN254_S13's L = 21); the table must be aligned to the piece. A block
+    of SCAN_THREADS // 32 warps holds 32 // G lanes a warp, each with a
+    double buffer of rows and of payloads and its state, 19 L int32 words
+    padded to an odd count."""
+    L, G = num_limbs, threads_per_lane
+    if L < 1 or G not in SCAN_THREADS_PER_LANE:
+        raise ValueError(f"prefix_scan_smem: no block for L={L}, G={G}")
+    lanes = (SCAN_THREADS // 32) * (32 // G)
+    shared = lanes * (2 * 4 * L + 2 * 4 + 4 * (19 * L | 1))
+    return ScanSmem(8 if L % 2 == 0 else 4, shared)
+
+
 def prefix_scan_geometry(lanes: int, sms: int, threads_per_lane=None
                          ) -> Tuple[int, int, int]:
     """(G, blocks, lanes a block) of one scan launch over `lanes` lanes on
@@ -341,19 +369,22 @@ def prefix_scan(pts_rows: torch.Tensor, pay: torch.Tensor,
     L, w = _profile("prefix_scan", curve)
     _need("prefix_scan", pts_rows, I16, 2)
     _need("prefix_scan", pay, I32, 2)
-    if pts_rows.data_ptr() % 8:
-        raise ValueError("prefix_scan: the row table must be 8-byte aligned")
     Wg, n = pay.shape
     R = n // C
     sms = torch.cuda.get_device_properties(pay.device).multi_processor_count
     G, _, _ = prefix_scan_geometry(Wg * C, sms, _threads_per_lane)
+    smem = prefix_scan_smem(L, G)
+    if pts_rows.data_ptr() % smem.piece_bytes:
+        raise ValueError(f"prefix_scan: the row table must be "
+                         f"{smem.piece_bytes}-byte aligned")
     out = torch.empty((3, L, R, Wg * C), dtype=I16, device=pay.device)
     rc = _build.library().msm_prefix_scan(
         L, w, pts_rows.data_ptr(), pay.data_ptr(), out.data_ptr(), Wg, C, R,
-        n, G,
+        n, G, smem.shared_bytes,
         _consts(curve, pay.device).data_ptr(), _stream(pay))
     _check("prefix_scan", rc)
-    LAUNCHED["prefix_scan"] = dict(threads_per_lane=G)
+    LAUNCHED["prefix_scan"] = dict(threads_per_lane=G,
+                                   shared_bytes=smem.shared_bytes)
     return out
 
 
@@ -449,6 +480,15 @@ def psub_batch_plain(p: torch.Tensor, q: torch.Tensor, curve: CurveParams,
     return padd_batch_plain(p, pneg_stacked(q, curve), curve, out_dtype)
 
 
+# What an SM of the H100 holds at once (compute capability 9.0): the
+# residency that the geometry functions below reckon with. A launch of
+# more than 48 KB of shared memory needs the kernel's opt-in
+# (cudaFuncSetAttribute), which every launcher of csrc/ sets.
+SM_SHARED_BYTES = 233_472         # 228 KB of shared memory
+BLOCK_SHARED_BYTES = 232_448      # 227 KB a block at most
+BLOCK_RESERVED_SHARED = 1_024     # taken by the system for each block
+SM_BLOCKS, SM_WARPS, SM_REGISTERS = 32, 64, 65_536
+
 PADD_THREADS_PER_LANE = 6
 """Threads of a warp that share a lane of the padd kernel
 (csrc/padd_batch.cu kG)."""
@@ -489,7 +529,14 @@ def padd_batch_geometry(F: int, sms: int, num_limbs: int = 22,
     # dynamic (the lanes) + static (Consts<L>, WideConsts<L, w>)
     shared = 4 * (lanes * (15 * num_limbs | 1)
                   + _static_shared_words(num_limbs, limb_bits))
+    _fits_block("padd_batch_geometry", shared)
     return PaddGeometry(G, warps, lanes, -(-F // lanes), 32 * warps, shared)
+
+
+def _fits_block(name: str, shared: int) -> None:
+    if shared > BLOCK_SHARED_BYTES:
+        raise ValueError(f"{name}: {shared} bytes of shared memory, more "
+                         f"than the {BLOCK_SHARED_BYTES} a block can have")
 
 
 def _static_shared_words(num_limbs: int, limb_bits: int) -> int:
@@ -753,6 +800,7 @@ def pdbl_batch_geometry(F: int, sms: int, num_limbs: int = 22,
     lanes = warps * per_warp
     shared = 4 * (lanes * (11 * num_limbs | 1)
                   + _static_shared_words(num_limbs, limb_bits))
+    _fits_block("pdbl_batch_geometry", shared)
     return PdblGeometry(G, warps, lanes, -(-F // lanes), 32 * warps, shared)
 
 
@@ -793,13 +841,6 @@ kMaxWarps)."""
 PBPR_STAGE1_REGISTERS = 64
 """Registers a thread of the stage-1 kernel at most (csrc/pbpr_stage1.cu
 kRegisters, held by its __launch_bounds__)."""
-
-# What an SM of the H100 holds at once (compute capability 9.0): the
-# residency that pbpr_stage1_geometry reckons with.
-SM_SHARED_BYTES = 233_472         # 228 KB of shared memory
-BLOCK_SHARED_BYTES = 232_448      # 227 KB a block at most
-BLOCK_RESERVED_SHARED = 1_024     # taken by the system for each block
-SM_BLOCKS, SM_WARPS, SM_REGISTERS = 32, 64, 65_536
 
 
 class Stage1Geometry(NamedTuple):
