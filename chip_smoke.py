@@ -88,28 +88,58 @@ Phases, in order; any failure raises and the script exits non-zero:
      MSM EXACT at each size, counted and timed; for BLS12_377_S12 also
      the GLV MSM, to_affine and the [latency] line; a [where] line for
      each size;
- 10. the `pbpr_full` edges whose plain versions ran on the CPU;
- 11. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
+ 10. `[sharded]`, the multi-device MSM (`tpu_msm_torch/parallel/sharded.py`)
+     on BN254_S12 at 2^20, the same inputs, EXACT against the same
+     oracle: (1) `windows_device` at w = 2 and 4 window shards, every
+     w_index, in one process: the shards concatenated decode to the
+     unsharded window sums; `pbpr_full` launched at Wp_l = 8 and 4 as
+     `pbpr_full_geometry` says; on the first shard at w = 4, `pbpr_full`
+     and the first group's `prefix_scan`, `col_prefix`, `padd_batch` and
+     `psub_batch` against their plain versions, timed; each shard timed;
+     before the spawns, the kernels of the gloo ranks' paths, each call
+     of rank 0's span (n / x points, the 2^20 schedule) at its first
+     window shard against its plain version; `_reduce_gathered` on the
+     window sums of two and of four spans, bit-identical to the tree of
+     plain adds, each level's `padd_batch` against its plain version;
+     (2) `sharded_msm` on a mesh (1,) of one NCCL rank, counted, then
+     `sharded.exchange` timed on its own; (3) meshes x = 2 and
+     (x = 2, w = 2) of 2 and 4 ranks spawned on this one card over gloo
+     (`parallel.spawn.run_ranks`), the inputs handed over in .npy
+     files: every rank EXACT and counted, its window_sums and, on its
+     own after a barrier, its exchange + tree timed (ranks sharing one
+     card: no multi-GPU scaling); a rank that fails or misses its
+     deadline fails the run;
+ 11. the `pbpr_full` edges whose plain versions ran on the CPU;
+ 12. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
     with all nine kernels (pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; under "profiles" each kernel's
-    time, bound, launches and error at each profile of PROFILES);
- 12. last line {"ok": true, "device": {...}}.
+    time, bound, launches and error at each profile of PROFILES; the six
+    of the main path with their launches on the sharded path and their
+    largest error against the plain version there, padd_batch also its
+    halving tree's launches) and the `[sharded]` numbers under
+    "sharded";
+ 13. last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import json
+import math
 import multiprocessing
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -124,6 +154,7 @@ from tpu_msm_torch.cuzk import pbpr  # noqa: E402
 from tpu_msm_torch.cuzk import pipeline_cuda  # noqa: E402
 from tpu_msm_torch.cuzk.pipeline import (get_pipeline,  # noqa: E402
                                          tpu_variable_base_msm)
+from tpu_msm_torch.parallel import sharded, spawn  # noqa: E402
 from tpu_msm_torch.reference import curve as ref  # noqa: E402
 from tpu_msm_torch.utils import preprocess  # noqa: E402
 
@@ -1329,6 +1360,372 @@ def profile_entry(name: str, prof: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [sharded]: the multi-device MSM (tpu_msm_torch/parallel/sharded.py)
+# ---------------------------------------------------------------------------
+
+SHARDED_LOGN = 20
+# window shards of one process: 16 windows in 16 groups at 2^20
+SHARDED_W = (2, 4)
+# (x, w) meshes of the ranks that share the card over gloo
+SHARDED_MESHES = ({"x": 2}, {"x": 2, "w": 2})
+# A rank's collectives fail after RANK_GROUP_TIMEOUT_S; a world whose
+# ranks have not all reported by RANK_DEADLINE_S fails the phase.
+RANK_GROUP_TIMEOUT_S = 120
+RANK_DEADLINE_S = 240.0
+SHARED = "ranks sharing one card; not multi-GPU scaling"
+
+
+def sync(device: str) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_label(shape: dict) -> str:
+    return ",".join(f"{k}={v}" for k, v in shape.items())
+
+
+def sharded_inputs(logn: int):
+    """The planar inputs of the 2^logn MSM as int32 device tensors, with
+    the two pad rows of the halfwords."""
+    n = 1 << logn
+    xs, ys, hw, _, _ = inputs(CURVE, logn)
+    hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
+    return [torch.from_numpy(a.astype(np.int32)).to(DEVICE)
+            for a in (xs, ys, hw)]
+
+
+def window_shards(card: str) -> dict:
+    """Phase [sharded] 1: `windows_device` at every w of SHARDED_W and
+    every w_index in one process. The shards concatenated decode to the
+    unsharded window sums and their Horner sum to the oracle's; pbpr_full's
+    launch at Wp_l = Wp / w is the one `pbpr_full_geometry` gives; on the
+    first shard at the largest w, pbpr_full and the first group's scan,
+    column prefix and extraction adds are held against their plain
+    versions and timed."""
+    logn = SHARDED_LOGN
+    cfg = config(CURVE, logn, False)
+    want = inputs(CURVE, logn)[4]
+    pipe = get_pipeline(cfg, DEVICE)
+    dev_in = sharded_inputs(logn)
+    run = lambda **kw: pipeline_cuda.windows_device(*dev_in, cfg, **kw)
+    full = pipe._decode_windows(run())
+    full_ms = statistics.median(timed_once(run)[1] for _ in range(3))
+    B, T = cfg.half_columns, min(cfg.pbpr_threads, cfg.half_columns)
+    limits = kernels._pbpr_full_limits(CURVE, dev_in[0].device)
+    out = dict(full_ms=full_ms, shards={})
+    seen = {}
+    for w in SHARDED_W:
+        Wl = cfg.padded_windows // w
+        shards = []
+        for i in range(w):
+            targets = [(kernels, k) for k in ("prefix_scan", "col_prefix",
+                                              "padd_batch", "psub_batch",
+                                              "pbpr_full")]
+            with spy(seen if (w, i) == (max(SHARDED_W), 0) else {},
+                     targets):
+                shards.append(run(w_shards=w, w_index=i))
+            sync(DEVICE)
+        launched = dict(kernels.LAUNCHED["pbpr_full"])
+        stage1, scan, per_chain = kernels.pbpr_full_geometry(Wl, B, T,
+                                                             *limits)
+        if (launched["stage1_blocks"], launched["scan_blocks"],
+                launched["adds_per_chain"]) != (stage1, scan, per_chain):
+            raise AssertionError(f"[sharded] w={w}: pbpr_full launched "
+                                 f"{launched}, its geometry says "
+                                 f"{(stage1, scan, per_chain)}")
+        got = pipe._decode_windows(torch.cat(shards, dim=2))
+        for j, (a, b) in enumerate(zip(got, full, strict=True)):
+            if not ref.jac_eq(CURVE, a, b):
+                raise AssertionError(f"[sharded] w={w}: window {j} differs "
+                                     "from the unsharded window sums")
+        if not ref.jac_eq(CURVE, pipe.horner(got), want):
+            raise AssertionError(f"[sharded] w={w}: MSM differs from the "
+                                 "oracle")
+        ms = [statistics.median(timed_once(
+            lambda: run(w_shards=w, w_index=i))[1] for _ in range(3))
+            for i in range(w)]
+        out["shards"][w] = dict(Wp_l=Wl, ms=ms, pbpr_full_launched=launched)
+        print(f"[sharded] {CURVE.name} n=2^{logn} window shards w={w} "
+              f"(Wp_l={Wl}, {cfg.num_groups // w} groups a shard): "
+              f"concatenated equal to the unsharded window sums, EXACT; "
+              f"each shard median of 3 "
+              f"{[round(t, 2) for t in ms]} ms against {full_ms:.2f} ms "
+              f"unsharded; pbpr_full launched {launched} [{card}]",
+              flush=True)
+    tag = f"n=2^{logn} w={max(SHARDED_W)} shard 0"
+    out["kernels"] = {key: compare(CURVE, key, name, args, kw, tag, card, 3)
+                      for key, (name, args, kw, _) in seen.items()}
+    return out
+
+
+def rank_spans(card: str) -> dict:
+    """The kernels of the gloo ranks' paths, in one process before the
+    spawns: for each mesh of SHARDED_MESHES, `windows_device` on rank 0's
+    span of the 2^20 points (n / x of them, under the 2^20 schedule, as
+    `ShardedMSMPipeline.window_sums` slices it) at its first window shard
+    (w_index 0 of w; at w = 2, pbpr_full at Wp_l = 8). Every kernel call
+    of the main path is kept by `spy` and held against its plain version
+    on the same inputs, then timed."""
+    logn = SHARDED_LOGN
+    cfg = config(CURVE, logn, False)
+    dev_in = sharded_inputs(logn)
+    targets = [(kernels, k) for k in MAIN + ("psub_batch",)]
+    out = {}
+    for shape in SHARDED_MESHES:
+        x, w = shape["x"], shape.get("w", 1)
+        span = [a[:, :a.shape[1] // x] for a in dev_in]
+        with spy({}, targets) as seen:
+            pipeline_cuda.windows_device(*span, cfg, w_shards=w, w_index=0)
+            sync(DEVICE)
+        tag = (f"n=2^{logn} span 0 of x={x}"
+               + (f", w-shard 0 of {w}" if w > 1 else ""))
+        out[mesh_label(shape)] = check_main_kernels(CURVE, seen, tag, card,
+                                                    3)
+    return out
+
+
+def reduce_tree_check(card: str) -> dict:
+    """`_reduce_gathered` on the (3, L, ndev, Wp) window sums of the ndev
+    spans of the 2^20 points, as ndev ranks on "x" gather them, at
+    ndev = 2 (the gloo meshes' x) and 4: bit-identical to the same tree
+    of plain adds, each level's `padd_batch` against its plain version,
+    and the sums equal to the unsharded window sums."""
+    logn = SHARDED_LOGN
+    cfg = config(CURVE, logn, False)
+    pipe = get_pipeline(cfg, DEVICE)
+    dev_in = sharded_inputs(logn)
+    full = pipe._decode_windows(pipeline_cuda.windows_device(*dev_in, cfg))
+    out = {}
+    for ndev in (2, 4):
+        q = dev_in[0].shape[1] // ndev
+        stack = torch.stack([pipeline_cuda.windows_device(
+            *(a[:, k * q:(k + 1) * q] for a in dev_in), cfg)
+            for k in range(ndev)], dim=2)
+        kernels.reset_launches()
+        got = sharded._reduce_gathered(stack, CURVE, ndev)
+        sync(DEVICE)
+        launches = kernels.LAUNCHES["padd_batch"]
+        g, d, levels = stack, ndev, {}
+        while d > 1:
+            h = d // 2
+            key = f"padd_batch[reduce {d}->{h}]"
+            levels[key] = compare(CURVE, key, "padd_batch",
+                                  (g[:, :, :h], g[:, :, h:d], CURVE), {},
+                                  f"n=2^{logn} tree of {ndev}", card, 5)
+            g, d = kernels.padd_batch_plain(g[:, :, :h], g[:, :, h:d],
+                                            CURVE), h
+        if not torch.equal(got, g[:, :, 0]):
+            raise AssertionError(f"[sharded] _reduce_gathered of {ndev} "
+                                 "differs from the tree of plain adds")
+        for j, (a, b) in enumerate(zip(pipe._decode_windows(got), full,
+                                       strict=True)):
+            if not ref.jac_eq(CURVE, a, b):
+                raise AssertionError(f"[sharded] tree of {ndev} spans: "
+                                     f"window {j} differs from the "
+                                     "unsharded window sums")
+        if launches != ndev.bit_length() - 1:
+            raise AssertionError(f"[sharded] tree of {ndev} launched "
+                                 f"padd_batch {launches} times")
+        print(f"[sharded] _reduce_gathered on {tuple(stack.shape)}: "
+              f"{launches} padd_batch launches, bit-identical to the tree "
+              f"of plain adds, equal to the unsharded window sums [{card}]",
+              flush=True)
+        out[ndev] = dict(launches=launches, levels=levels)
+    return out
+
+
+def exchange_timed(g: torch.Tensor, mesh, device: str, reps: int = 3):
+    """`sharded.exchange` of this rank's window sums `g`, called on its
+    own after a barrier: (its result, the median of `reps` host times
+    between synchronizes in ms, the padd_batch launches of one call)."""
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        sync(device)
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        out = sharded.exchange(g, mesh, CURVE)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times), kernels.LAUNCHES["padd_batch"]
+
+
+def sharded_nccl(card: str) -> dict:
+    """Phase [sharded] 2: `sharded_msm` on a mesh (1,) of one NCCL rank,
+    the user's entry point on the 2^20 points, EXACT, every kernel of
+    the path counted (reset before, read after); then the exchange on
+    its own."""
+    logn = SHARDED_LOGN
+    n = 1 << logn
+    _, _, hw, base, want = inputs(CURVE, logn)
+    points = [base[i % len(base)] for i in range(n)]
+    scalars = preprocess.halfwords_to_ints(hw)
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if DEVICE == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1,
+            timeout=datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S))
+        try:
+            mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("x",))
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = sharded.sharded_msm(points, scalars, mesh, curve=CURVE,
+                                      device=DEVICE)
+            t_user = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            g = pipeline_cuda.windows_device(*sharded_inputs(logn),
+                                             config(CURVE, logn, False))
+            reduced, exchange_ms, tree = exchange_timed(g, mesh, DEVICE)
+        finally:
+            dist.destroy_process_group()
+    if not ref.jac_eq(CURVE, got, want):
+        raise AssertionError("[sharded] one NCCL rank: MSM differs from the "
+                             "oracle")
+    if not torch.equal(reduced, g):
+        raise AssertionError("[sharded] one NCCL rank: the exchange changed "
+                             "the window sums")
+    idle = [k for k in MAIN if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"[sharded] one NCCL rank: kernels not "
+                             f"launched: {idle}")
+    used = {k: v for k, v in launches.items() if v}
+    print(f"[sharded] {CURVE.name} n=2^{logn} sharded_msm on a mesh (1,) of "
+          f"one {backend} rank EXACT in {t_user:.2f} s (host pack "
+          f"included); the exchange on its own, median of 3, "
+          f"{exchange_ms:.3f} ms; launches={used} [{card}]", flush=True)
+    return dict(backend=backend, seconds=t_user, launches=used,
+                exchange_tree_ms=exchange_ms, tree_launches=tree)
+
+
+def sharded_rank(rank: int, world: int, shape: dict, workdir: str, want,
+                 device: str) -> dict:
+    """One rank of a gloo world on `device` (spawned; the library is
+    already built): the sharded pipeline's window sums of the 2^20
+    points handed over in workdir, once counted and EXACT, then the
+    median of 3, each EXACT; then the exchange on its own, its result
+    equal to the pipeline's window sums."""
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{workdir}/rendezvous-"
+        f"{mesh_label(shape)}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(device, tuple(shape.values()),
+                                mesh_dim_names=tuple(shape))
+        dev_in = [torch.from_numpy(np.load(os.path.join(
+            workdir, f"{k}.npy"))).to(device) for k in ("xs", "ys", "hw")]
+        cfg = default_config(dev_in[0].shape[1], CURVE)
+        pipe = sharded.get_sharded_pipeline(cfg, mesh, device)
+        kernels.reset_launches()
+        windows = pipe.window_sums(*dev_in)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        exact = ref.jac_eq(CURVE, pipe.horner(windows), want)
+        times = []
+        for _ in range(3):
+            sync(device)
+            t0 = time.perf_counter()
+            windows = pipe.window_sums(*dev_in)
+            times.append((time.perf_counter() - t0) * 1e3)
+            exact = exact and ref.jac_eq(CURVE, pipe.horner(windows), want)
+        # this rank's own sums, as window_sums computes them, exchanged
+        x, w = shape["x"], shape.get("w", 1)
+        span = dev_in[0].shape[1] // x
+        lo = mesh.get_local_rank("x") * span
+        g = pipeline_cuda.windows_device(
+            *(a[:, lo:lo + span] for a in dev_in), cfg, w_shards=w,
+            w_index=mesh.get_local_rank("w") if w > 1 else 0)
+        reduced, exchange_ms, tree = exchange_timed(g, mesh, device)
+        exact = exact and pipe._decode_windows(reduced) == windows
+        return dict(rank=dist.get_rank(), exact=exact, launches=launches,
+                    tree_launches=tree, window_sums_ms=times,
+                    exchange_tree_ms=exchange_ms)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_gloo(card: str) -> dict:
+    """Phase [sharded] 3: the meshes of SHARDED_MESHES, their ranks
+    spawned on this one card over gloo (`parallel.spawn.run_ranks`), the
+    2^20 inputs handed over in .npy files. Every rank EXACT and every
+    kernel of the path launched on it; each rank's window_sums time and
+    its exchange + tree time."""
+    logn = SHARDED_LOGN
+    n = 1 << logn
+    xs, ys, hw, _, want = inputs(CURVE, logn)
+    wire = dict(xs=xs.astype(np.int16), ys=ys.astype(np.int16),
+                hw=np.concatenate([hw, np.zeros((2, n), np.uint32)]
+                                  ).astype(np.uint16))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, a in wire.items():
+            np.save(os.path.join(tmp, f"{k}.npy"), a)
+        for shape in SHARDED_MESHES:
+            label = mesh_label(shape)
+            t0 = time.perf_counter()
+            ranks = spawn.run_ranks(sharded_rank, math.prod(shape.values()),
+                                    (shape, tmp, want, DEVICE),
+                                    RANK_DEADLINE_S)
+            seconds = time.perf_counter() - t0
+            x = shape["x"]
+            for res in ranks:
+                idle = [k for k in MAIN if k not in res["launches"]]
+                if not res["exact"] or idle:
+                    raise AssertionError(f"[sharded] {label} rank "
+                                         f"{res['rank']}: exact="
+                                         f"{res['exact']}, not launched "
+                                         f"{idle}")
+                if res["tree_launches"] != x.bit_length() - 1:
+                    raise AssertionError(f"[sharded] {label}: the tree "
+                                         f"launched {res['tree_launches']}"
+                                         " times")
+            out[label] = dict(seconds=seconds, ranks=ranks)
+            print(f"[sharded] {CURVE.name} n=2^{logn} mesh {label}, "
+                  f"{len(ranks)} gloo {SHARED}: every rank EXACT; "
+                  + "; ".join(
+                      f"rank {r['rank']} window_sums median "
+                      f"{statistics.median(r['window_sums_ms']):.2f} ms of "
+                      f"{[round(t, 2) for t in r['window_sums_ms']]}, "
+                      f"exchange + tree on its own, median of 3, "
+                      f"{r['exchange_tree_ms']:.3f} ms, "
+                      f"launches={r['launches']}" for r in ranks)
+                  + f"; {seconds:.1f} s from spawn to exit [{card}]",
+                  flush=True)
+    return out
+
+
+def sharded_compares(run: dict) -> list:
+    """Every `compare` result of the [sharded] phases."""
+    return (list(run["window_shards"]["kernels"].values())
+            + [r for span in run["rank_spans"].values()
+               for r in span.values()]
+            + [r for tree in run["reduce_tree"].values()
+               for r in tree["levels"].values()])
+
+
+def sharded_phase(card: str) -> dict:
+    """The [sharded] phases, timed as a whole."""
+    t0 = time.perf_counter()
+    # one host: the ranks meet on the loopback interface
+    for var in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):
+        os.environ.setdefault(var, "lo")
+    out = dict(label=SHARED, logn=SHARDED_LOGN,
+               window_shards=window_shards(card),
+               rank_spans=rank_spans(card),
+               reduce_tree=reduce_tree_check(card),
+               nccl=sharded_nccl(card), gloo=sharded_gloo(card))
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[sharded] every phase passed in {out['seconds']:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
 # The limb counts whose kernels the [ptxas] and [sass] lines report:
 # BN254_S12's and those of PROFILES (TINY62's L = 6 is left out).
 PTXAS_LIMBS = (CURVE.num_limbs,) + tuple(c.num_limbs for c, _ in PROFILES)
@@ -1453,7 +1850,7 @@ def warm_plain(curve) -> None:
 
 
 def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
-    """Phases 3 to 10."""
+    """Phases 3 to 13."""
     warm_plain(CURVE)
     checks = {logn: check_size(logn, card) for logn in SIZES}
     runs = {logn: main_path(CURVE, logn, card) for logn in SIZES}
@@ -1466,6 +1863,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     affine_check(CURVE, min(SIZES), card, glv=True)
     rests = {logn: rest_split(logn) for logn in SIZES}
     profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
+    shard_run = sharded_phase(card)
     cpu_checks(checks[max(SIZES)]["pbpr_edges"], card)
 
     for logn in SIZES:
@@ -1537,6 +1935,28 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                         ("_glv", c["scan_sweep_glv"], runs_glv[logn])):
                     entry[f"threads_per_lane{key}{sfx}"] = run[3]
                     entry[f"ms_by_threads_per_lane{key}{sfx}"] = sw["ms"]
+        if name in MAIN:
+            # the sharded path's launches at 2^SHARDED_LOGN: the one NCCL
+            # rank's and each gloo rank's
+            nccl, gloo = shard_run["nccl"], shard_run["gloo"]
+            entry["launches_sharded"] = {
+                f"x=1 {nccl['backend']}": nccl["launches"].get(name, 0),
+                **{f"{k} gloo": [r["launches"].get(name, 0)
+                                 for r in v["ranks"]]
+                   for k, v in gloo.items()}}
+            # against its plain version at every shape of the sharded
+            # path: the shards, the ranks' spans and the trees
+            entry["max_abs_err_sharded"] = max(
+                r["max_abs_err"] for r in sharded_compares(shard_run)
+                if r["name"] == name)
+        if name == "padd_batch":
+            # of which the halving tree's
+            entry["launches_sharded_tree"] = {
+                f"x=1 {nccl['backend']}": nccl["tree_launches"],
+                **{f"ndev={d} check": t["launches"]
+                   for d, t in shard_run["reduce_tree"].items()},
+                **{f"{k} gloo": [r["tree_launches"] for r in v["ranks"]]
+                   for k, v in gloo.items()}}
         # depth floors at the largest size: the least time of the chain of
         # dependent point operations, each on a warp with nothing to wait for
         if name == "col_prefix":
@@ -1589,6 +2009,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         "pbpr_full_edges": checks[max(SIZES)]["pbpr_edges"],
         "rest_ms": {f"2^{k}": v for k, v in rests.items()},
         "ptxas": resources, "sass": sass,
+        "sharded": shard_run,
         "profiles": {c: dict(
             msm_ms={f"2^{k}": v[1] for k, v in prof["runs"].items()},
             h2d_ms={f"2^{k}": v[2] for k, v in prof["runs"].items()},

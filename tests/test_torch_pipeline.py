@@ -240,7 +240,8 @@ def test_import_boundary_no_jax_no_tpu_msm():
             for p in (REPO / "tpu_msm_torch").rglob("*.py")}
     assert {"tpu_msm_torch.glv", "tpu_msm_torch.cuzk.glv",
             "tpu_msm_torch.cuzk.pbpr", "tpu_msm_torch.ops.inverse",
-            "tpu_msm_torch.ops.limbs", "tpu_msm_torch.ops.barrett"} <= mods
+            "tpu_msm_torch.ops.limbs", "tpu_msm_torch.ops.barrett",
+            "tpu_msm_torch.parallel.sharded"} <= mods
 
 
 def test_default_device_raises_without_gpu(monkeypatch):

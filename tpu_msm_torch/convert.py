@@ -4,8 +4,9 @@ For an MSM the "parameters" are a pipeline configuration and the planar
 input arrays. `from_jax` takes the field values of a
 `tpu_msm.config.MSMConfig` as a plain dict (for example
 `dataclasses.asdict(cfg)` or `vars(cfg)`) and the numpy planar arrays,
-and returns the port's `MSMConfig` and device tensors. It imports
-nothing of `tpu_msm`.
+and returns the port's `MSMConfig` and device tensors. `mesh_from_jax`
+carries a JAX mesh's axes (`dict(jax_mesh.shape)`) across as the port's
+`DeviceMesh`. It imports nothing of `tpu_msm`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Mapping, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .config import MSMConfig
 from .constants import CURVES
@@ -59,3 +61,16 @@ def from_jax(xs: np.ndarray, ys: np.ndarray, halfwords: np.ndarray,
         raise ValueError("halfwords and coordinates differ in n")
     to = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32)).to(dev)
     return cfg, to(xs), to(ys), to(halfwords)
+
+
+def mesh_from_jax(axis_sizes: Mapping[str, int], device_type="cuda"
+                  ) -> DeviceMesh:
+    """The port's `DeviceMesh` for a JAX mesh's `dict(mesh.shape)`, for
+    example {"x": 2, "w": 4}: the same dim names and sizes in the same
+    order, on the default process group, which must be initialised and
+    hold as many ranks. Axis names other than "x" and "w" are refused."""
+    names = tuple(axis_sizes)
+    if not names or set(names) - {"x", "w"}:
+        raise ValueError(f"mesh axes {names}: only 'x' and 'w' are known")
+    return init_device_mesh(device_type, tuple(axis_sizes[k] for k in names),
+                            mesh_dim_names=names)

@@ -98,7 +98,11 @@ class MSMPipeline:
             cur.wait_event(event)
             for t in tensors:
                 t.record_stream(cur)
-        return windows_device(*tensors, cfg=self.config)
+        return self._device_program(*tensors)
+
+    def _device_program(self, xs, ys, halfwords) -> torch.Tensor:
+        """Staged planar inputs -> (3, L, Wp) window sums."""
+        return windows_device(xs, ys, halfwords, cfg=self.config)
 
     def window_sums(self, xs, ys, halfwords) -> List[JacInt]:
         """Run the device program on planar inputs (numpy arrays or

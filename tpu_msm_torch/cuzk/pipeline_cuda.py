@@ -5,7 +5,8 @@
            decompose_digits into int16 signed digits (under GLV,
            `glv.apply_glv`: the doubled stream P ++ phi(P) and the
            digits of |k1| ++ |k2|); pad the windows to Wp with zero
-           digits.
+           digits; under a window shard (w_shards > 1) keep the shard's
+           block of whole window groups, before the sort.
   Stage 2  sign-packed keys |d| << 1 | sign and ONE torch.sort over all
            windows; the payload idx << 1 | sign rides the permutation.
            Every bucket boundary cnt[w, j] = #(keys < 2(j+1)) comes from
@@ -68,14 +69,21 @@ def boundary_positions(skeys2: torch.Tensor, B: int, Wg: int, C: int, R: int):
 
 
 def windows_device(xs: torch.Tensor, ys: torch.Tensor,
-                   halfwords: torch.Tensor, cfg: MSMConfig) -> torch.Tensor:
+                   halfwords: torch.Tensor, cfg: MSMConfig,
+                   w_shards: int = 1, w_index: int = 0) -> torch.Tensor:
     """Planar inputs on one device -> (3, L, Wp) int32 window sums.
 
     xs, ys: (L, n) canonical standard-form limbs (int16 or int32).
     halfwords: (H, n) 16-bit scalar halfwords (uint16 or int32), with the
         two zero pad rows of `MSMPipeline.pack`.
     Under cfg.glv the stream has 2n lanes, and C, R, F and the row table
-    follow it."""
+    follow it.
+
+    w_shards > 1 runs stages 2 to 4 on the shard's contiguous block of
+    whole window groups only, windows [w_index Wp_l, (w_index + 1) Wp_l)
+    with Wp_l = Wp / w_shards, and returns (3, L, Wp_l): the window axis
+    of a (points x windows) mesh (`parallel/sharded.py`). w_shards must
+    divide num_groups."""
     curve = cfg.curve
     L = curve.num_limbs
     dev = xs.device
@@ -83,6 +91,10 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     n = (2 if cfg.glv else 1) * xs.shape[-1]       # stream lanes
     W, Wg, G = cfg.num_windows, cfg.subtask_group, cfg.num_groups
     B, Wp = cfg.half_columns, cfg.padded_windows
+    if w_shards < 1 or G % w_shards:
+        raise ValueError(f"w_shards={w_shards} must divide num_groups={G}")
+    if not 0 <= w_index < w_shards:
+        raise ValueError(f"w_index={w_index} is not in [0, {w_shards})")
     C = min(cfg.columns, n)
     if n % C:
         raise ValueError(f"n={n} is not a multiple of columns={C}")
@@ -99,6 +111,10 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
                                           W)
     if Wp > W:
         digits = torch.cat([digits, digits.new_zeros((Wp - W, n))])
+    # the shard's window groups; Wg divides Wp, so the lanes of
+    # boundary_positions stay right
+    Wp, G = Wp // w_shards, G // w_shards
+    digits = digits[w_index * Wp:(w_index + 1) * Wp]
 
     # ---- stage 2: one sort for all windows, boundaries by searchsorted ----
     d32 = digits.to(I32)
