@@ -109,16 +109,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      own after a barrier, its exchange + tree timed (ranks sharing one
      card: no multi-GPU scaling); a rank that fails or misses its
      deadline fails the run;
- 11. the `pbpr_full` edges whose plain versions ran on the CPU;
- 12. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
+ 11. `[twin]`, the XLA path (`MSMConfig(backend="xla")`, the port of the
+     JAX package's `_windows_device`: decompose, sort, the row walk of
+     torch mixed adds, the stitch, `bucket_reduce`) through
+     `tpu_variable_base_msm` on the card, with inputs from
+     gen_planar_inputs(seed=99, k_base=64), at the default schedule:
+     BN254_S12 at 2^16 without GLV and with it, BLS12_377_S12 at 2^14
+     (TWIN_RUNS): each EXACT against the oracle with every launch count
+     reset before and read after (the five kernels of the path launched,
+     the other four idle), its window sums equal window by window after
+     decoding to the CUDA path's on the same inputs; every call of
+     `encode_mont`, `decompose_digits`, `padd_batch` (the stitch, the
+     inject, the reduction's tree and stage 2), `pbpr_stage1` and
+     `pdbl_batch`, once per shape, against its plain version, timed; the
+     median of 3 timed runs and its split into the kernels' time (each
+     shape's time by its calls) and the rest (`[twin-where]`); then
+     BN254_S12 at 2^20 once, EXACT and counted, if 16 times the 2^16
+     median stays under TWIN_FULL_BUDGET_S;
+ 12. the `pbpr_full` edges whose plain versions ran on the CPU;
+ 13. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
     with all nine kernels (pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; under "profiles" each kernel's
     time, bound, launches and error at each profile of PROFILES; the six
     of the main path with their launches on the sharded path and their
     largest error against the plain version there, padd_batch also its
-    halving tree's launches) and the `[sharded]` numbers under
-    "sharded";
- 13. last line {"ok": true, "device": {...}}.
+    halving tree's launches; the five of the twin its launches, time
+    and error at each of TWIN_RUNS) and the `[sharded]` and `[twin]`
+    numbers under "sharded" and "twin";
+ 14. last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -185,21 +203,22 @@ SCHEDULE = dict(window_size=16, columns=8192, pbpr_threads=512,
 # name: (source, the TPU kernel it replaces, the path that launches it)
 SOURCES = {
     "encode_mont": ("tpu_msm_torch/csrc/encode_mont.cu",
-                    "tpu_msm/cuzk/kernels.py:94", "main, glv"),
+                    "tpu_msm/cuzk/kernels.py:94", "main, glv, twin"),
     "decompose_digits": ("tpu_msm_torch/csrc/decompose_digits.cu",
-                         "tpu_msm/cuzk/kernels.py:439", "main, glv"),
+                         "tpu_msm/cuzk/kernels.py:439", "main, glv, twin"),
     "prefix_scan": ("tpu_msm_torch/csrc/prefix_scan.cu",
                     "tpu_msm/cuzk/kernels.py:131", "main, glv"),
     "col_prefix": ("tpu_msm_torch/csrc/col_prefix.cu",
                    "tpu_msm/cuzk/kernels.py:538", "main, glv"),
     "padd_batch": ("tpu_msm_torch/csrc/padd_batch.cu",
-                   "tpu_msm/cuzk/kernels.py:309", "main, glv, reduce"),
+                   "tpu_msm/cuzk/kernels.py:309",
+                   "main, glv, reduce, twin"),
     "pbpr_full": ("tpu_msm_torch/csrc/pbpr_full.cu",
                   "tpu_msm/cuzk/kernels.py:656", "main, glv"),
     "pdbl_batch": ("tpu_msm_torch/csrc/pdbl_batch.cu",
-                   "tpu_msm/cuzk/kernels.py:386", "reduce"),
+                   "tpu_msm/cuzk/kernels.py:386", "reduce, twin"),
     "pbpr_stage1": ("tpu_msm_torch/csrc/pbpr_stage1.cu",
-                    "tpu_msm/cuzk/kernels.py:615", "reduce"),
+                    "tpu_msm/cuzk/kernels.py:615", "reduce, twin"),
     "globalize": ("tpu_msm_torch/csrc/globalize.cu",
                   "tpu_msm/cuzk/kernels.py:261", "globalise"),
 }
@@ -367,16 +386,21 @@ def timed_once(fn):
 
 
 @contextlib.contextmanager
-def spy(seen: dict, targets):
+def spy(seen: dict, targets, counts: dict | None = None):
     """While active, keep (name, args, kwargs, output) of the first call of
     every (module, name) in `targets`, tensors cloned; padd_batch and
-    psub_batch are kept once per dtype form."""
+    psub_batch are kept once per dtype form. With `counts`, every call is
+    kept once per shape of its first argument instead, and counts[key]
+    counts the calls of each key."""
     orig = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def wrap(name, fn):
         def call(*args, **kw):
             key = name
-            if name in ("padd_batch", "psub_batch"):
+            if counts is not None:
+                key = f"{name}{tuple(args[0].shape)}"
+                counts[key] = counts.get(key, 0) + 1
+            elif name in ("padd_batch", "psub_batch"):
                 od = kw.get("out_dtype", args[3] if len(args) > 3 else
                             torch.int32)
                 key = f"{name}[{args[0].dtype}->{od}]"
@@ -1726,6 +1750,152 @@ def sharded_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [twin]: the XLA path (MSMConfig(backend="xla"), cuzk/pipeline.py
+# _windows_device: sort, row walk of torch mixed adds, stitch, bucket_reduce)
+# ---------------------------------------------------------------------------
+
+# (profile, log2 n, glv) of the twin's checked runs, at the default schedule
+TWIN_RUNS = ((BN254_S12, 16, False), (BN254_S12, 16, True),
+             (BLS12_377_S12, 14, False))
+# the kernels the twin launches; the other four must stay idle
+TWIN_KERNELS = ("encode_mont", "decompose_digits", "padd_batch",
+                "pbpr_stage1", "pdbl_batch")
+# The first profile of TWIN_RUNS at 2^TWIN_FULL_LOGN once, without GLV,
+# when its median scaled by the points (2^4 x at 2^16) stays under
+# TWIN_FULL_BUDGET_S
+TWIN_FULL_LOGN = 20
+TWIN_FULL_BUDGET_S = 90.0
+
+
+def twin_config(curve, logn: int, glv: bool) -> MSMConfig:
+    return dataclasses.replace(default_config(1 << logn, curve), glv=glv,
+                               backend="xla")
+
+
+def twin_label(curve, logn: int, glv: bool) -> str:
+    return f"{curve.name} 2^{logn}{' glv' if glv else ''}"
+
+
+def twin_user_call(curve, logn: int, glv: bool, card: str,
+                   capture: bool) -> dict:
+    """The twin's user call, `tpu_variable_base_msm` under backend="xla",
+    EXACT against the oracle, every launch count set to 0 just before it
+    and read just after. With `capture`, every call of the five kernels'
+    wrappers (once per shape, and how often) and of `bucket_reduce`, whose
+    output is the window sums."""
+    cfg = twin_config(curve, logn, glv)
+    n = 1 << logn
+    _, _, hw, base, want = inputs(curve, logn)
+    points = [base[i % len(base)] for i in range(n)]
+    scalars = preprocess.halfwords_to_ints(hw)
+    targets = [(kernels, k) for k in TWIN_KERNELS] + [(pbpr, "bucket_reduce")]
+    seen, counts = {}, {}
+    kernels.reset_launches()
+    with spy(seen, targets if capture else [], counts):
+        t0 = time.perf_counter()
+        got = tpu_variable_base_msm(points, scalars, config=cfg,
+                                    device=DEVICE)
+        t_user = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    label = twin_label(curve, logn, glv)
+    if not ref.jac_eq(curve, got, want):
+        raise AssertionError(f"[twin] {label}: MSM result differs from the "
+                             "oracle")
+    idle = [k for k in TWIN_KERNELS if launches[k] == 0]
+    stray = [k for k in KERNELS if k not in TWIN_KERNELS and launches[k]]
+    if idle or stray:
+        raise AssertionError(f"[twin] {label}: kernels not launched {idle}, "
+                             f"launched off the path {stray}")
+    used = {k: v for k, v in launches.items() if v}
+    print(f"[twin] {label} s={cfg.window_size} W={cfg.num_windows} "
+          f"C={cfg.columns} T={cfg.pbpr_threads} Wg={cfg.subtask_group} "
+          f"tpu_variable_base_msm(backend='xla') EXACT in {t_user:.2f} s "
+          f"(host pack included) launches={used} [{card}]", flush=True)
+    return dict(cfg=cfg, launches=launches, seen=seen, counts=counts,
+                user_s=t_user)
+
+
+def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
+    """One checked run of the twin: the user call; its window sums
+    against the CUDA path's on the same inputs, window by window after
+    decoding; each captured kernel call against its plain version, timed
+    (3 reps); the median of 3 timed runs; the kernels' time (each shape's
+    time by its calls) and the rest."""
+    label = twin_label(curve, logn, glv)
+    run = twin_user_call(curve, logn, glv, card, capture=True)
+    cfg, seen, counts = run["cfg"], run["seen"], run["counts"]
+    n = 1 << logn
+    xs, ys, hw, _, _ = inputs(curve, logn)
+    hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
+    pipe = get_pipeline(cfg, DEVICE)
+    g = next(v[3][0] for k, v in seen.items() if k.startswith(
+        "bucket_reduce"))
+    twin_w = pipe._decode_windows(g)
+    cuda_w = pipe._decode_windows(pipeline_cuda.windows_device(
+        *(torch.from_numpy(a.astype(np.int32)).to(DEVICE)
+          for a in (xs, ys, hw)), dataclasses.replace(cfg, backend="auto")))
+    for w, (a, b) in enumerate(zip(twin_w, cuda_w, strict=True)):
+        if not ref.jac_eq(curve, a, b):
+            raise AssertionError(f"[twin] {label}: window {w} differs from "
+                                 "the CUDA path's")
+    print(f"[twin] {label}: window sums equal to the CUDA path's in all "
+          f"{len(twin_w)} windows [{card}]", flush=True)
+
+    tag = f"n=2^{logn}{' glv' if glv else ''} twin"
+    results = {key: compare(curve, key, name, args, kw, tag, card, 3)
+               for key, (name, args, kw, _) in seen.items()
+               if name in TWIN_KERNELS}
+    kern_ms = dict.fromkeys(TWIN_KERNELS, 0.0)
+    for key, r in results.items():
+        kern_ms[r["name"]] += counts[key] * r["ms"]
+    ms, h2d = timed_runs(cfg, logn, "twin", card)
+    total = sum(kern_ms.values())
+    print(f"[twin-where] {label}: median {ms:.2f} ms end to end; kernels "
+          f"{total:.2f} ms (" + ", ".join(f"{k} {v:.2f}" for k, v in
+                                         kern_ms.items())
+          + f"; each shape's time by its calls), outside the kernels "
+          f"{ms - total:.2f} ms (the row walk's torch mixed adds, sort, "
+          f"gathers, scatters, decode, Horner); launches "
+          f"{ {k: run['launches'][k] for k in TWIN_KERNELS} } [{card}]",
+          flush=True)
+    return dict(label=label, msm_ms=ms, h2d_ms=h2d, user_s=run["user_s"],
+                kernels_ms=total, kernel_ms=kern_ms, outside_ms=ms - total,
+                launches={k: run["launches"][k] for k in TWIN_KERNELS},
+                results=results, calls=counts)
+
+
+def twin_phase(card: str) -> dict:
+    """The [twin] runs, then the first of them at 2^TWIN_FULL_LOGN once if
+    its median says it fits TWIN_FULL_BUDGET_S."""
+    t0 = time.perf_counter()
+    runs = {}
+    for curve, logn, glv in TWIN_RUNS:
+        warm_plain(curve)
+        r = twin_check(curve, logn, glv, card)
+        runs[r["label"]] = r
+        torch.cuda.empty_cache()
+    curve, logn, glv = TWIN_RUNS[0]
+    est = runs[twin_label(curve, logn, glv)]["msm_ms"] / 1e3 * (
+        1 << (TWIN_FULL_LOGN - logn))
+    full = dict(logn=TWIN_FULL_LOGN, estimate_s=est)
+    if est < TWIN_FULL_BUDGET_S:
+        run = twin_user_call(curve, TWIN_FULL_LOGN, False, card,
+                             capture=False)
+        full.update(user_s=run["user_s"], launches={
+            k: run["launches"][k] for k in TWIN_KERNELS})
+    else:
+        print(f"[twin] {twin_label(curve, TWIN_FULL_LOGN, False)} not "
+              f"run: 2^{TWIN_FULL_LOGN - logn} x the 2^{logn} median is "
+              f"{est:.1f} s, over {TWIN_FULL_BUDGET_S:.0f} s [{card}]",
+              flush=True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[twin] every phase passed in {seconds:.1f} s [{card}]",
+          flush=True)
+    return dict(runs=runs, full=full, seconds=seconds)
+
+
 # The limb counts whose kernels the [ptxas] and [sass] lines report:
 # BN254_S12's and those of PROFILES (TINY62's L = 6 is left out).
 PTXAS_LIMBS = (CURVE.num_limbs,) + tuple(c.num_limbs for c, _ in PROFILES)
@@ -1850,7 +2020,7 @@ def warm_plain(curve) -> None:
 
 
 def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
-    """Phases 3 to 13."""
+    """Phases 3 to 14."""
     warm_plain(CURVE)
     checks = {logn: check_size(logn, card) for logn in SIZES}
     runs = {logn: main_path(CURVE, logn, card) for logn in SIZES}
@@ -1864,6 +2034,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     rests = {logn: rest_split(logn) for logn in SIZES}
     profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
     shard_run = sharded_phase(card)
+    twin = twin_phase(card)
     cpu_checks(checks[max(SIZES)]["pbpr_edges"], card)
 
     for logn in SIZES:
@@ -1986,6 +2157,20 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                     1 << max(SIZES), CURVE).columns
                 entry[f"depth_floor_ms{key}"] = (
                     R * lat["scan_step_ms"][run[max(SIZES)][3]])
+        if name in TWIN_KERNELS:
+            # the twin's user calls: launches, the kernel's time over the
+            # run (each shape's time by its calls), the largest error
+            # against the plain version at every captured shape
+            tr = twin["runs"].values()
+            entry["launches_twin"] = {r["label"]: r["launches"][name]
+                                      for r in tr}
+            entry["ms_twin"] = {r["label"]: r["kernel_ms"][name] for r in tr}
+            entry["max_abs_err_twin"] = max(
+                v["max_abs_err"] for r in tr for v in r["results"].values()
+                if v["name"] == name)
+            if "launches" in twin["full"]:
+                entry[f"launches_twin_2p{TWIN_FULL_LOGN}"] = twin["full"][
+                    "launches"][name]
         entry["bit_exact"] = True
         entry["at"] = f"n=2^{max(SIZES)} (suffix _2p16: n=2^16)"
         entry["profiles"] = {c: profile_entry(name, prof)
@@ -2010,6 +2195,10 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         "rest_ms": {f"2^{k}": v for k, v in rests.items()},
         "ptxas": resources, "sass": sass,
         "sharded": shard_run,
+        "twin": {"runs": {k: {f: v for f, v in r.items()
+                              if f not in ("results", "calls")}
+                          for k, r in twin["runs"].items()},
+                 "full": twin["full"], "seconds": twin["seconds"]},
         "profiles": {c: dict(
             msm_ms={f"2^{k}": v[1] for k, v in prof["runs"].items()},
             h2d_ms={f"2^{k}": v[2] for k, v in prof["runs"].items()},

@@ -197,7 +197,7 @@ def test_convert_from_jax():
                    {f.name: getattr(jcfg, f.name)
                     for f in dataclasses.fields(jcfg)}):
         cfg, tx, ty, th = convert.from_jax(xs, ys, hw, fields, device="cpu")
-        assert cfg == CFG
+        assert cfg == dataclasses.replace(CFG, backend="xla")
         assert all(t.dtype == torch.int32 and t.device.type == "cpu"
                    for t in (tx, ty, th))
         assert np.array_equal(th.numpy(), hw.astype(np.int32))
@@ -206,7 +206,7 @@ def test_convert_from_jax():
         assert ref.jac_eq(c, got, oracle(c, pts, scalars))
     glv = convert.config_from_fields({**dataclasses.asdict(jcfg),
                                       "glv": True})
-    assert glv == dataclasses.replace(CFG, glv=True)
+    assert glv == dataclasses.replace(CFG, glv=True, backend="xla")
     with pytest.raises(ValueError):
         convert.config_from_fields({"curve": "bn254_s12", "bogus": 1})
     with pytest.raises(ValueError):
@@ -241,7 +241,11 @@ def test_import_boundary_no_jax_no_tpu_msm():
     assert {"tpu_msm_torch.glv", "tpu_msm_torch.cuzk.glv",
             "tpu_msm_torch.cuzk.pbpr", "tpu_msm_torch.ops.inverse",
             "tpu_msm_torch.ops.limbs", "tpu_msm_torch.ops.barrett",
-            "tpu_msm_torch.parallel.sharded"} <= mods
+            "tpu_msm_torch.parallel.sharded", "tpu_msm_torch.ops.lazy",
+            "tpu_msm_torch.ops.complete", "tpu_msm_torch.ops.field",
+            "tpu_msm_torch.ops.mont", "tpu_msm_torch.ops.curve",
+            "tpu_msm_torch.cuzk.decompose", "tpu_msm_torch.cuzk.sort",
+            "tpu_msm_torch.cuzk.smvp", "tpu_msm_torch.utils.testing"} <= mods
 
 
 def test_default_device_raises_without_gpu(monkeypatch):

@@ -2,9 +2,10 @@
 
 The port's own `MSMConfig`: the fields of `tpu_msm/config.py` that shape
 the computation (curve, window size, columns, PBPR threads, window group,
-points per pass, GLV), with the same validation, derived properties and
-default schedule. The JAX package's trace-time choices (backend, unroll,
-dbl_mode, group_loop, the autotune cache) have no counterpart here.
+points per pass, GLV, backend), with the same validation, derived
+properties and default schedule. The JAX package's other trace-time
+choices (unroll, dbl_mode, group_loop, the autotune cache) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ class MSMConfig:
         endomorphism (`glv.py`, `cuzk/glv.py`), so that the pipeline runs
         2n points through about half the windows. Off by default, as in
         the JAX package.
+    backend: the device program (`MSMPipeline.windows_fn`). "auto" (the
+        default) and "cuda" run the CUDA kernel path
+        (`cuzk/pipeline_cuda.py`, the counterpart of the JAX package's
+        Pallas path); "xla" runs the port of the JAX package's XLA path
+        (`cuzk/pipeline._windows_device`: sort, segmented row walk,
+        stitch, two-stage reduction), which the JAX package runs off a
+        TPU. Under "xla" the same CUDA kernels run its stages 1 and 4
+        and its stitch.
     """
 
     curve: CurveParams = BN254_S12
@@ -39,9 +48,12 @@ class MSMConfig:
     subtask_group: int = 4
     max_points_per_pass: int = 1 << 23
     glv: bool = False
+    backend: str = "auto"
 
     def __post_init__(self):
         self.curve.require_signed("MSMConfig")
+        if self.backend not in ("auto", "cuda", "xla"):
+            raise ValueError("backend must be auto | cuda | xla")
         s = self.window_size
         if not (2 <= s <= 16):
             raise ValueError("window_size must be in [2, 16]")

@@ -2,10 +2,12 @@
 
 A standalone copy of the part of `tpu_msm/constants.py` this package
 needs (the port imports nothing of `tpu_msm`): the `CurveParams` bundle,
-the limb helpers, the signed fold interval of the deferred-carry
-Montgomery loop, and the profiles of BN254 (BN254, BN254_S12, BN254_S13,
-BN254_F13), of BLS12-377 (BLS12_377, BLS12_377_S12, BLS12_377_S13,
-BLS12_377_F12) and TINY62.
+the limb helpers, the Montgomery, NSAFE and Barrett parameters of the
+unsigned layers (`ops/field.py`, `ops/mont.py`, `ops/barrett.py`), the
+headroom of their deferred-carry multiply, the signed fold interval of
+the deferred-carry Montgomery loop, and the profiles of BN254 (BN254,
+BN254_S12, BN254_S13, BN254_F13), of BLS12-377 (BLS12_377,
+BLS12_377_S12, BLS12_377_S13, BLS12_377_F12) and TINY62.
 Every derived quantity (R mod p, R^2, n0, k*p limbs) is computed here
 from first principles; the CUDA kernels receive them as a device tensor
 built by `cuzk/kernels.py`, never as literals in the sources.
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List
+from typing import List, Tuple
 
 
 def int_to_limbs(x: int, num_limbs: int, log_limb_size: int) -> List[int]:
@@ -37,6 +39,46 @@ def limbs_to_int(limbs, log_limb_size: int) -> int:
     for i, l in enumerate(limbs):
         acc |= int(l) << (i * log_limb_size)
     return acc
+
+
+def calc_rinv_and_n0(p: int, num_limbs: int, log_limb_size: int
+                     ) -> Tuple[int, int]:
+    """Montgomery parameters: rinv = R^-1 mod p, n0 = -p^-1 mod 2^w."""
+    r = 1 << (num_limbs * log_limb_size)
+    rinv = pow(r % p, -1, p)
+    n0 = (-pow(p, -1, 1 << log_limb_size)) % (1 << log_limb_size)
+    return rinv, n0
+
+
+def calc_nsafe(log_limb_size: int) -> int:
+    """How many unreduced limb-product terms fit a uint32 accumulator,
+    halved (at least 1): 1 for w = 16, where every product is reduced at
+    once (CIOS), more for the narrower limbs of `ops/mont.py`
+    mont_mul_modified."""
+    rhs = 1 << 32
+    max_term = ((1 << log_limb_size) - 1) ** 2
+    n = 0
+    acc = 0
+    while acc + max_term < rhs:
+        acc += max_term
+        n += 1
+    return max(n // 2, 1)
+
+
+def calc_barrett_mu(p: int, num_limbs: int, log_limb_size: int) -> int:
+    """mu = floor(b^(2k) / p) with b = 2^w, k = num_limbs."""
+    return (1 << (2 * num_limbs * log_limb_size)) // p
+
+
+def deferred_carry_headroom(num_limbs: int, log_limb_size: int) -> float:
+    """2^32 over the worst accumulation of the unsigned deferred-carry
+    Montgomery multiply (`ops/mont.py` mont_mul_deferred): 2 products a
+    limb an iteration for num_limbs iterations, plus the fold-ins of the
+    t[0] carry. Above 1, no uint32 slot of that multiply can wrap."""
+    max_prod = ((1 << log_limb_size) - 1) ** 2
+    worst = 2 * num_limbs * max_prod
+    worst += num_limbs * (worst >> log_limb_size)
+    return (1 << 32) / worst
 
 
 def signed_fold_interval(log_limb_size: int) -> int:
@@ -106,8 +148,16 @@ class CurveParams:
     @functools.cached_property
     def n0(self) -> int:
         """-p^-1 mod 2^w."""
-        w = self.log_limb_size
-        return (-pow(self.p, -1, 1 << w)) % (1 << w)
+        return calc_rinv_and_n0(self.p, self.num_limbs,
+                                self.log_limb_size)[1]
+
+    @functools.cached_property
+    def nsafe(self) -> int:
+        return calc_nsafe(self.log_limb_size)
+
+    @functools.cached_property
+    def barrett_mu(self) -> int:
+        return calc_barrett_mu(self.p, self.num_limbs, self.log_limb_size)
 
     @functools.cached_property
     def scalar_bits(self) -> int:
@@ -119,6 +169,13 @@ class CurveParams:
 
     def p_limbs(self) -> List[int]:
         return int_to_limbs(self.p, self.num_limbs, self.log_limb_size)
+
+    def p_wide_limbs(self) -> List[int]:
+        return int_to_limbs(self.p, self.num_limbs + 1, self.log_limb_size)
+
+    def mu_limbs(self) -> List[int]:
+        return int_to_limbs(self.barrett_mu, self.num_limbs + 1,
+                            self.log_limb_size)
 
     def r_limbs(self) -> List[int]:
         return int_to_limbs(self.r_mod_p, self.num_limbs, self.log_limb_size)

@@ -4,7 +4,11 @@ For an MSM the "parameters" are a pipeline configuration and the planar
 input arrays. `from_jax` takes the field values of a
 `tpu_msm.config.MSMConfig` as a plain dict (for example
 `dataclasses.asdict(cfg)` or `vars(cfg)`) and the numpy planar arrays,
-and returns the port's `MSMConfig` and device tensors. `mesh_from_jax`
+and returns the port's `MSMConfig` and device tensors. The JAX
+`backend` carries across: "pallas" becomes "cuda" (the kernel path that
+stands in for the Pallas one), "xla" and "auto" stay. Note that the JAX
+package's "auto" means its XLA path off a TPU, while the port's "auto"
+means the CUDA kernel path. `mesh_from_jax`
 carries a JAX mesh's axes (`dict(jax_mesh.shape)`) across as the port's
 `DeviceMesh`. It imports nothing of `tpu_msm`.
 """
@@ -22,9 +26,11 @@ from .constants import CURVES
 from .cuzk.pipeline import resolve_device
 
 # JAX trace-time choices with no counterpart in the port.
-_JAX_ONLY = {"backend", "unroll", "dbl_mode", "group_loop"}
+_JAX_ONLY = {"unroll", "dbl_mode", "group_loop"}
 _FIELDS = ("window_size", "columns", "pbpr_threads", "subtask_group",
-           "max_points_per_pass", "glv")
+           "max_points_per_pass", "glv", "backend")
+# JAX backend -> the port's
+_BACKENDS = {"pallas": "cuda", "xla": "xla", "auto": "auto"}
 
 
 def _curve_name(curve) -> str:
@@ -44,6 +50,10 @@ def config_from_fields(fields: Mapping) -> MSMConfig:
     if name not in CURVES:
         raise ValueError(f"curve {name!r} is not in the port's profiles")
     kw = {k: fields[k] for k in _FIELDS if k in fields}
+    if "backend" in kw:
+        if kw["backend"] not in _BACKENDS:
+            raise ValueError(f"backend {kw['backend']!r} is no JAX backend")
+        kw["backend"] = _BACKENDS[kw["backend"]]
     return MSMConfig(curve=CURVES[name], **kw)
 
 

@@ -7,6 +7,12 @@ with zero scalars, inputs above `max_points_per_pass` run as several
 device passes whose window sums add on the host, and decode and Horner
 run on the host.
 
+The device program is picked by `MSMPipeline.windows_fn` from
+`MSMConfig.backend`: "auto" and "cuda" run `pipeline_cuda.windows_device`
+(the counterpart of the JAX package's Pallas path), "xla" runs
+`_windows_device` below (the counterpart of its XLA path, which the JAX
+package runs on every backend but the TPU).
+
 Every entry point takes `device=` and defaults to "cuda". Without a GPU
 that raises; nothing falls back to the CPU. `device="cpu"` runs the
 kernels' plain versions (the tests use it).
@@ -24,9 +30,61 @@ from ..constants import BN254_S12, CurveParams
 from ..reference import curve as ref
 from ..utils.limbs_conversion import (planar_signed_to_ints_modp,
                                       points_to_planar, scalars_to_planar)
+from . import decompose, pbpr, smvp
+from . import glv as glv_dev
 from .pipeline_cuda import windows_device
 
 JacInt = Tuple[int, int, int]
+
+I32 = torch.int32
+
+
+def _windows_device(xs: torch.Tensor, ys: torch.Tensor,
+                    halfwords: torch.Tensor, cfg: MSMConfig,
+                    w_shards: int = 1, w_index: int = 0) -> torch.Tensor:
+    """The XLA path's device program (JAX `cuzk/pipeline.py`
+    `_windows_device`): Montgomery encoding and the signed digits
+    (`decompose`; under GLV `glv.apply_glv`), then for each window group
+    the sort and the row walk of `smvp.bucket_accumulate`, then the
+    two-stage bucket reduction `pbpr.bucket_reduce`. Takes the planar
+    inputs of `windows_device` and returns the same (3, L, Wp) int32
+    window sums, so `MSMPipeline._decode_windows` reads both.
+
+    w_shards > 1 keeps the shard's contiguous block of Wp / w_shards
+    windows, w_index the shard's index (a plain slice of the digits),
+    and returns (3, L, Wp / w_shards); w_shards must divide num_groups.
+
+    On CUDA tensors it launches `encode_mont`, `decompose_digits` (not
+    under GLV, whose `apply_glv` launches it itself), `padd_batch` (the
+    stitch, the inject, the reduction's tree and stage 2),
+    `pbpr_stage1` and `pdbl_batch`; the row walk's mixed adds are torch
+    ops."""
+    curve = cfg.curve
+    L = curve.num_limbs
+    W, Wg, G = cfg.num_windows, cfg.subtask_group, cfg.num_groups
+    B, Wp = cfg.half_columns, cfg.padded_windows
+    if w_shards < 1 or G % w_shards:
+        raise ValueError(f"w_shards={w_shards} must divide num_groups={G}")
+    if not 0 <= w_index < w_shards:
+        raise ValueError(f"w_index={w_index} is not in [0, {w_shards})")
+    hw = halfwords.to(I32)
+
+    xm, ym = decompose.points_to_mont(xs, ys, curve)
+    if cfg.glv:
+        xm, ym, digits = glv_dev.apply_glv(xm, ym, hw, cfg)
+    else:
+        digits = decompose.decompose(hw, cfg)                    # (W, n)
+    n = xm.shape[-1]                    # 2x the input lanes under GLV
+    if Wp > W:
+        digits = torch.cat([digits, digits.new_zeros((Wp - W, n))])
+    Wp, G = Wp // w_shards, G // w_shards
+    digits = digits[w_index * Wp:(w_index + 1) * Wp]
+
+    buckets = torch.empty((3, L, Wp, B), dtype=I32, device=xm.device)
+    for g in range(G):
+        sl = slice(g * Wg, (g + 1) * Wg)
+        buckets[:, :, sl] = smvp.bucket_accumulate(xm, ym, digits[sl], cfg)
+    return pbpr.bucket_reduce(buckets, cfg)
 
 
 def resolve_device(device) -> torch.device:
@@ -100,9 +158,20 @@ class MSMPipeline:
                 t.record_stream(cur)
         return self._device_program(*tensors)
 
+    @staticmethod
+    def windows_fn(config: MSMConfig):
+        """The device program of `config.backend`: `windows_device` (the
+        CUDA kernel path) for "auto" and "cuda", `_windows_device` (the
+        XLA path) for "xla". Both take (xs, ys, halfwords, cfg=,
+        w_shards=, w_index=) and return (3, L, Wp) window sums."""
+        if config.backend == "xla":
+            return _windows_device
+        return windows_device
+
     def _device_program(self, xs, ys, halfwords) -> torch.Tensor:
         """Staged planar inputs -> (3, L, Wp) window sums."""
-        return windows_device(xs, ys, halfwords, cfg=self.config)
+        return self.windows_fn(self.config)(xs, ys, halfwords,
+                                            cfg=self.config)
 
     def window_sums(self, xs, ys, halfwords) -> List[JacInt]:
         """Run the device program on planar inputs (numpy arrays or

@@ -3,7 +3,8 @@ process a rank.
 
 The port of `tpu_msm/parallel/sharded.py` on `torch.distributed`. The
 window sum G_w = sum_b (b+1) * S_{w,b} is linear in the point set, so
-each rank runs the whole device program (`windows_device`) on its span
+each rank runs the whole device program (`MSMPipeline.windows_fn`:
+`windows_device`, or `_windows_device` under backend="xla") on its span
 of the points, and only the per-window sums, (3, L, Wp) int32 (4,224 B
 at BN254_S12 with 16 windows), cross between ranks: one all-gather and
 a halving tree of complete adds (`kernels.padd_batch`), replicated on
@@ -12,7 +13,7 @@ every rank.
 Mesh dims (a `torch.distributed.device_mesh.DeviceMesh` named "x", or
 "x" and "w"): "x" shards the point stream; "w" shards the window groups,
 each w-shard running stages 2 to 4 on its block of Wp / w windows
-(`windows_device(..., w_shards, w_index)`), the blocks reassembled by an
+(`windows_fn(cfg)(..., w_shards, w_index)`), the blocks reassembled by an
 all-gather over "w" in axis-index order.
 
 Every rank calls the entry points with the same inputs, as under
@@ -33,7 +34,6 @@ from ..config import MSMConfig, default_config
 from ..constants import CurveParams
 from ..cuzk import kernels
 from ..cuzk.pipeline import JacInt, MSMPipeline, resolve_device
-from ..cuzk.pipeline_cuda import windows_device
 
 
 def _reduce_gathered(g: torch.Tensor, curve: CurveParams,
@@ -95,10 +95,11 @@ def make_sharded_windows_fn(cfg: MSMConfig, mesh: DeviceMesh):
         raise ValueError(f"mesh dim 'x' of {ndev}: the reduction tree "
                          "needs a power of two")
     w_index = mesh.get_local_rank("w") if wdev > 1 else 0
+    windows_fn = MSMPipeline.windows_fn(cfg)
 
     def windows(xs, ys, halfwords):
-        g = windows_device(xs, ys, halfwords, cfg, w_shards=wdev,
-                           w_index=w_index)
+        g = windows_fn(xs, ys, halfwords, cfg=cfg, w_shards=wdev,
+                       w_index=w_index)
         return exchange(g, mesh, cfg.curve)
 
     return windows

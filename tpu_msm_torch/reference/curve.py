@@ -31,6 +31,12 @@ def is_inf(pt: Jac) -> bool:
     return pt[2] == 0
 
 
+def neg(curve: CurveParams, pt: Jac) -> Jac:
+    """Jacobian negation (x, -y, z). The groups have odd prime order, so
+    y == 0 only at infinity."""
+    x, y, z = pt
+    p = curve.p
+    return (x, (p - y) % p, z)
 
 
 def dbl(curve: CurveParams, pt: Jac) -> Jac:
@@ -141,6 +147,13 @@ def jac_eq(curve: CurveParams, a: Jac, b: Jac) -> bool:
     return to_affine(curve, a) == to_affine(curve, b)
 
 
+def on_curve(curve: CurveParams, pt: Jac) -> bool:
+    aff = to_affine(curve, pt)
+    if aff is None:
+        return True
+    x, y = aff
+    p = curve.p
+    return (y * y - (x * x * x + curve.b_coeff)) % p == 0
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +161,15 @@ def jac_eq(curve: CurveParams, a: Jac, b: Jac) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def msm_naive(curve: CurveParams, points: Sequence[Tuple[int, int]],
+              scalars: Sequence[int]) -> Jac:
+    """Sum_i k_i * P_i by schoolbook double-and-add. Slow, maximally
+    trusted."""
+    acc = INF
+    for (x, y), k in zip(points, scalars):
+        acc = add(curve, acc, scalar_mul(curve, (x, y, 1),
+                                         k % curve.scalar_modulus))
+    return acc
 
 
 def decompose_signed(curve: CurveParams, scalar: int, window: int,

@@ -47,6 +47,16 @@ def ints_to_planar(values: Sequence[int], num_limbs: int,
     return out
 
 
+def planar_to_ints(arr: np.ndarray, log_limb_size: int = 16) -> List[int]:
+    """Inverse of ints_to_planar: (num_limbs, n) limbs -> python ints."""
+    arr = np.asarray(arr)
+    out = []
+    for col in arr.T:
+        acc = 0
+        for i in range(arr.shape[0] - 1, -1, -1):
+            acc = (acc << log_limb_size) | int(col[i])
+        out.append(acc)
+    return out
 
 
 def planar_signed_to_ints_modp(arr: np.ndarray, curve: CurveParams) -> List[int]:

@@ -1,7 +1,8 @@
 """Benchmark vector generation and the O(k_base) linearity check.
 
 The port's own copy of the generator half of `tpu_msm/utils/preprocess.py`
-(the file persistence is not needed here). Generating n independent
+and of its on-curve check of planar points (the file persistence is not
+needed here). Generating n independent
 random points costs n oracle scalar-muls, so k_base true random points
 are tiled to n with fresh random scalars; the MSM result is then
 verifiable in O(k_base) oracle work by linearity:
@@ -81,3 +82,36 @@ def expected_msm(base, hw, curve: CurveParams):
     """Oracle result of the tiled MSM in O(k_base) point work."""
     agg = aggregate_scalars(hw, len(base), curve)
     return ref.msm_pippenger_signed(curve, base, agg, window=8)
+
+
+def validate_planar_points(xs: np.ndarray, ys: np.ndarray,
+                           curve: CurveParams) -> None:
+    """On-curve and in-field check of planar (L, n) coordinate arrays.
+    Costs one bigint check a distinct point: columns are deduplicated
+    first (in chunks of 2^20), so tiled vectors of k_base distinct points
+    cost k_base checks. Raises ValueError naming the first offending
+    point index."""
+    w = curve.log_limb_size
+    n = xs.shape[1]
+    both = np.concatenate([xs, ys], axis=0).astype(np.int32, copy=False)
+    p, b = curve.p, curve.b_coeff
+    seen: set = set()
+    CH = 1 << 20
+    for lo in range(0, n, CH):
+        cols = np.ascontiguousarray(both[:, lo:lo + CH].T)   # (ch, 2L)
+        rec = cols.view(np.dtype((np.void, cols.shape[1] * 4))).ravel()
+        _, uidx = np.unique(rec, return_index=True)
+        for j in sorted(int(u) for u in uidx):
+            key = rec[j].tobytes()
+            if key in seen:
+                continue
+            seen.add(key)
+            i = lo + j
+            x = sum(int(v) << (w * k) for k, v in enumerate(xs[:, i]))
+            y = sum(int(v) << (w * k) for k, v in enumerate(ys[:, i]))
+            if not (0 <= x < p and 0 <= y < p):
+                raise ValueError(
+                    f"point {i}: coordinate out of field range (x={x:#x})")
+            if (y * y - (x * x * x + b)) % p != 0:
+                raise ValueError(f"point {i}: not on curve {curve.name} "
+                                 f"(y^2 != x^3 + b mod p)")
