@@ -127,7 +127,39 @@ Phases, in order; any failure raises and the script exits non-zero:
      BN254_S12 at 2^20 once, EXACT and counted, if 16 times the 2^16
      median stays under TWIN_FULL_BUDGET_S;
  12. the `pbpr_full` edges whose plain versions ran on the CPU;
- 13. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
+ 13. `[autotune]`: `utils/window.autotune` on BN254_S12 at 2^16 (the
+     model's 36 candidates and the static default) and 2^20 (its 24,
+     the static default and SCHEDULE), runs=2, on inputs on the card,
+     into the run's own cache file (main() points the cache's
+     environment variable at a temporary file for the whole run, so no
+     earlier phase reads a tuned schedule): each candidate's median, the
+     winner beside the static default, the sweep's launches counted;
+     `default_config` gives the winner while the cache is set (each
+     winner EXACT through `tpu_variable_base_msm`) and the static
+     schedule once it is not;
+ 14. `[profile]`: in a fresh process (torch.profiler loses the first
+     kernel records of every later session of a process),
+     `utils/profiling.trace` around one 2^16 `tpu_variable_base_msm`
+     (counted, EXACT), whose Chrome trace must name the six kernels of
+     the main path; `device_ms` of `apply_glv` and of `to_affine` alone
+     at 2^16, each with the device time of its kernels read from its own
+     trace, and each trace's launches without a kernel record; then a
+     StageTimer table of pack, window_sums and Horner;
+ 15. `[cpu-msm]`: `host/cpu_msm` built with g++ from native/cpumsm.cpp
+     into the build directory, EXACT against the oracle on BN254_S12 and
+     BLS12_377_S12 at n = 4,096, and `mont_throughput`;
+ 16. `[multipass]`: 2^21 points of gen_planar_inputs(seed=99,
+     k_base=64) under max_points_per_pass = 2^20 (several passes, the
+     side copy stream live), without GLV (2 passes) and with it (4: GLV
+     halves the pass), counted: each EXACT against the oracle and equal
+     to `cpu_msm` on the same points and scalars (u64 words built from
+     the planar limbs);
+ 17. `[service]`: `app/service.serve(port=0, background=True)` on the
+     card: one loopback request at 2^16 on BN254_S12 (counted, EXACT),
+     two clients at once (BN254_S12 and BLS12_377_S12, both EXACT), one
+     off-curve request that must get the error frame; wall times and
+     the server's compute_ms;
+ 18. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
     with all nine kernels (pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; under "profiles" each kernel's
     time, bound, launches and error at each profile of PROFILES; the six
@@ -135,8 +167,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     largest error against the plain version there, padd_batch also its
     halving tree's launches; the five of the twin its launches, time
     and error at each of TWIN_RUNS) and the `[sharded]` and `[twin]`
-    numbers under "sharded" and "twin";
- 14. last line {"ok": true, "device": {...}}.
+    numbers under "sharded" and "twin", those of phases 13 to 17 under
+    their names, and each main-path kernel's launches on their paths;
+ 19. last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -148,10 +181,14 @@ import math
 import multiprocessing
 import os
 import re
+import shutil
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -162,7 +199,10 @@ from torch.distributed.device_mesh import init_device_mesh
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_msm_torch import _build, to_affine  # noqa: E402
-from tpu_msm_torch.config import MSMConfig, default_config  # noqa: E402
+from tpu_msm_torch.app import protocol as app_protocol  # noqa: E402
+from tpu_msm_torch.app import service as app_service  # noqa: E402
+from tpu_msm_torch.config import (MSMConfig, default_config,  # noqa: E402
+                                  static_config)
 from tpu_msm_torch.constants import (BLS12_377_S12,  # noqa: E402
                                      BLS12_377_S13, BN254_S12, BN254_S13,
                                      int_to_limbs)
@@ -172,9 +212,10 @@ from tpu_msm_torch.cuzk import pbpr  # noqa: E402
 from tpu_msm_torch.cuzk import pipeline_cuda  # noqa: E402
 from tpu_msm_torch.cuzk.pipeline import (get_pipeline,  # noqa: E402
                                          tpu_variable_base_msm)
+from tpu_msm_torch.host import cpu_msm  # noqa: E402
 from tpu_msm_torch.parallel import sharded, spawn  # noqa: E402
 from tpu_msm_torch.reference import curve as ref  # noqa: E402
-from tpu_msm_torch.utils import preprocess  # noqa: E402
+from tpu_msm_torch.utils import preprocess, profiling, window  # noqa: E402
 
 CURVE = BN254_S12   # the profile of phases 3 to 8
 SIZES = (16, 20)
@@ -1929,7 +1970,7 @@ def sass_counts(stem: str) -> dict:
     from its object file with cuobjdump -sass. A kernel's listing holds
     the out-of-line functions it calls (padd_batch's msm::mul_wide)."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(_build.BUILD_DIR / f"{stem}.o")],
+    text = subprocess.run([tool, "-sass", str(_build.build_dir() / f"{stem}.o")],
                           capture_output=True, text=True, check=True).stdout
     out, cur = {}, None
     for line in text.splitlines():
@@ -1965,11 +2006,446 @@ def kernel_name(fn: str) -> str:
     raise ValueError(f"no kernel name in {fn}")
 
 
+# ---------------------------------------------------------------------------
+# phases 13 to 17: the host utilities and the service
+# ---------------------------------------------------------------------------
+
+# (log2 n, extra configs beside the model's candidates): the static
+# default at both sizes, SCHEDULE at the larger.
+AUTOTUNE_LOGN = (16, 20)
+AUTOTUNE_RUNS = 2
+PROFILE_LOGN = 16
+# Device kernels of the main path in a torch.profiler trace, by the name
+# each CUDA kernel has there (prefix_scan's scan has three template
+# arguments, pbpr_full's two).
+TRACE_NAMES = {
+    "encode_mont": (r"::encode_kernel\b",),
+    "decompose_digits": (r"::digits_kernel\b",),
+    "prefix_scan": (r"::scan_kernel<\d+, \d+, \d+>",),
+    "col_prefix": (r"::colprefix_kernel\b",),
+    "padd_batch": (r"::padd_kernel\b",),
+    "pbpr_full": (r"::stage1_kernel<\d+, \d+>(\(|$)",
+                  r"::scan_kernel<\d+, \d+>(\(|$)"),
+}
+CPU_MSM_N = 4096
+# The run's temporary directory (main() makes it): the autotune cache, so
+# that no phase reads a schedule tuned before this run, and the traces.
+RUN_TMP = None
+CPU_MSM_CURVES = (BN254_S12, BLS12_377_S12)
+MULTIPASS_LOGN = 21
+MULTIPASS_PASS = 1 << 20
+SERVICE_LOGN = 16
+
+
+def main_launches(label: str) -> dict:
+    """The launch counts since the last reset; fails if a kernel of the
+    main path did not launch."""
+    launches = dict(kernels.LAUNCHES)
+    idle = [k for k in MAIN if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"{label}: kernels not launched: {idle}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def planar_to_words(planar: np.ndarray, w: int, words: int) -> np.ndarray:
+    """(K, n) nonnegative w-bit limbs -> (n, words) little-endian u64
+    words of the same integers (the wire and native layout)."""
+    out = np.zeros((planar.shape[1], words), np.uint64)
+    a = planar.astype(np.uint64)
+    for k in range(planar.shape[0]):
+        j, off = divmod(w * k, 64)
+        if j < words:
+            out[:, j] |= a[k] << np.uint64(off)
+        if off + w > 64 and j + 1 < words:
+            out[:, j + 1] |= a[k] >> np.uint64(64 - off)
+    return out
+
+
+def wire_words(curve, xs, ys, hw):
+    """Planar inputs -> (x, y, scalar) u64 word arrays."""
+    nw, sw = app_protocol.curve_words(curve)
+    w = curve.log_limb_size
+    return (planar_to_words(xs, w, nw), planar_to_words(ys, w, nw),
+            planar_to_words(hw, 16, sw))
+
+
+def autotune_phase(card: str) -> dict:
+    """`window.autotune` on BN254_S12 at each size of AUTOTUNE_LOGN, into
+    the run's own cache file: the model's candidates, the static default
+    and, at the largest size, SCHEDULE. Each sweep counted; then
+    `default_config` gives the winner while the cache is set and the
+    static schedule once it is not, and each winner is EXACT through
+    `tpu_variable_base_msm`."""
+    t0 = time.perf_counter()
+    out = {}
+    for logn in AUTOTUNE_LOGN:
+        n = 1 << logn
+        static = static_config(n, CURVE)
+        configs = window.candidate_configs(n, CURVE) + [static]
+        if logn == max(AUTOTUNE_LOGN):
+            configs.append(MSMConfig(curve=CURVE, **SCHEDULE))
+        kernels.reset_launches()
+        ts = time.perf_counter()
+        best, results = window.autotune(n, CURVE, runs=AUTOTUNE_RUNS,
+                                        configs=configs, device=DEVICE)
+        sweep_s = time.perf_counter() - ts
+        launches = main_launches(f"autotune 2^{logn}")
+        by_cfg = {c: ms for c, ms in results}
+        best_ms, static_ms = by_cfg[best], by_cfg.get(static)
+        if default_config(n, CURVE) != best:
+            raise AssertionError(f"autotune 2^{logn}: default_config does "
+                                 "not read the recorded winner")
+        xs, ys, hw, base, want = inputs(CURVE, logn)
+        points = [base[i % len(base)] for i in range(n)]
+        got = tpu_variable_base_msm(points, preprocess.halfwords_to_ints(hw),
+                                    curve=CURVE, device=DEVICE)
+        if not ref.jac_eq(CURVE, got, want):
+            raise AssertionError(f"autotune 2^{logn}: the winner's MSM "
+                                 "differs from the oracle")
+        name = lambda c: (f"s={c.window_size} C={c.columns} "
+                          f"T={c.pbpr_threads} Wg={c.subtask_group}")
+        print(f"[autotune] {CURVE.name} n=2^{logn}: {len(results)} of "
+              f"{len(configs)} configs timed (runs={AUTOTUNE_RUNS}, median, "
+              f"window_sums on inputs on the card) in {sweep_s:.1f} s; "
+              f"winner {name(best)} {best_ms:.2f} ms, the static default "
+              f"{name(static)} {static_ms:.2f} ms; the winner EXACT through "
+              f"default_config; launches of the sweep={launches} [{card}]",
+              flush=True)
+        out[f"2^{logn}"] = dict(
+            winner={k: getattr(best, k) for k in window._TUNED_FIELDS},
+            winner_ms=best_ms, static_ms=static_ms, sweep_s=sweep_s,
+            launches=launches,
+            results=[dict({k: getattr(c, k) for k in window._TUNED_FIELDS},
+                          ms=ms) for c, ms in results])
+    os.environ[window.CACHE_ENV] = os.path.join(RUN_TMP, "no_cache.json")
+    for logn in AUTOTUNE_LOGN:
+        if default_config(1 << logn, CURVE) != static_config(1 << logn, CURVE):
+            raise AssertionError("autotune: default_config is not the "
+                                 "static schedule without the cache")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[autotune] default_config back on the static schedule without "
+          f"the cache; every phase passed in {out['seconds']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
+def trace_device_ms(path: str) -> tuple:
+    """(kernel ms, kernel names, launches without a kernel record) of a
+    Chrome trace written by `profiling.trace`: the device time of every
+    kernel in it, and how many kernel launches of the host side have no
+    record of their kernel."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ks = [e for e in events if e.get("cat") == "kernel"]
+    have = {e.get("args", {}).get("correlation") for e in ks}
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e.get("name", "")]
+    lost = sum(e.get("args", {}).get("correlation") not in have
+               for e in launches)
+    return (sum(e.get("dur", 0) for e in ks) / 1e3,
+            {e["name"] for e in ks}, lost)
+
+
+def in_fresh_process(fn, *args):
+    """fn(*args) in a spawned process of its own. torch.profiler loses
+    the first kernel records of every session after a process's first
+    (one more each session: measured on the H100 in PR 11), so each
+    traced measurement runs as the first sessions of a new process."""
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(fn, *args).result()
+
+
+def profile_traces(device: str, logdir: str, logn: int) -> dict:
+    """The traced part of [profile], in a fresh process: one
+    tpu_variable_base_msm call (after one untraced call) under
+    `profiling.trace`, counted, EXACT, whose trace must name the six
+    kernels of the main path; then `device_ms` of `apply_glv` and of
+    `to_affine` alone, each with the device time of its kernels from its
+    own trace."""
+    global DEVICE
+    DEVICE = device
+    if device == "cuda":
+        _build.library()
+    n = 1 << logn
+    xs, ys, hw, base, want = inputs(CURVE, logn)
+    points = [base[i % len(base)] for i in range(n)]
+    scalars = preprocess.halfwords_to_ints(hw)
+    tpu_variable_base_msm(points, scalars, curve=CURVE, device=DEVICE)
+    kernels.reset_launches()
+    with profiling.trace(logdir) as path:
+        got = tpu_variable_base_msm(points, scalars, curve=CURVE,
+                                    device=DEVICE)
+    launches = main_launches("profile")
+    if not ref.jac_eq(CURVE, got, want):
+        raise AssertionError("profile: the traced MSM differs from the oracle")
+    kern_ms, names, lost = trace_device_ms(path)
+    missing = [k for k, pats in TRACE_NAMES.items()
+               if not all(any(re.search(p, nm) for nm in names)
+                          for p in pats)]
+    if missing:
+        raise AssertionError(f"profile: the trace names no kernel of "
+                             f"{missing} ({lost} launches without a kernel "
+                             f"record): {sorted(names)}")
+    out = dict(launches=launches, trace_bytes=os.path.getsize(path),
+               kernel_names=len(names), trace_kernel_ms=kern_ms,
+               trace_lost=lost, alone={})
+
+    seen = capture_inputs(CURVE, logn, True)
+    _, gargs, gkw, _ = seen["apply_glv"]
+    del seen
+    hw2 = np.concatenate([hw, np.zeros((2, n), np.uint32)])
+    g = pipeline_cuda.windows_device(
+        *(torch.from_numpy(a.astype(np.int32)).to(DEVICE)
+          for a in (xs, ys, hw2)), config(CURVE, logn, False))
+    for label, fn in (("apply_glv", lambda: glv_dev.apply_glv(*gargs, **gkw)),
+                      ("to_affine", lambda: to_affine(g, CURVE))):
+        wall = profiling.device_ms(fn, runs=3, warmup=1)
+        with profiling.trace(logdir) as path:
+            profiling.block(fn())
+        dev_ms, _, lost = trace_device_ms(path)
+        out["alone"][label] = dict(wall_ms=wall, device_ms=dev_ms,
+                                   trace_lost=lost)
+    return out
+
+
+def profile_phase(card: str) -> dict:
+    """[profile]: `profile_traces` in a fresh process, then a StageTimer
+    of pack, window_sums and Horner here."""
+    t0 = time.perf_counter()
+    logn, n = PROFILE_LOGN, 1 << PROFILE_LOGN
+    logdir = os.path.join(RUN_TMP, "traces")
+    out = in_fresh_process(profile_traces, DEVICE, logdir, logn)
+    shutil.rmtree(logdir)
+    print(f"[profile] n=2^{logn} tpu_variable_base_msm under profiling.trace,"
+          f" in a fresh process: EXACT, {out['trace_bytes']} B of Chrome "
+          f"trace naming the six kernels of the main path "
+          f"({out['kernel_names']} kernel names; {out['trace_lost']} "
+          f"launches without a kernel record), their device time "
+          f"{out['trace_kernel_ms']:.2f} ms; launches={out['launches']} "
+          f"[{card}]", flush=True)
+    for label, a in out["alone"].items():
+        print(f"[profile] {label} alone at n=2^{logn}: device_ms (median of "
+              f"3, wall) {a['wall_ms']:.2f} ms; device time of its kernels "
+              f"in its own trace {a['device_ms']:.3f} ms "
+              f"({100 * a['device_ms'] / a['wall_ms']:.1f} % of the wall "
+              f"time; {a['trace_lost']} launches without a kernel record) "
+              f"[{card}]", flush=True)
+
+    xs, ys, hw, base, want = inputs(CURVE, logn)
+    points = [base[i % len(base)] for i in range(n)]
+    scalars = preprocess.halfwords_to_ints(hw)
+    pipe = get_pipeline(config(CURVE, logn, False), DEVICE)
+    timer = profiling.StageTimer()
+    with timer.span("pack"):
+        packed = pipe.pack(points, scalars)
+    with timer.span("window_sums"):
+        windows = pipe.window_sums(*packed)
+    with timer.span("horner"):
+        acc = pipe.horner(windows)
+    if not ref.jac_eq(CURVE, acc, want):
+        raise AssertionError("profile: the staged MSM differs from the oracle")
+    print(f"[profile] n=2^{logn} StageTimer (host clock; window_sums "
+          f"includes the h2d of the packed inputs) [{card}]:\n"
+          + timer.table(), flush=True)
+    out["stages"] = json.loads(timer.json())
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[profile] every phase passed in {out['seconds']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
+def cpu_msm_phase(card: str) -> dict:
+    """The native CPU MSM built from native/cpumsm.cpp into the build
+    directory, EXACT against the oracle on each of CPU_MSM_CURVES."""
+    t0 = time.perf_counter()
+    lib = cpu_msm.build()
+    build_s = time.perf_counter() - t0
+    out = dict(build_s=build_s, ms={})
+    for curve in CPU_MSM_CURVES:
+        xs, ys, hw, base = preprocess.gen_planar_inputs(curve, CPU_MSM_N,
+                                                        seed=99, k_base=64)
+        want = preprocess.expected_msm(base, hw, curve)
+        ts = time.perf_counter()
+        got = cpu_msm.cpu_msm_words(*wire_words(curve, xs, ys, hw), curve)
+        ms = (time.perf_counter() - ts) * 1e3
+        if not ref.jac_eq(curve, got, want):
+            raise AssertionError(f"cpu-msm {curve.name}: differs from the "
+                                 "oracle")
+        out["ms"][curve.name] = ms
+        print(f"[cpu-msm] {curve.name} n={CPU_MSM_N} cpu_msm EXACT in "
+              f"{ms:.1f} ms ({os.cpu_count()} host cores)", flush=True)
+    out["mont_per_s"] = cpu_msm.mont_throughput()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[cpu-msm] {os.path.basename(lib)} built in {build_s:.1f} s; "
+          f"mont_throughput {out['mont_per_s']:.4g} BN254 Montgomery "
+          f"multiplies a second on one host core; every phase passed in "
+          f"{out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def multipass_phase(card: str) -> dict:
+    """2^MULTIPASS_LOGN points through tpu_variable_base_msm under
+    max_points_per_pass = MULTIPASS_PASS (several passes, the next pass's
+    inputs copied on the side stream), without GLV and with it; each
+    EXACT against the oracle and equal to cpu_msm on the same points and
+    scalars."""
+    t0 = time.perf_counter()
+    logn, n = MULTIPASS_LOGN, 1 << MULTIPASS_LOGN
+    xs, ys, hw, base = preprocess.gen_planar_inputs(CURVE, n, seed=99,
+                                                    k_base=64)
+    want = preprocess.expected_msm(base, hw, CURVE)
+    ts = time.perf_counter()
+    native = cpu_msm.cpu_msm_words(*wire_words(CURVE, xs, ys, hw), CURVE)
+    native_s = time.perf_counter() - ts
+    if not ref.jac_eq(CURVE, native, want):
+        raise AssertionError("multipass: cpu_msm differs from the oracle")
+    points = [base[i % len(base)] for i in range(n)]
+    scalars = preprocess.halfwords_to_ints(hw)
+    out = dict(cpu_msm_s=native_s)
+    for glv in (False, True):
+        cfg = dataclasses.replace(static_config(n, CURVE), glv=glv,
+                                  max_points_per_pass=MULTIPASS_PASS)
+        kernels.reset_launches()
+        ts = time.perf_counter()
+        got = tpu_variable_base_msm(points, scalars, config=cfg,
+                                    device=DEVICE)
+        wall = time.perf_counter() - ts
+        label = f"multipass{' glv' if glv else ''}"
+        launches = main_launches(label)
+        passes = launches["pbpr_full"]
+        expect = -(-n // (MULTIPASS_PASS // (2 if glv else 1)))
+        if passes != expect:
+            raise AssertionError(f"{label}: {passes} passes, expected "
+                                 f"{expect}")
+        if not ref.jac_eq(CURVE, got, want) or \
+                not ref.jac_eq(CURVE, got, native):
+            raise AssertionError(f"{label}: differs from the oracle or "
+                                 "cpu_msm")
+        out[label] = dict(passes=passes, wall_s=wall, launches=launches)
+        print(f"[multipass] {CURVE.name} n=2^{logn} glv={glv} "
+              f"max_points_per_pass={MULTIPASS_PASS}: {passes} passes "
+              f"(pbpr_full launches), EXACT and equal to cpu_msm; "
+              f"tpu_variable_base_msm {wall:.2f} s (host pack included); "
+              f"launches={launches} [{card}]", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[multipass] cpu_msm on the same {n} points {native_s:.2f} s; "
+          f"every phase passed in {out['seconds']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
+def service_request(port: int, curve_id: int, words) -> tuple:
+    """One request over loopback: (reply, wall seconds)."""
+    curve = app_protocol.CURVE_IDS[curve_id]
+    ts = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port)) as sock:
+        app_protocol.send_request(sock, curve_id, *words)
+        res = app_protocol.recv_result(sock, curve)
+    return res, time.perf_counter() - ts
+
+
+def service_phase(card: str) -> dict:
+    """`app.service.serve` on the card, port 0, in this process: one
+    loopback request at 2^SERVICE_LOGN on BN254_S12 (counted), two
+    clients at once (BN254_S12 and BLS12_377_S12), one off-curve request
+    that must get the error frame."""
+    t0 = time.perf_counter()
+    logn = SERVICE_LOGN
+    reqs = []
+    for curve_id in (0, 1):
+        curve = app_protocol.CURVE_IDS[curve_id]
+        xs, ys, hw, _, want = inputs(curve, logn)
+        reqs.append((curve_id, wire_words(curve, xs, ys, hw), want))
+    srv = app_service.serve(port=0, background=True, device=DEVICE)
+    out = {}
+    try:
+        port = srv.server_address[1]
+        curve_id, words, want = reqs[0]
+        kernels.reset_launches()
+        res, wall = service_request(port, curve_id, words)
+        launches = main_launches("service")
+        if not ref.jac_eq(CURVE, (res.x, res.y, res.z), want):
+            raise AssertionError("service: the reply differs from the oracle")
+        out["one"] = dict(wall_s=wall, compute_ms=res.compute_ms,
+                          launches=launches)
+        print(f"[service] {CURVE.name} n=2^{logn} over loopback: EXACT, "
+              f"wall {wall:.3f} s, compute_ms {res.compute_ms:.2f}; "
+              f"launches={launches} [{card}]", flush=True)
+
+        done = {}
+
+        def client(req):
+            done[req[0]] = service_request(port, req[0], req[1])
+
+        threads = [threading.Thread(target=client, args=(r,)) for r in reqs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for curve_id, _, want in reqs:
+            if curve_id not in done:
+                raise AssertionError(f"service: concurrent request on curve "
+                                     f"{curve_id} got no reply")
+            res, wall = done[curve_id]
+            curve = app_protocol.CURVE_IDS[curve_id]
+            if not ref.jac_eq(curve, (res.x, res.y, res.z), want):
+                raise AssertionError(f"service: concurrent {curve.name} "
+                                     "reply differs from the oracle")
+            out[f"concurrent {curve.name}"] = dict(
+                wall_s=wall, compute_ms=res.compute_ms)
+            print(f"[service] two clients at once: {curve.name} n=2^{logn} "
+                  f"EXACT, wall {wall:.3f} s, compute_ms "
+                  f"{res.compute_ms:.2f} [{card}]", flush=True)
+
+        nw, sw = app_protocol.curve_words(CURVE)
+        bad = app_protocol.ints_to_words(
+            [CURVE.gen_x, CURVE.gen_x], nw), app_protocol.ints_to_words(
+            [CURVE.gen_y, CURVE.gen_y + 1], nw), app_protocol.ints_to_words(
+            [3, 5], sw)
+        with socket.create_connection(("127.0.0.1", port)) as sock:
+            app_protocol.send_request(sock, 0, *bad)
+            status, _ = struct.unpack("<Id", app_protocol.recv_exact(sock, 12))
+            (ln,) = struct.unpack("<I", app_protocol.recv_exact(sock, 4))
+            msg = app_protocol.recv_exact(sock, ln).decode()
+        if status != 1 or "point 1 rejected" not in msg:
+            raise AssertionError(f"service: off-curve request answered "
+                                 f"status {status}: {msg!r}")
+        print(f"[service] off-curve request: error frame {msg!r} [{card}]",
+              flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[service] every phase passed in {out['seconds']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
+def host_phases(card: str) -> dict:
+    """Phases 13 to 17."""
+    return {"autotune": autotune_phase(card), "profile": profile_phase(card),
+            "cpu_msm": cpu_msm_phase(card),
+            "multipass": multipass_phase(card),
+            "service": service_phase(card)}
+
+
 def main() -> int:
+    global RUN_TMP
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as RUN_TMP:
+        os.environ[window.CACHE_ENV] = os.path.join(RUN_TMP,
+                                                    "autotune_cache.json")
+        return main_on_card(t_start)
+
+
+def main_on_card(t_start: float) -> int:
+    """Phases 1 and 2, then run_all."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2020,7 +2496,7 @@ def warm_plain(curve) -> None:
 
 
 def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
-    """Phases 3 to 14."""
+    """Phases 3 to 19."""
     warm_plain(CURVE)
     checks = {logn: check_size(logn, card) for logn in SIZES}
     runs = {logn: main_path(CURVE, logn, card) for logn in SIZES}
@@ -2036,6 +2512,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     shard_run = sharded_phase(card)
     twin = twin_phase(card)
     cpu_checks(checks[max(SIZES)]["pbpr_edges"], card)
+    host = host_phases(card)
 
     for logn in SIZES:
         kern_ms = where_line("where", logn, runs[logn][0],
@@ -2120,6 +2597,16 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             entry["max_abs_err_sharded"] = max(
                 r["max_abs_err"] for r in sharded_compares(shard_run)
                 if r["name"] == name)
+        if name in MAIN:
+            # the paths of phases 13 to 17, each counted on its own
+            entry["launches_host_phases"] = {
+                **{f"autotune {k}": v["launches"][name]
+                   for k, v in host["autotune"].items() if k != "seconds"},
+                "profile": host["profile"]["launches"][name],
+                **{k: v["launches"][name]
+                   for k, v in host["multipass"].items()
+                   if isinstance(v, dict)},
+                "service": host["service"]["one"]["launches"][name]}
         if name == "padd_batch":
             # of which the halving tree's
             entry["launches_sharded_tree"] = {
@@ -2199,6 +2686,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                               if f not in ("results", "calls")}
                           for k, r in twin["runs"].items()},
                  "full": twin["full"], "seconds": twin["seconds"]},
+        **host,
         "profiles": {c: dict(
             msm_ms={f"2^{k}": v[1] for k, v in prof["runs"].items()},
             h2d_ms={f"2^{k}": v[2] for k, v in prof["runs"].items()},

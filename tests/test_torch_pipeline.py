@@ -219,15 +219,16 @@ def test_convert_from_jax():
 
 
 def test_import_boundary_no_jax_no_tpu_msm():
+    bad_mods = ("bad = sorted(k for k in sys.modules if k == 'jax' or "
+                "k.startswith(('jax.', 'jaxlib')) or k == 'tpu_msm' or "
+                "k.startswith('tpu_msm.'))\n")
     code = (
         "import importlib, pkgutil, sys\n"
         "import tpu_msm_torch\n"
         "for m in pkgutil.walk_packages(tpu_msm_torch.__path__, "
         "'tpu_msm_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith(('jax.', 'jaxlib')) or k == 'tpu_msm' or "
-        "k.startswith('tpu_msm.'))\n"
+        + bad_mods +
         "n = sum(k.startswith('tpu_msm_torch.') for k in sys.modules)\n"
         "print(n, bad)\n"
         "assert not bad, bad\n")
@@ -235,7 +236,7 @@ def test_import_boundary_no_jax_no_tpu_msm():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, _ = out.stdout.split(" ", 1)
-    assert int(n) >= 18, out.stdout
+    assert int(n) >= 41, out.stdout
     mods = {p.relative_to(REPO).with_suffix("").as_posix().replace("/", ".")
             for p in (REPO / "tpu_msm_torch").rglob("*.py")}
     assert {"tpu_msm_torch.glv", "tpu_msm_torch.cuzk.glv",
@@ -245,7 +246,16 @@ def test_import_boundary_no_jax_no_tpu_msm():
             "tpu_msm_torch.ops.complete", "tpu_msm_torch.ops.field",
             "tpu_msm_torch.ops.mont", "tpu_msm_torch.ops.curve",
             "tpu_msm_torch.cuzk.decompose", "tpu_msm_torch.cuzk.sort",
-            "tpu_msm_torch.cuzk.smvp", "tpu_msm_torch.utils.testing"} <= mods
+            "tpu_msm_torch.cuzk.smvp", "tpu_msm_torch.utils.testing",
+            "tpu_msm_torch.utils.window", "tpu_msm_torch.utils.profiling",
+            "tpu_msm_torch.utils.cache", "tpu_msm_torch.host.cpu_msm",
+            "tpu_msm_torch.app.protocol", "tpu_msm_torch.app.service"} <= mods
+    # chip_smoke.py's imports (its main() runs only as a script)
+    code = "import sys\nimport chip_smoke\n" + bad_mods + \
+        "print(bad)\nassert not bad, bad\n"
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
 
 
 def test_default_device_raises_without_gpu(monkeypatch):

@@ -1,17 +1,23 @@
 """Build and load the CUDA kernels of `csrc/` as one shared library.
 
 `nvcc` compiles each `csrc/*.cu` for `sm_90a` into an object file, all
-sources at once in parallel, and links them into
-`build/tpu_msm_torch/libkernels.so` beside the package; the library has a
-plain C interface and is loaded with `ctypes`. The build runs at first
-use (never at import, so `import tpu_msm_torch` needs no `nvcc`) and runs
-again when a source's content changes: a stamp file records the hash of
-the sources the library was built from.
+sources at once in parallel, and links them into `libkernels.so` in the
+build directory, `build/tpu_msm_torch/` beside the package unless the
+environment variable TPU_MSM_TORCH_BUILD_DIR names another
+(`utils/cache.enable_compile_cache` sets it); the library has a plain C
+interface and is loaded with `ctypes`. The build runs at first use (never
+at import, so `import tpu_msm_torch` needs no `nvcc`) and runs again when
+a source's content changes: a stamp file records the hash of the sources
+the library was built from. Processes that build at once (the ranks of
+`parallel/spawn.py`, test workers) take turns on a file lock in the build
+directory; the one that waited finds the stamp fresh and builds nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -21,8 +27,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpu_msm_torch"
-LIB = BUILD_DIR / "libkernels.so"
+BUILD_DIR_ENV = "TPU_MSM_TORCH_BUILD_DIR"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
+                     / "tpu_msm_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,6 +62,27 @@ build_seconds: float | None = None
 """Wall time of the build this process ran, None if none ran."""
 
 
+def build_dir() -> Path:
+    """The build directory: $TPU_MSM_TORCH_BUILD_DIR, else
+    build/tpu_msm_torch/ beside the package. Read at every call."""
+    return Path(os.environ.get(BUILD_DIR_ENV) or DEFAULT_BUILD_DIR).resolve()
+
+
+@contextlib.contextmanager
+def build_lock():
+    """Hold the build directory's file lock (created with the directory)
+    for the body: one process at a time checks a stamp, compiles and
+    links there."""
+    d = build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    with open(d / "lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield d
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
@@ -79,19 +107,24 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels if the library is missing or stale."""
+    """Compile the kernels if the library is missing or stale; returns
+    its path."""
+    with build_lock() as d:
+        return _build_locked(d)
+
+
+def _build_locked(d: Path) -> Path:
     global build_seconds
-    stamp = BUILD_DIR / "sources.sha256"
+    lib, stamp = d / "libkernels.so", d / "sources.sha256"
     digest = _digest()
-    if LIB.exists() and stamp.exists() and stamp.read_text() == digest:
-        return LIB
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     cu, _ = _sources()
     objs, procs = [], []
     for src in cu:
-        obj = BUILD_DIR / (src.stem + ".o")
+        obj = d / (src.stem + ".o")
         objs.append(obj)
         procs.append((src, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
@@ -100,27 +133,26 @@ def build() -> Path:
     for src, proc in procs:
         out, _ = proc.communicate()
         # what ptxas says of each kernel: registers, stack frame, spills
-        (BUILD_DIR / (src.stem + ".ptxas.txt")).write_text(out)
+        (d / (src.stem + ".ptxas.txt")).write_text(out)
         if proc.returncode != 0:
             errors.append(f"{src.name}:\n{out}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    tmp = BUILD_DIR / "libkernels.so.tmp"
+    tmp = d / "libkernels.so.tmp"
     subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                     *map(str, objs)], check=True, capture_output=True,
                    text=True)
-    os.replace(tmp, LIB)
+    os.replace(tmp, lib)
     stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0
-    return LIB
+    return lib
 
 
 def resources(stem: str) -> list:
     """(entry function, registers, stack frame bytes, spill store bytes,
     spill load bytes) of every kernel of `csrc/<stem>.cu`, from what ptxas
     printed when the library was built."""
-    build()
-    text = (BUILD_DIR / (stem + ".ptxas.txt")).read_text()
+    text = (build().parent / (stem + ".ptxas.txt")).read_text()
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
         r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"

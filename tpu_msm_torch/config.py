@@ -3,9 +3,10 @@
 The port's own `MSMConfig`: the fields of `tpu_msm/config.py` that shape
 the computation (curve, window size, columns, PBPR threads, window group,
 points per pass, GLV, backend), with the same validation, derived
-properties and default schedule. The JAX package's other trace-time
-choices (unroll, dbl_mode, group_loop, the autotune cache) have no
-counterpart here.
+properties and default schedule, which a measured winner of
+`utils/window.autotune` in the port's autotune cache overrides for its
+(card, curve, n). The JAX package's other trace-time choices (unroll,
+dbl_mode, group_loop) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -110,6 +111,17 @@ class MSMConfig:
 
 
 def default_config(n: int, curve: CurveParams = BN254_S12) -> MSMConfig:
+    """The autotuned config for (this CUDA card, curve, n) from the
+    port's autotune cache (`utils/window.cached_config`), else the static
+    schedule: with no card, no cache file or no entry."""
+    from .utils.window import cached_config
+    tuned = cached_config(n, curve)
+    if tuned is not None:
+        return tuned
+    return static_config(n, curve)
+
+
+def static_config(n: int, curve: CurveParams = BN254_S12) -> MSMConfig:
     """Static window/shape schedule by input size (the JAX package's
     schedule, `tpu_msm/config.py:174-194`; not yet retuned for the H100)."""
     if n < (1 << 10):

@@ -1,8 +1,9 @@
 """Benchmark vector generation and the O(k_base) linearity check.
 
-The port's own copy of the generator half of `tpu_msm/utils/preprocess.py`
-and of its on-curve check of planar points (the file persistence is not
-needed here). Generating n independent
+The port's own copy of `tpu_msm/utils/preprocess.py`: the generator, the
+on-curve check of planar points, and the vector files (`vectors/`
+beside the package; the same names and keys as the JAX package's, so
+either package reads the other's files). Generating n independent
 random points costs n oracle scalar-muls, so k_base true random points
 are tiled to n with fresh random scalars; the MSM result is then
 verifiable in O(k_base) oracle work by linearity:
@@ -12,6 +13,7 @@ verifiable in O(k_base) oracle work by linearity:
 
 from __future__ import annotations
 
+import os
 import random
 from typing import List, Tuple
 
@@ -20,6 +22,8 @@ import numpy as np
 from ..constants import CurveParams
 from ..reference import curve as ref
 from .limbs_conversion import points_to_planar
+
+VECTOR_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "vectors")
 
 
 def gen_base_points(curve: CurveParams, k: int, seed: int
@@ -115,3 +119,35 @@ def validate_planar_points(xs: np.ndarray, ys: np.ndarray,
             if (y * y - (x * x * x + b)) % p != 0:
                 raise ValueError(f"point {i}: not on curve {curve.name} "
                                  f"(y^2 != x^3 + b mod p)")
+
+
+# ---- persisted vectors ----
+
+
+def vector_path(curve: CurveParams, n: int, seed: int) -> str:
+    return os.path.join(VECTOR_DIR, f"{curve.name}_{n}x{seed}.npz")
+
+
+def save_vectors(path: str, xs, ys, hw) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, xs=xs, ys=ys, hw=hw)
+
+
+def load_or_gen_vectors(curve: CurveParams, n: int, seed: int = 0,
+                        k_base: int = 64, check: bool = True):
+    """File-backed vectors: generated once, then read back from
+    `vector_path`. Returns (xs, ys, hw, base points). A file's points
+    are checked on the curve (`validate_planar_points`) unless
+    `check=False`, for trusted re-reads; freshly generated vectors are
+    trusted by construction."""
+    path = vector_path(curve, n, seed)
+    base = gen_base_points(curve, min(k_base, n), seed)
+    if os.path.exists(path):
+        with np.load(path) as d:
+            xs, ys, hw = d["xs"], d["ys"], d["hw"]
+        if check:
+            validate_planar_points(xs, ys, curve)
+        return xs, ys, hw, base
+    xs, ys, hw, base = gen_planar_inputs(curve, n, seed, k_base)
+    save_vectors(path, xs, ys, hw)
+    return xs, ys, hw, base
