@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the kernels of tpu_msm_torch/csrc (timed as set-up); print
      what ptxas said of the redesigned kernels at BN254_S12 and at every
      profile of PROFILES (`[ptxas]`: registers, stack frame, spills)
-     and, for the five on the word-wide multiply, their instructions by
+     and, for the seven on the word-wide multiply, their instructions by
      kind from cuobjdump -sass (`[sass]`);
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
      and 2^20 (captured from a warm-up run of the device program, without
@@ -16,10 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the same CUDA inputs, bit-identical, with times from CUDA events
      (a kernel under QUEUE_BELOW_MS back to back is timed again queued
      behind a busy call, which leaves out its wrapper's host cost; both
-     times are printed; the five kernels on the word-wide multiply,
-     `encode_mont`, `padd_batch`, `pdbl_batch`, `pbpr_stage1` and
-     `globalize`, also print their bound by the 12-bit multiply's count,
-     mont_mul_ops, beside their own).
+     times are printed; the seven kernels on the word-wide multiply,
+     `encode_mont`, `prefix_scan`, `col_prefix`, `padd_batch`,
+     `pdbl_batch`, `pbpr_stage1` and `globalize`, also print their bound
+     by the 12-bit multiply's count, mont_mul_ops, beside their own).
      The six kernels of the main path at both configurations, and
      `psub_batch` (the padd kernel negating q on load) against its own
      plain version, `padd_batch` of `pneg_stacked`;
@@ -32,9 +32,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels at shapes the two sizes do not reach (`[edge]`): `col_prefix`
      at (Wg, C) = (1, 1), (3, 32), (4, 2048) with half the columns at
      infinity, equal neighbours and a column followed by its negative,
-     and (16, 8192), more columns than resident threads; `prefix_scan` at
-     R = 1 and at 111 lanes with a point twice in a row and a point
-     followed by its negative, for every number of threads per lane;
+     (5, 64) with int16 limbs at both ends of the ledger, and (16, 8192),
+     more columns than resident lanes; `prefix_scan` at R = 1 and at 111
+     lanes with a point twice in a row and a point followed by its
+     negative (the running sum through infinity and on from it), and at
+     111 lanes with row limbs at both ends of the ledger, for every
+     number of threads per lane and the launcher's pick;
      `padd_batch` and `psub_batch` at F = 1, 37 and 333 with infinity on
      either side, P + P, P + (-P) and int16 limbs at the ends of the
      ledger, and `encode_mont` on 0, 1 and p - 1; `pbpr_stage1` at
@@ -70,9 +73,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      `pbpr_stage1` step and one doubling on a single warp, from which the
      depth floors of `col_prefix`, `prefix_scan`, `pbpr_full`,
      `pbpr_stage1` and `pdbl_batch` on 16 lanes follow;
-     and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes,
-     with four lane counts about the two edges of the launcher's rule,
-     for every number of threads per lane;
+     and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes
+     (LANE_SHAPES), for every number of threads per lane, at BN254_S12
+     here and at PROFILE_FULL in phase 9: what the launcher's rule of
+     threads per lane rests on;
   8. affine output: `to_affine` on the window sums of the 2^16 runs
      (without GLV, and with it, where two pad windows are at infinity)
      against the host decode; then (`[rest]`) one real window_sums +
@@ -86,8 +90,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      gives them, timed against their bounds, the scan for both numbers
      of threads per lane, the reduction and globalisation checks; the
      MSM EXACT at each size, counted and timed; for BLS12_377_S12 also
-     the GLV MSM, to_affine and the [latency] line; a [where] line for
-     each size;
+     the GLV MSM, to_affine, the [latency] line and the [scan-lanes]
+     sweep; a [where] line for each size;
  10. `[sharded]`, the multi-device MSM (`tpu_msm_torch/parallel/sharded.py`)
      on BN254_S12 at 2^20, the same inputs, EXACT against the same
      oracle: (1) `windows_device` at w = 2 and 4 window shards, every
@@ -230,11 +234,13 @@ DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
         "padd_batch", "pbpr_full")
 KERNELS = MAIN + ("pdbl_batch", "pbpr_stage1", "globalize")
-# (Wg, C, R) of the scan's lane sweep. On 132 SMs the launcher's rule
-# changes at 5,280 and 8,448 lanes: two lane counts about each edge and
-# two between them.
-LANE_SHAPES = ((1, 2048, 128), (1, 4096, 128), (1, 5120, 128),
-               (1, 5632, 128), (1, 6656, 128), (1, 7424, 128),
+# (Wg, C, R) of the scan's lane sweep. On 132 SMs a block of G = 6 (20
+# lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
+# second block of G = 2 (64 lanes) above 8,448; the launcher's rule
+# picks G = 2 from 7,921 to 8,448 at L <= 22: lane counts about those
+# edges, the default schedule's 8,192, and SCHEDULE's 131,072.
+LANE_SHAPES = ((1, 2048, 128), (1, 4096, 128), (1, 5632, 128),
+               (1, 7424, 128), (1, 7920, 128), (1, 7936, 128),
                (1, 8192, 128), (1, 8448, 128), (1, 8704, 128),
                (2, 8192, 64), (16, 8192, 16))
 # A schedule for the largest size that the card's memory allows and the
@@ -294,8 +300,8 @@ def mul_wide_mads(L: int, w: int) -> int:
 
 # The kernels whose Montgomery multiply is the word-wide one: their
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
-WIDE = ("encode_mont", "padd_batch", "pdbl_batch", "pbpr_stage1",
-        "globalize")
+WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
+        "pdbl_batch", "pbpr_stage1", "globalize")
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -623,14 +629,9 @@ def wide_edges(seen: dict, card: str) -> None:
     q[..., 3] = p[..., 3]                             # P + P
     q[..., 4] = kernels.pneg_stacked(p[..., 4], CURVE)  # P + (-P)
     cases["F=37 infinity, P+P, P+(-P)"] = (p, q)
-    ends = torch.tensor([-(1 << w) + 1, (1 << (w + 1)) - 1],
-                        dtype=torch.int32, device=DEVICE)
     p, q = pts[..., pick(333)].clone(), pts[..., pick(333)].clone()
     for t in (p, q):
-        at = torch.from_numpy(rng.random(t.shape) < 0.3).to(DEVICE)
-        at[:, L - 1] = False                          # top limbs stay small
-        t[at] = ends[torch.from_numpy(rng.integers(0, 2, int(at.sum()))
-                                      ).to(DEVICE)]
+        ledger_ends(t, rng, CURVE, 1)
     cases["F=333 limbs at the ledger's ends"] = (p, q)
     n = 0
     for label, (p, q) in cases.items():
@@ -651,49 +652,86 @@ def wide_edges(seen: dict, card: str) -> None:
           f"limbs of 0, 1 and p - 1 [{card}]", flush=True)
 
 
+def ledger_ends(t: torch.Tensor, rng, curve, top_axis: int) -> None:
+    """Set three in ten of t's limbs, in place, to the ends of the
+    (-2^w, 2^(w+1)) ledger, -2^w + 1 and 2^(w+1) - 1, the top limb
+    (index L - 1 along `top_axis`) left as it is."""
+    w, L = curve.log_limb_size, curve.num_limbs
+    ends = torch.tensor([-(1 << w) + 1, (1 << (w + 1)) - 1], dtype=t.dtype,
+                        device=t.device)
+    at = torch.from_numpy(rng.random(t.shape) < 0.3).to(t.device)
+    at.select(top_axis, L - 1).fill_(False)           # top limbs stay small
+    t[at] = ends[torch.from_numpy(rng.integers(0, 2, int(at.sum()))).to(
+        t.device)]
+
+
+# (Wg, C) of col_prefix's [edge] shapes: one column; a window of the
+# latency's width at Wg = 3; the 2^16 shape; (5, 64) with limbs at the
+# ledger's ends; (16, 8192), the SCHEDULE shape, more columns than
+# resident lanes.
+COL_EDGES = ((1, 1), (3, 32), (4, 2048), (5, 64), (16, 8192))
+COL_ENDS = (5, 64)
+
+
 def edge_shapes(seen: dict, card: str) -> None:
-    """Both redesigned kernels against their plain versions at shapes the
-    two sizes do not reach, on the real points of the captured run."""
-    L = CURVE.num_limbs
+    """Both kernels of stage 3 against their plain versions at shapes
+    and values the two sizes do not reach, on the real points of the
+    captured run."""
     coltot = seen["col_prefix"][1][0]                  # (3, L, Wg, C)
     rng = np.random.default_rng(7)
     inf = kernels.inf_stacked(CURVE, (), DEVICE).to(torch.int16)
-    done = []
-    for Wg, C in ((1, 1), (3, 32), (4, 2048), (16, 8192)):
+    done, most = [], 0
+    for Wg, C in COL_EDGES:
         reps = (1, 1, -(-Wg // coltot.shape[2]), -(-C // coltot.shape[3]))
         ct = coltot.repeat(*reps)[:, :, :Wg, :C].contiguous()
-        if C >= 8:
+        if (Wg, C) == COL_ENDS:
+            ledger_ends(ct, rng, CURVE, 1)
+        elif C >= 8:
             at_inf = torch.from_numpy(rng.random((Wg, C)) < 0.5).to(DEVICE)
             ct = torch.where(at_inf, inf[:, :, None, None], ct)
             ct[..., 3] = ct[..., 2]                    # the add is a doubling
             ct[..., 5] = kernels.pneg_stacked(ct[..., 4], CURVE)  # sum: inf
         same_as_plain(f"col_prefix {(Wg, C)}", "col_prefix", (ct, CURVE))
-        blocks, per = kernels.LAUNCHED["col_prefix"].values()
+        geo = dict(kernels.LAUNCHED["col_prefix"])
+        most = max(most, geo["columns_per_lane"])
         ms = cuda_ms(lambda: kernels.col_prefix(ct, CURVE), 3)
-        done.append(f"{(Wg, C)} {blocks} blocks x {per} columns a thread "
+        ends = " limbs at the ledger's ends" if (Wg, C) == COL_ENDS else ""
+        done.append(f"{(Wg, C)}{ends} {geo['blocks']} blocks x "
+                    f"{geo['lanes_per_block']} "
+                    f"lanes x {geo['columns_per_lane']} columns a lane "
                     f"{ms:.4f} ms")
-    if per < 2:
+    if most < 2:
         raise AssertionError("[edge] col_prefix: no shape with more columns "
-                             "than resident threads")
+                             "than resident lanes")
     print("[edge] col_prefix bit-identical to its plain version at "
           + "; ".join(done) + f" [{card}]", flush=True)
 
     table = seen["prefix_scan"][1][0]                  # (n, 2L)
     done = []
-    for Wg, C, R in ((1, 32, 1), (3, 37, 5)):
+    for Wg, C, R, ends in ((1, 32, 1, False), (3, 37, 5, False),
+                           (3, 37, 5, True)):
         n = C * R
         pay = np.stack([(rng.integers(0, table.shape[0], n) << 1)
                         | rng.integers(0, 2, n) for _ in range(Wg)])
-        if R >= 4:
+        if R >= 5:
+            # lane 0 of each window: a, a (P + P), -a (back to a), -a
+            # (P + (-P): infinity), a (infinity + P)
             a = pay[:, 0] & ~1
-            pay[:, 1], pay[:, 2], pay[:, 3] = a, a | 1, a | 1  # 2a, a, inf
+            pay[:, 0], pay[:, 1] = a, a
+            pay[:, 2], pay[:, 3], pay[:, 4] = a | 1, a | 1, a
         pay = torch.from_numpy(pay.astype(np.int32)).to(DEVICE)
+        tab = table
+        if ends:
+            tab = table.clone()
+            ledger_ends(tab.view(-1, 2, CURVE.num_limbs), rng, CURVE, 2)
         for G in (None,) + kernels.SCAN_THREADS_PER_LANE:
             same_as_plain(f"prefix_scan {(Wg, C, R)} G={G}", "prefix_scan",
-                          (table, pay, CURVE, C), dict(_threads_per_lane=G))
-        done.append(f"(Wg, C, R) = {(Wg, C, R)}")
+                          (tab, pay, CURVE, C), dict(_threads_per_lane=G))
+        done.append(f"(Wg, C, R) = {(Wg, C, R)}"
+                    + (" with row limbs at the ledger's ends" if ends else ""))
     print("[edge] prefix_scan bit-identical to its plain version at "
-          + ", ".join(done) + ", each with "
+          + ", ".join(done) + "; a lane of each window through P + P, "
+          "P + (-P) = infinity and infinity + P; each with "
           f"{kernels.SCAN_THREADS_PER_LANE} threads per lane and with the "
           f"launcher's pick [{card}]", flush=True)
 
@@ -709,21 +747,16 @@ def pdbl_edges(seen: dict, card: str) -> None:
     points of the captured run (the stage-3 sums G), on all-infinity
     lanes, and on 333 lanes whose limbs lie, three in ten, at the ends of
     the (-2^12, 2^13) ledger."""
-    L, w = CURVE.num_limbs, CURVE.log_limb_size
+    L = CURVE.num_limbs
     pts = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
     pts = pts.reshape(3, L, -1)
     rng = np.random.default_rng(9)
     cases = {f"F={F}": pts[..., :F].contiguous() for F in PDBL_EDGES}
     cases["F=16 all at infinity"] = kernels.inf_stacked(CURVE, (16,),
                                                         DEVICE)
-    ends = torch.tensor([-(1 << w) + 1, (1 << (w + 1)) - 1],
-                        dtype=torch.int32, device=DEVICE)
     p = pts[..., torch.from_numpy(rng.integers(0, pts.shape[2], 333)).to(
         DEVICE)].clone()
-    at = torch.from_numpy(rng.random(p.shape) < 0.3).to(DEVICE)
-    at[:, L - 1] = False                              # top limbs stay small
-    p[at] = ends[torch.from_numpy(rng.integers(0, 2, int(at.sum()))).to(
-        DEVICE)]
+    ledger_ends(p, rng, CURVE, 1)
     cases["F=333 limbs at the ledger's ends"] = p
     geos = []
     for label, p in cases.items():
@@ -965,28 +998,29 @@ def rest_line(logn: int, rest: dict, outside: float, card: str) -> None:
           flush=True)
 
 
-def lane_sweep(card: str) -> dict:
+def lane_sweep(curve, card: str) -> dict:
     """`prefix_scan` over 2^18 to 2^21 stream elements at lane counts from
     a quarter of the default schedule's to sixteen times it, for every
     number of threads per lane: what the launcher's rule rests on."""
-    L = CURVE.num_limbs
+    L = curve.num_limbs
     rng = np.random.default_rng(13)
     out = {}
     for Wg, C, R in LANE_SHAPES:
         n = C * R
         table = torch.from_numpy(rng.integers(
-            0, 1 << CURVE.log_limb_size, (n, 2 * L)).astype(np.int16)
+            0, 1 << curve.log_limb_size, (n, 2 * L)).astype(np.int16)
             ).to(DEVICE)
         pay = torch.from_numpy(np.stack(
             [rng.permutation(n) << 1 for _ in range(Wg)]).astype(np.int32)
             ).to(DEVICE)
-        kernels.prefix_scan(table, pay, CURVE, C)
+        kernels.prefix_scan(table, pay, curve, C)
         picked = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
         ms = {G: cuda_ms(lambda: kernels.prefix_scan(
-            table, pay, CURVE, C, _threads_per_lane=G), 5)
+            table, pay, curve, C, _threads_per_lane=G), 5)
             for G in kernels.SCAN_THREADS_PER_LANE}
         out[Wg * C] = dict(R=R, ms=ms, picked=picked)
-        print(f"[scan-lanes] lanes={Wg * C} R={R}: ms by threads per lane "
+        print(f"[scan-lanes] {curve.name} lanes={Wg * C} R={R}: ms by "
+              "threads per lane "
               + ", ".join(f"{G}: {t:.4f}" for G, t in ms.items())
               + f"; the wrapper launched {picked} [{card}]", flush=True)
     return out
@@ -1298,14 +1332,16 @@ def schedule_run(card: str):
     kernels.LAUNCHED.clear()
     ms, h2d = timed_runs(cfg, logn, "schedule", card)
     G = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
-    blocks, per = kernels.LAUNCHED["col_prefix"].values()
+    col = kernels.LAUNCHED["col_prefix"]
     used = {k: v // 3 for k, v in kernels.LAUNCHES.items() if v}
     idle = [k for k in MAIN if k not in used]
     if idle:
         raise AssertionError(f"schedule: kernels not launched: {idle}")
     print(f"[schedule] n=2^{logn} {SCHEDULE}: {lanes} scan lanes with {G} "
-          f"thread(s) a lane, col_prefix {blocks} blocks x {per} columns a "
-          f"thread; median {ms:.2f} ms; launches a run={used} [{card}]",
+          f"thread(s) a lane, col_prefix {col['blocks']} blocks x "
+          f"{col['lanes_per_block']} lanes x {col['columns_per_lane']} "
+          f"columns a lane; median {ms:.2f} ms; launches a run={used} "
+          f"[{card}]",
           flush=True)
     return ms, used
 
@@ -1387,6 +1423,7 @@ def run_profile(curve, sizes, card: str) -> dict:
         out["glv"] = main_path(curve, small, card, glv=True)
         out["affine_ms"] = affine_check(curve, small, card, glv=False)
         out["latency"] = latency(curve, card, runs[max(sizes)][3])
+        out["scan_by_lanes"] = lane_sweep(curve, card)
     for logn in sizes:
         where_line("where", logn, runs[logn][0], checked[logn],
                    runs[logn][1], card, f" ({curve.name})")
@@ -2504,7 +2541,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                 for logn in SIZES}
     sched_ms, sched_launches = schedule_run(card)
     lat = latency(CURVE, card, runs[max(SIZES)][3])
-    lanes_ms = lane_sweep(card)
+    lanes_ms = lane_sweep(CURVE, card)
     affine_ms = affine_check(CURVE, min(SIZES), card, glv=False)
     affine_check(CURVE, min(SIZES), card, glv=True)
     rests = {logn: rest_split(logn) for logn in SIZES}
@@ -2692,6 +2729,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             h2d_ms={f"2^{k}": v[2] for k, v in prof["runs"].items()},
             msm_glv_ms=prof["glv"][1] if "glv" in prof else None,
             to_affine_ms=prof.get("affine_ms"),
+            scan_by_lanes=prof.get("scan_by_lanes"),
             bucket_reduce_ms={f"2^{k}": v["reduce_ms"]
                               for k, v in prof["nine"].items()},
             seconds=prof["seconds"]) for c, prof in profiles.items()},

@@ -11,7 +11,8 @@ by its negative (the running sum passes through infinity); `prefix_scan`
 at R = 1, with the same point twice in a row and a point followed by its
 negative in one lane. And the two launch geometries, which are pure
 functions: every column and lane covered exactly once, never more blocks
-than the card can hold resident."""
+than the card can hold resident (col_prefix: a column a lane of six
+threads, tests/test_torch_scan_wide.py holds the rest)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -274,18 +275,20 @@ def test_prefix_scan_threads_per_lane_is_a_launch_choice():
     (16, 8192, 132, 1, 64), (5, 8192, 7, 3, 64), (3, 4, 1, 1, 32)])
 def test_col_prefix_geometry_covers_every_column_once(Wg, C, sms, per_sm,
                                                       threads):
-    blocks, per = tk.col_prefix_geometry(Wg, C, sms, per_sm, threads)
-    total, nthreads = Wg * C, blocks * threads
+    geo = tk.col_prefix_geometry(Wg, C, sms, per_sm, threads)
+    blocks, per = geo.blocks, geo.columns_per_lane
+    total, nlanes = Wg * C, blocks * geo.lanes_per_block
     assert 1 <= blocks <= sms * per_sm
-    # thread t walks columns t, t + nthreads, ... below total (the kernel's
-    # loop): each column once, the busiest thread `per` columns
-    owner = np.concatenate([np.arange(tid, total, nthreads)
-                            for tid in range(nthreads)])
+    assert geo.lanes_per_block == (threads // 32) * (32 // 6)
+    # lane l of the grid walks columns l, l + nlanes, ... below total (the
+    # kernel's loop): each column once, the busiest lane `per` columns
+    owner = np.concatenate([np.arange(lane, total, nlanes)
+                            for lane in range(nlanes)])
     assert np.array_equal(np.sort(owner), np.arange(total))
-    assert per == max(len(range(tid, total, nthreads))
-                      for tid in range(min(nthreads, total)))
+    assert per == max(len(range(lane, total, nlanes))
+                      for lane in range(min(nlanes, total)))
     # no block is idle unless the card has more room than columns
-    assert (blocks - 1) * threads < total
+    assert (blocks - 1) * geo.lanes_per_block < total
 
 
 def test_col_prefix_geometry_refuses_no_resident_block():
@@ -295,7 +298,8 @@ def test_col_prefix_geometry_refuses_no_resident_block():
 
 @pytest.mark.parametrize("lanes,sms,want_G", [
     (32, 132, 6), (111, 132, 6), (2048, 132, 6), (4096, 132, 6),
-    (5280, 132, 6), (5285, 132, 2), (8192, 132, 2), (8448, 132, 2),
+    (5280, 132, 6), (5285, 132, 6), (7920, 132, 6), (7921, 132, 2),
+    (8192, 132, 2), (8448, 132, 2),
     (8449, 132, 6), (16384, 132, 6), (131072, 132, 6), (8192, 66, 6),
     (1, 1, 6)])
 def test_prefix_scan_geometry_rule_and_cover(lanes, sms, want_G):
@@ -324,16 +328,17 @@ def test_prefix_scan_geometry_takes_a_named_G(G, lanes):
 
 
 @pytest.mark.parametrize("L,G,piece,shared", [
-    (22, 2, 8, 64 * (8 * 22 + 8 + 4 * 419)),
-    (22, 6, 8, 20 * (8 * 22 + 8 + 4 * 419)),
+    (22, 2, 8, 64 * (8 * 22 + 8 + 4 * 437)),
+    (22, 6, 8, 20 * (8 * 22 + 8 + 4 * 437)),
     (21, 2, 4, 64 * (8 * 21 + 8 + 4 * 399)),
     (21, 6, 4, 20 * (8 * 21 + 8 + 4 * 399)),
-    (32, 2, 8, 172_800), (30, 2, 8, 64 * (8 * 30 + 8 + 4 * 571)),
-    (6, 6, 8, 20 * (8 * 6 + 8 + 4 * 115))])
+    (32, 2, 8, 177_408), (30, 2, 8, 64 * (8 * 30 + 8 + 4 * 589)),
+    (6, 6, 8, 20 * (8 * 6 + 8 + 4 * 133))])
 def test_prefix_scan_smem_pieces_and_bytes(L, G, piece, shared):
     """A row of 2 L int16 is copied in 8-byte pieces where L is even and
     in 4-byte pieces where it is odd, a whole number either way; the
-    block's bytes (rows and payloads twice, the lanes' states) fit the
+    block's bytes (rows and payloads twice, the lanes' states of 19
+    segments of L | 1 words, the whole padded to an odd count) fit the
     227 KB a block can have at every profile of the library. (On the
     card the launch refuses a count other than its kernel's own.)"""
     got = tk.prefix_scan_smem(L, G)

@@ -4,20 +4,26 @@
 // folds in the row gather and relayout that pipeline_pallas.py runs
 // around it (`group_body`, :265-274).
 // Bound on the H100: operations in total (one complete mixed add, 12
-// Montgomery multiplies of about 2 L^2 int32 multiply-adds each, per
-// stream element, against 4 L bytes of gathered row and 6 L bytes of
-// int16 output), but depth at the shapes the MSM gives it: each lane is
-// a chain of R dependent adds, and the schedule's F = Wg * C lanes (8192)
-// are 256 warps on a card with 528 warp schedulers.
+// word-wide Montgomery multiplies of mul_wide.cuh, 315 int32 multiply
+// and multiply-add halves each at L = 22, per stream element, against
+// 4 L bytes of gathered row and 6 L bytes of int16 output), but depth at
+// the shapes the MSM gives it: each lane is a chain of R dependent adds,
+// and the schedule's F = Wg * C lanes (8192) are 512 warps at G = 2, one
+// a warp scheduler, each step on its lone-warp floor; at G = 6 they are
+// 1,639 warps, up to four a scheduler, whose products' issue is longer
+// (PERF.md).
 // Design: G threads of one warp per lane f = (w mod Wg) * C + c; the lane
 // walks the R rows of its column. The 12 multiplies of the mixed add
 // fall into two levels of six that do not depend on each other. The
-// lane's state (running point, row, operands and products, 19 L words)
+// lane's state (running point, row, operands and products, 19 segments)
 // lives in shared memory; thread g computes products g, g + G, ... of a
-// level with Field::mul on pointers into it, and limbs g, g + G, ... of
-// every add between the levels, with a warp barrier after each phase.
-// Each product is the same Field::mul on the same operands in the same
-// order as Field::pmadd, so the result is bit-identical whatever G is.
+// level with msm::mul_wide (out of line, the word constants in shared
+// memory) on pointers into it, and limbs g, g + G, ... of every add
+// between the levels, with a warp barrier after each phase. Each
+// product takes the operands of Field::pmadd in the same order, and
+// mul_wide is Field::mul bit for bit on every pair of operands, so the
+// result is bit-identical to Field::pmadd (ops/rows.py pmadd_rows)
+// whatever G is.
 // State in shared memory also keeps the threads' stack frames empty: with
 // the state copied into every thread (an earlier form of this kernel)
 // more than four warps an SM overflowed the L1 with local memory and
@@ -25,11 +31,18 @@
 // 700 W; PERF.md has the times). The kernel is built for G = 2 and
 // G = 6. G = 1 (Field::pmadd on a point in the thread, the
 // one-thread-a-lane kernel this replaces, with the gather ahead) and
-// G = 3 were built and timed too, were the fastest at no lane count, and
-// were taken out; PERF.md keeps their times.
+// G = 3 were built and timed too on the 12-bit multiply, were the
+// fastest at no lane count, and were taken out; G = 3 again on the
+// word-wide one, fastest only at BN254_S13 on 131,072 lanes (by 3 %),
+// and taken out again; PERF.md keeps their times.
 // The launcher takes G from the wrapper, which picks it from the lane
-// count and the SM count (cuzk/kernels.py `prefix_scan_geometry`). With
-// G = 6 a warp holds 5 lanes and its last two threads exit at once.
+// count, the SM count and L (cuzk/kernels.py `prefix_scan_geometry`).
+// With G = 6 a warp holds 5 lanes and its last two threads exit at once.
+// The lane's words are 19 segments of L | 1 words, an odd count, so the
+// threads of a lane that touch the same limb of different segments hit
+// different banks: with segments of L = 32 words (BLS12_377_S12) all
+// six threads of a G = 6 lane hit one bank, and the scan ran 1.5 times
+// as long at 8,192 lanes (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 // The gather runs ahead of the arithmetic: the 4 L-byte row of step r + 1
 // and the payload of step r + 2 are copied to shared memory by cp.async
 // (pieces shared out among the lane's threads: 8 bytes where L is even,
@@ -42,9 +55,10 @@
 // mixed add, T written as int16. Layouts (see cuzk/pipeline_cuda.py):
 //   rows (n, 2L) int16, aligned to the piece; pay (Wg, n) int32;
 //   out (3, L, R, Wg * C) int16.
+#include <cstring>
 #include <type_traits>
 
-#include "field.cuh"
+#include "mul_wide.cuh"
 
 namespace {
 
@@ -69,15 +83,20 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // A lane's words of shared memory, which its G threads share: the
 // running point, the row of this step, and the operands and products of
-// the two levels of multiplies. Offsets in int32 words.
+// the two levels of multiplies, 19 segments of L limbs. Offsets in int32
+// words. A segment takes S = L | 1 words, an odd count, so the G
+// threads of a lane, which read and write different segments at the
+// same limb, fall on different banks (with S = L = 32, BLS12_377_S12's,
+// all six on one), and the lane stride is odd too.
 template <int L>
 struct LaneMem {
-  static constexpr int X1 = 0, Y1 = L, Z1 = 2 * L;      // running point
-  static constexpr int X2 = 3 * L, Y2 = 4 * L;          // row, sign applied
-  static constexpr int U = 5 * L, V = 6 * L;            // x1 + y1, x2 + y2
-  static constexpr int P = 7 * L;                       // six products
-  static constexpr int T = 13 * L;                      // t3 t4 t1 yz z3 t0
-  static constexpr int WORDS = 19 * L;
+  static constexpr int S = L | 1;                       // segment
+  static constexpr int X1 = 0, Y1 = S, Z1 = 2 * S;      // running point
+  static constexpr int X2 = 3 * S, Y2 = 4 * S;          // row, sign applied
+  static constexpr int U = 5 * S, V = 6 * S;            // x1 + y1, x2 + y2
+  static constexpr int P = 7 * S;                       // six products
+  static constexpr int T = 13 * S;                      // t3 t4 t1 yz z3 t0
+  static constexpr int WORDS = 19 * S;
   static constexpr int STRIDE = WORDS | 1;   // odd: lanes on distinct banks
 };
 
@@ -121,47 +140,51 @@ __device__ __forceinline__ int level2_b(int j) {
 }
 
 // One step of a lane that G threads share: Field::pmadd on the lane's
-// shared memory `m`, the six multiplies of each level and the limbs of
-// every add shared out among the threads. Ends with the new point in m
-// and its int16 limbs stored to `o` (element k at o[k * stride]); the
-// caller synchronises the warp before the next step reads m.
+// shared memory `m`, the six word-wide multiplies of each level and the
+// limbs of every add shared out among the threads. Ends with the new
+// point in m and its int16 limbs stored to `o` (element k at
+// o[k * stride]); the caller synchronises the warp before the next step
+// reads m.
 template <int L, int W, int G>
 __device__ __forceinline__ void pmadd_shared(int32_t* m, int g, unsigned mask,
                                              int16_t* o, int64_t stride,
-                                             const msm::Consts<L>& K) {
-  using F = msm::Field<L, W>;
+                                             const msm::Consts<L>& K,
+                                             const msm::WideConsts<L, W>& KW) {
   using M = LaneMem<L>;
+  constexpr int S = M::S;
 #pragma unroll
   for (int k = 0; k < 6 / G; k++) {
     const int j = g + k * G;
-    F::mul(m + level1_a<L>(j), j == 5 ? K.b3m : m + level1_b<L>(j),
-           m + M::P + j * L, K);
+    msm::mul_wide<L, W>(m + level1_a<L>(j),
+                        j == 5 ? K.b3m : m + level1_b<L>(j),
+                        m + M::P + j * S, KW);
   }
   __syncwarp(mask);
   for (int i = g; i < L; i += G) {
     const int32_t* P = m + M::P + i;
-    const int32_t m0 = P[0], m1 = P[L], m2 = P[2 * L];
-    const int32_t m3 = P[3 * L], m4 = P[4 * L], m5 = P[5 * L];
+    const int32_t m0 = P[0], m1 = P[S], m2 = P[2 * S];
+    const int32_t m3 = P[3 * S], m4 = P[4 * S], m5 = P[5 * S];
     int32_t* T = m + M::T + i;
     T[0] = m2 - (m0 + m1) + K.kp4[i];               // t3
-    T[L] = m3 + m[M::Y1 + i];                       // t4
-    T[2 * L] = m1 - m5 + K.kp2[i];                  // t1
-    T[3 * L] = (m4 + m[M::X1 + i]) * K.b3;          // yz
-    T[4 * L] = m1 + m5;                             // z3
-    T[5 * L] = m0 * 3;                              // t0
+    T[S] = m3 + m[M::Y1 + i];                       // t4
+    T[2 * S] = m1 - m5 + K.kp2[i];                  // t1
+    T[3 * S] = (m4 + m[M::X1 + i]) * K.b3;          // yz
+    T[4 * S] = m1 + m5;                             // z3
+    T[5 * S] = m0 * 3;                              // t0
   }
   __syncwarp(mask);
 #pragma unroll
   for (int k = 0; k < 6 / G; k++) {
     const int j = g + k * G;
-    F::mul(m + M::T + j * L, m + M::T + level2_b(j) * L, m + M::P + j * L, K);
+    msm::mul_wide<L, W>(m + M::T + j * S, m + M::T + level2_b(j) * S,
+                        m + M::P + j * S, KW);
   }
   __syncwarp(mask);
   for (int i = g; i < L; i += G) {
     const int32_t* P = m + M::P + i;
-    const int32_t x3 = P[0] - P[L] + K.kp2[i];
-    const int32_t y3 = P[2 * L] + P[3 * L];
-    const int32_t z3 = P[4 * L] + P[5 * L];
+    const int32_t x3 = P[0] - P[S] + K.kp2[i];
+    const int32_t y3 = P[2 * S] + P[3 * S];
+    const int32_t z3 = P[4 * S] + P[5 * S];
     m[M::X1 + i] = x3;
     m[M::Y1 + i] = y3;
     m[M::Z1 + i] = z3;
@@ -195,7 +218,7 @@ template <int L, int W, int G>
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const int16_t* __restrict__ rows, const int32_t* __restrict__ pay,
             int16_t* __restrict__ out, int Wg, int C, int R, int64_t n,
-            const int32_t* __restrict__ kc) {
+            const int32_t* __restrict__ kc, const msm::WideConsts<L, W> KW) {
   static_assert(G == 2 || G == 6, "built for 2 or 6 threads a lane");
   constexpr int LPW = 32 / G;          // lanes a warp
   constexpr int LPB = kWarps * LPW;    // lanes a block
@@ -203,12 +226,14 @@ scan_kernel(const int16_t* __restrict__ rows, const int32_t* __restrict__ pay,
   constexpr int Q = RowPiece<L>::Q;    // pieces a row
   using M = LaneMem<L>;
   __shared__ msm::Consts<L> K;
+  __shared__ msm::WideConsts<L, W> KWs;
   extern __shared__ int2 dyn[];        // 8-byte aligned
   Piece* rowbuf = reinterpret_cast<Piece*>(dyn);          // [2][LPB][Q]
   // [2][LPB] payloads after the rows
   int32_t* paybuf = reinterpret_cast<int32_t*>(rowbuf + 2 * LPB * Q);
   int32_t* lanes = paybuf + 2 * LPB;                      // [LPB][STRIDE]
-  msm::load_consts<L>(K, kc);
+  if (threadIdx.x == 0) KWs = KW;
+  msm::load_consts<L>(K, kc);          // ends in __syncthreads
   const int warp = threadIdx.x >> 5;
   const int lw = (threadIdx.x & 31) / G;   // lane within the warp
   const int g = (threadIdx.x & 31) % G;    // thread within the lane
@@ -257,14 +282,16 @@ scan_kernel(const int16_t* __restrict__ rows, const int32_t* __restrict__ pay,
         cp_async(&paybuf[(r & 1) * LPB + slot], p + r + 2);
     }
     __syncwarp(mask);
-    pmadd_shared<L, W, G>(m, g, mask, out + (int64_t)r * F + f, stride, K);
+    pmadd_shared<L, W, G>(m, g, mask, out + (int64_t)r * F + f, stride, K,
+                          KWs);
   }
 }
 
 template <int L, int W, int G>
 int launch(const int16_t* rows, const int32_t* pay, int16_t* out, int Wg,
            int C, int R, int64_t n, int64_t shared_bytes,
-           const int32_t* consts, cudaStream_t stream) {
+           const int32_t* consts, const msm::WideConsts<L, W>& KW,
+           cudaStream_t stream) {
   // G = 2 keeps 64 lanes a block: above the 48 KB a kernel gets unasked
   constexpr size_t smem = scan_smem_bytes<L, G>();
   // the caller's reckoning (cuzk/kernels.py prefix_scan_smem) must agree
@@ -278,27 +305,30 @@ int launch(const int16_t* rows, const int32_t* pay, int16_t* out, int Wg,
   const int64_t F = (int64_t)Wg * C;
   const unsigned blocks = static_cast<unsigned>((F + lanes - 1) / lanes);
   scan_kernel<L, W, G><<<blocks, kThreads, smem, stream>>>(
-      rows, pay, out, Wg, C, R, n, consts);
+      rows, pay, out, Wg, C, R, n, consts, KW);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // threads_per_lane: G, 2 or 6; any other value is refused, as is a
-// shared_bytes other than the block's scan_smem_bytes<L, G>.
+// shared_bytes other than the block's scan_smem_bytes<L, G>; wide: host
+// memory, the words of msm::WideConsts<L, W>.
 extern "C" int msm_prefix_scan(int num_limbs, int limb_bits, const int16_t* rows,
                                const int32_t* pay, int16_t* out, int Wg, int C,
                                int R, int64_t n, int threads_per_lane,
                                int64_t shared_bytes, const int32_t* consts,
-                               void* stream) {
+                               const uint32_t* wide, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   MSM_DISPATCH_PROFILE(num_limbs, limb_bits, {
+    msm::WideConsts<L, W> KW;
+    std::memcpy(&KW, wide, sizeof(KW));
     if (threads_per_lane == 2)
       return launch<L, W, 2>(rows, pay, out, Wg, C, R, n, shared_bytes,
-                             consts, s);
+                             consts, KW, s);
     if (threads_per_lane == 6)
       return launch<L, W, 6>(rows, pay, out, Wg, C, R, n, shared_bytes,
-                             consts, s);
+                             consts, KW, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -302,41 +302,52 @@ def prefix_scan_smem(num_limbs: int, threads_per_lane: int) -> ScanSmem:
     8-byte pieces where L is even and in 4-byte pieces where it is odd
     (BN254_S13's L = 21); the table must be aligned to the piece. A block
     of SCAN_THREADS // 32 warps holds 32 // G lanes a warp, each with a
-    double buffer of rows and of payloads and its state, 19 L int32 words
-    padded to an odd count."""
+    double buffer of rows and of payloads and its state, 19 segments of
+    L | 1 int32 words (an odd count, csrc/prefix_scan.cu LaneMem) padded
+    to an odd count."""
     L, G = num_limbs, threads_per_lane
     if L < 1 or G not in SCAN_THREADS_PER_LANE:
         raise ValueError(f"prefix_scan_smem: no block for L={L}, G={G}")
     lanes = (SCAN_THREADS // 32) * (32 // G)
-    shared = lanes * (2 * 4 * L + 2 * 4 + 4 * (19 * L | 1))
+    shared = lanes * (2 * 4 * L + 2 * 4 + 4 * (19 * (L | 1) | 1))
     return ScanSmem(8 if L % 2 == 0 else 4, shared)
 
 
-def prefix_scan_geometry(lanes: int, sms: int, threads_per_lane=None
-                         ) -> Tuple[int, int, int]:
-    """(G, blocks, lanes a block) of one scan launch over `lanes` lanes on
-    a card of `sms` SMs: a pure function, so the CPU tests can hold it.
+SCAN_G2_MAX_LIMBS = 22
+"""The widest limb count at which `prefix_scan_geometry` may pick G = 2."""
+
+
+def prefix_scan_geometry(lanes: int, sms: int, threads_per_lane=None,
+                         num_limbs: int = 22) -> Tuple[int, int, int]:
+    """(G, blocks, lanes a block) of one scan launch over `lanes` lanes of
+    `num_limbs` limbs on a card of `sms` SMs: a pure function, so the CPU
+    tests can hold it.
 
     G threads of one warp share a lane (32 // G lanes a warp; with G = 6
     the last two threads of a warp idle), so a block of four warps holds
-    64 lanes with G = 2 and 20 with G = 6. On the H100 the time of a
+    64 lanes with G = 2 and 20 with G = 6. A step is six word-wide
+    multiplies deep at G = 2 and two at G = 6. On the H100 the time of a
     launch goes up in steps with the blocks an SM gets, each block one
     more warp on each of its four schedulers (PERF.md, `[scan-lanes]`):
     by the whole of G = 2's time for each of its blocks, by about a
-    quarter of that for each of G = 6's. The rule: G = 6, which has the
-    shorter step (two multiplies deep) and the higher rate on a full
-    card; but G = 2 where its blocks come one to an SM while G = 6 would
-    need more than two to an SM. Measured on 132 SMs about both edges
-    (5,280 and 8,448 lanes): G = 2 is level with G = 6 from 5,281 to
-    7,920 lanes (three blocks of G = 6 an SM) and a fifth faster from
-    there to 8,448 (four). `threads_per_lane` names G outright: for a
-    measurement of one G against the other, not for the MSM."""
-    if lanes < 1 or sms < 1:
-        raise ValueError("prefix_scan_geometry: lanes and sms must be >= 1")
+    fifth to a third of that for each of G = 6's. The rule: G = 6; but
+    G = 2 where its blocks come one to an SM while G = 6 would need four
+    to an SM (from 3 * sms * 20 + 1 to sms * 64 lanes: 7,921 to 8,448 on
+    132 SMs, the default schedule's 8,192 among them), at L <= 22. There,
+    on an NVIDIA H100 80GB HBM3 at 700 W, G = 2 took 0.90 ms against 0.97
+    at BN254_S12 (8,192 lanes, R = 128) and 0.236 against 0.261 at
+    BN254_S13 (R = 32); at BLS12_377_S12 G = 6 was 3 % faster (1.49
+    against 1.53 ms) and at BLS12_377_S13 level. `threads_per_lane`
+    names G outright: for a measurement of one G against the other, not
+    for the MSM."""
+    if lanes < 1 or sms < 1 or num_limbs < 1:
+        raise ValueError("prefix_scan_geometry: lanes, sms and num_limbs "
+                         "must be >= 1")
     per_block = lambda G: (SCAN_THREADS // 32) * (32 // G)
     blocks = lambda G: -(-lanes // per_block(G))
     if threads_per_lane is None:
-        G = 2 if blocks(2) <= sms and blocks(6) > 2 * sms else 6
+        G = (2 if num_limbs <= SCAN_G2_MAX_LIMBS and blocks(2) <= sms
+             and blocks(6) > 3 * sms else 6)
     elif threads_per_lane in SCAN_THREADS_PER_LANE:
         G = threads_per_lane
     else:
@@ -372,7 +383,7 @@ def prefix_scan(pts_rows: torch.Tensor, pay: torch.Tensor,
     Wg, n = pay.shape
     R = n // C
     sms = torch.cuda.get_device_properties(pay.device).multi_processor_count
-    G, _, _ = prefix_scan_geometry(Wg * C, sms, _threads_per_lane)
+    G, _, _ = prefix_scan_geometry(Wg * C, sms, _threads_per_lane, L)
     smem = prefix_scan_smem(L, G)
     if pts_rows.data_ptr() % smem.piece_bytes:
         raise ValueError(f"prefix_scan: the row table must be "
@@ -381,7 +392,8 @@ def prefix_scan(pts_rows: torch.Tensor, pay: torch.Tensor,
     rc = _build.library().msm_prefix_scan(
         L, w, pts_rows.data_ptr(), pay.data_ptr(), out.data_ptr(), Wg, C, R,
         n, G, smem.shared_bytes,
-        _consts(curve, pay.device).data_ptr(), _stream(pay))
+        _consts(curve, pay.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(pay))
     _check("prefix_scan", rc)
     LAUNCHED["prefix_scan"] = dict(threads_per_lane=G,
                                    shared_bytes=smem.shared_bytes)
@@ -409,58 +421,98 @@ def col_prefix_plain(coltot: torch.Tensor, curve: CurveParams
     return v.to(I16)
 
 
-def col_prefix_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
-                        threads: int) -> Tuple[int, int]:
-    """(blocks, columns a thread) of one col_prefix launch: a pure
-    function, so the CPU tests can hold it.
+COL_PREFIX_THREADS_PER_LANE = 6
+"""Threads of a warp that share a column's add in the col_prefix kernel
+(csrc/padd_lane.cuh kAddG)."""
 
-    The kernel runs one thread per (window, column) and synchronises the
-    whole grid between levels, so every block must be resident at once:
-    never more than sms * blocks_per_sm blocks. With more columns than
-    that many threads, thread t takes columns t, t + blocks * threads,
-    ..."""
-    if min(Wg, C, sms, threads) < 1 or blocks_per_sm < 1:
+
+class ColPrefixGeometry(NamedTuple):
+    threads_per_lane: int
+    columns_per_warp: int
+    warps: int
+    lanes_per_block: int
+    blocks: int
+    columns_per_lane: int
+    threads: int
+    shared_bytes: int
+
+
+def col_prefix_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
+                        threads: int,
+                        threads_per_lane: int = COL_PREFIX_THREADS_PER_LANE,
+                        num_limbs: int = 22, limb_bits: int = 12
+                        ) -> ColPrefixGeometry:
+    """One col_prefix launch over the Wg * C columns on a card of `sms`
+    SMs that holds `blocks_per_sm` blocks of `threads` threads each
+    (`msm_col_prefix_limits`): a pure function, so the CPU tests can hold
+    it.
+
+    A column is a lane of `threads_per_lane` threads of one warp
+    (32 // threads_per_lane columns a warp, its last threads idle), and
+    keeps 15 L + 1 int32 words in shared memory (csrc/col_prefix.cu,
+    `msm::PaddLane`), beside the block's copies of `Consts<L>` and
+    `WideConsts<L, w>`. The kernel synchronises the whole grid between
+    levels, so every block must be resident at once: never more than
+    sms * blocks_per_sm blocks. With more columns than that many lanes,
+    lane l of block b takes columns b * lanes_per_block + l, then that
+    plus blocks * lanes_per_block, and so on; `columns_per_lane` is the
+    most any lane takes."""
+    G = threads_per_lane
+    if (min(Wg, C, sms, threads, G, num_limbs, limb_bits) < 1
+            or blocks_per_sm < 1 or threads % 32 or G > 32):
         raise ValueError("col_prefix_geometry: no resident block "
                          f"(Wg={Wg}, C={C}, sms={sms}, "
-                         f"blocks_per_sm={blocks_per_sm}, threads={threads})")
-    blocks = min(-(-Wg * C // threads), sms * blocks_per_sm)
-    return blocks, -(-Wg * C // (blocks * threads))
+                         f"blocks_per_sm={blocks_per_sm}, threads={threads}, "
+                         f"threads_per_lane={G})")
+    per_warp = 32 // G
+    warps = threads // 32
+    lanes = warps * per_warp
+    total = Wg * C
+    blocks = min(-(-total // lanes), sms * blocks_per_sm)
+    shared = 4 * (lanes * (15 * num_limbs | 1)
+                  + _static_shared_words(num_limbs, limb_bits))
+    _fits_block("col_prefix_geometry", shared)
+    return ColPrefixGeometry(G, per_warp, warps, lanes, blocks,
+                             -(-total // (blocks * lanes)), threads, shared)
 
 
 @functools.lru_cache(maxsize=None)
 def _col_prefix_limits(curve: CurveParams, device: torch.device
-                       ) -> Tuple[int, int, int]:
-    """(SMs, resident blocks an SM, threads a block) of the kernel."""
+                       ) -> Tuple[int, int, int, int]:
+    """(SMs, resident blocks an SM, threads a block, threads a column) of
+    the kernel."""
     L, w = _profile("col_prefix", curve)
-    per_sm, sms, threads = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    out = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(device):
         rc = _build.library().msm_col_prefix_limits(
-            L, w, ctypes.byref(per_sm), ctypes.byref(sms),
-            ctypes.byref(threads))
+            L, w, *map(ctypes.byref, out))
     if rc != 0:
         raise RuntimeError("col_prefix: occupancy query failed "
                            f"(cudaError_t {rc})")
-    return sms.value, per_sm.value, threads.value
+    per_sm, sms, threads, per_lane = (v.value for v in out)
+    return sms, per_sm, threads, per_lane
 
 
 def col_prefix(coltot: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     """(3, L, Wg, C) int16 column totals -> (3, L, Wg, C) int16 EXCLUSIVE
-    prefix points along the last axis (S[c] = sum of columns < c)."""
+    prefix points along the last axis (S[c] = sum of columns < c).
+    `col_prefix_geometry` picks the launch."""
     if not _on_cuda("col_prefix", coltot):
         return col_prefix_plain(coltot, curve)
     L, w = _profile("col_prefix", curve)
     _need("col_prefix", coltot, I16, 4)
     _, _, Wg, C = coltot.shape
-    blocks, per_thread = col_prefix_geometry(
-        Wg, C, *_col_prefix_limits(curve, coltot.device))
+    geo = col_prefix_geometry(
+        Wg, C, *_col_prefix_limits(curve, coltot.device), L, w)
     out = torch.empty_like(coltot)
     scratch = torch.empty_like(coltot)
     rc = _build.library().msm_col_prefix(
         L, w, coltot.data_ptr(), out.data_ptr(), scratch.data_ptr(), Wg, C,
-        _levels(C), blocks,
-        _consts(curve, coltot.device).data_ptr(), _stream(coltot))
+        _levels(C), geo.threads_per_lane, geo.blocks,
+        _consts(curve, coltot.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(coltot))
     _check("col_prefix", rc)
-    LAUNCHED["col_prefix"] = dict(blocks=blocks, columns_per_thread=per_thread)
+    LAUNCHED["col_prefix"] = geo._asdict()
     return out
 
 
