@@ -8,18 +8,21 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the kernels of tpu_msm_torch/csrc (timed as set-up); print
      what ptxas said of the redesigned kernels at BN254_S12 and at every
      profile of PROFILES (`[ptxas]`: registers, stack frame, spills)
-     and, for the seven on the word-wide multiply, their instructions by
-     kind from cuobjdump -sass (`[sass]`);
+     and, for the eight on the word-wide multiply, their instructions by
+     kind from cuobjdump -sass (`[sass]`), and the multiply's own
+     (`msm::mul_wide` in prefix_scan's object; `encode_mont` inlines it)
+     beside the parent's counts before its rows were carry chains;
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
      and 2^20 (captured from a warm-up run of the device program, without
      GLV and with it): the CUDA kernel against its plain PyTorch version
      on the same CUDA inputs, bit-identical, with times from CUDA events
      (a kernel under QUEUE_BELOW_MS back to back is timed again queued
      behind a busy call, which leaves out its wrapper's host cost; both
-     times are printed; the seven kernels on the word-wide multiply,
+     times are printed; the eight kernels on the word-wide multiply,
      `encode_mont`, `prefix_scan`, `col_prefix`, `padd_batch`,
-     `pdbl_batch`, `pbpr_stage1` and `globalize`, also print their bound
-     by the 12-bit multiply's count, mont_mul_ops, beside their own).
+     `pdbl_batch`, `pbpr_stage1`, `globalize` and `pbpr_full`, also print
+     their bound by the 12-bit multiply's count, mont_mul_ops, beside
+     their own).
      The six kernels of the main path at both configurations, and
      `psub_batch` (the padd kernel negating q on load) against its own
      plain version, `padd_batch` of `pneg_stacked`;
@@ -68,9 +71,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      largest size once more under SCHEDULE, a window group of 16 that
      gives the scan 131,072 lanes and `col_prefix` several columns a
      thread, EXACT, recorded and not made the default; and (`[latency]`)
-     one `padd_batch` on 32 lanes, one `pdbl_batch` on 16 lanes, and one
-     `col_prefix` level, one scan step, one `pbpr_full` stage-1 step, one
-     `pbpr_stage1` step and one doubling on a single warp, from which the
+     one `padd_batch` on 32 lanes, one `pdbl_batch` on 16 lanes, one
+     `col_prefix` level, one scan step and one doubling on a single
+     warp, one `pbpr_full` stage-1 step, scan level and doubling of its
+     tail, and one `pbpr_stage1` step, on one window, from which the
      depth floors of `col_prefix`, `prefix_scan`, `pbpr_full`,
      `pbpr_stage1` and `pdbl_batch` on 16 lanes follow;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes
@@ -301,7 +305,7 @@ def mul_wide_mads(L: int, w: int) -> int:
 # The kernels whose Montgomery multiply is the word-wide one: their
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
 WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
-        "pdbl_batch", "pbpr_stage1", "globalize")
+        "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full")
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -1026,9 +1030,15 @@ def lane_sweep(curve, card: str) -> dict:
     return out
 
 
-# Slice lengths Bt of the two pbpr_full calls on one warp (T = 8 lanes of
-# four threads) whose difference gives the time of one stage-1 step.
-PBPR_STEP_BT = (32, 256)
+# Slice lengths Bt of the pbpr_full and pbpr_stage1 calls on one window
+# of T = 8 lanes (two lanes of twelve threads a warp) whose differences
+# give the time of one stage-1 step (the last two) and, with it, of one
+# doubling of the tail (the first two: Bt - 1 steps and log2 Bt
+# doublings apart).
+PBPR_STEP_BT = (1, 8, 32, 256)
+# Lane counts T of the two pbpr_full calls at Bt = 1 (one window, B = T)
+# whose difference gives the time of one scan level: 2 log2 T levels.
+PBPR_LEVEL_T = (8, 64)
 
 
 # Column counts of the two col_prefix calls on one warp (one window,
@@ -1038,10 +1048,11 @@ COL_LEVEL_C = (2, 32)
 
 def latency(curve, card: str, scan_G: int) -> dict:
     """One `padd_batch` launch on 32 lanes and one `pdbl_batch` launch on
-    16; one col_prefix level, one scan step, one pbpr_full stage-1 step,
-    one pbpr_stage1 step and one doubling on a single warp (32 lanes; 8
-    for pbpr_full, four threads each, and for pbpr_stage1, twelve threads
-    each, two a warp; one lane for pdbl_batch)."""
+    16; one col_prefix level, one scan step and one doubling on a single
+    warp (32 lanes; one lane for pdbl_batch); on one window of 8 lanes,
+    twelve threads each, two a warp, one pbpr_full stage-1 step, one
+    doubling of its tail and one pbpr_stage1 step; one pbpr_full scan
+    level on one window of 8 and of 64 lanes."""
     L, R = curve.num_limbs, 128
     rng = np.random.default_rng(11)
     lazy = lambda shape: torch.from_numpy(rng.integers(
@@ -1073,18 +1084,27 @@ def latency(curve, card: str, scan_G: int) -> dict:
     step = {G: cuda_ms(lambda: kernels.prefix_scan(
         table, pay, curve, 32, _threads_per_lane=G), 20) / R
         for G in kernels.SCAN_THREADS_PER_LANE}
-    # pbpr_full on one window of 8 lanes: the two calls differ by
-    # Bt1 - Bt0 stage-1 steps and log2(Bt1 / Bt0) doublings, each about
-    # as deep as a step
-    lo, hi = PBPR_STEP_BT
+    # pbpr_full on one window of 8 lanes: the calls at Bt1 > Bt0 differ by
+    # Bt1 - Bt0 stage-1 steps and log2(Bt1 / Bt0) doublings; the last two
+    # give a step (a doubling counted as a step), the first two then a
+    # doubling; the calls at Bt = 1 and T = 8, 64 differ by 6 scan levels
+    dbl_lo, dbl_hi, lo, hi = PBPR_STEP_BT
+    bt_b = {Bt: lazy((1, 8 * Bt)) for Bt in PBPR_STEP_BT}
     pb = {Bt: cuda_ms(lambda: kernels.pbpr_full(b, curve, 8), 10)
-          for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
-    extra = (hi // lo).bit_length() - 1
-    pbpr_step = (pb[hi] - pb[lo]) / (hi - lo + extra)
+          for Bt, b in bt_b.items()}
+    log2 = lambda v: v.bit_length() - 1
+    pbpr_step = (pb[hi] - pb[lo]) / (hi - lo + log2(hi // lo))
+    pbpr_dbl = (pb[dbl_hi] - pb[dbl_lo] - (dbl_hi - dbl_lo) * pbpr_step
+                ) / log2(dbl_hi // dbl_lo)
+    t_b = {T: lazy((1, T)) for T in PBPR_LEVEL_T}
+    lv_ms = {T: cuda_ms(lambda: kernels.pbpr_full(b, curve, T), 10)
+             for T, b in t_b.items()}
+    t0, t1 = PBPR_LEVEL_T
+    pbpr_level = (lv_ms[t1] - lv_ms[t0]) / (2 * (log2(t1) - log2(t0)))
     # pbpr_stage1 on the same shapes: the two calls differ by Bt1 - Bt0
     # steps, each one add of each chain at once
-    s1 = {Bt: cuda_ms(lambda: kernels.pbpr_stage1(b, curve, 8), 10)
-          for Bt, b in ((Bt, lazy((1, 8 * Bt))) for Bt in (lo, hi))}
+    s1 = {Bt: cuda_ms(lambda: kernels.pbpr_stage1(bt_b[Bt], curve, 8), 10)
+          for Bt in (lo, hi)}
     s1_geo = dict(kernels.LAUNCHED["pbpr_stage1"])
     stage1_step = (s1[hi] - s1[lo]) / (hi - lo)
     print(f"[latency] {curve.name}: padd_batch on 32 lanes {padd_ms:.4f} "
@@ -1097,9 +1117,13 @@ def latency(curve, card: str, scan_G: int) -> dict:
           + f"); prefix_scan (R={R}) ms a step by threads per lane "
           + ", ".join(f"{G}: {t:.5f}" for G, t in step.items())
           + f" (the 2^{max(SIZES)} shape runs {scan_G}); pbpr_full stage-1 "
-          f"step (two adds at once) {pbpr_step:.5f} ms, from (1, 8 * Bt) "
-          f"buckets at T = 8: Bt = {lo} {pb[lo]:.4f} ms, Bt = {hi} "
-          f"{pb[hi]:.4f} ms; pbpr_stage1 step (two adds at once) "
+          f"step (two adds at once) {pbpr_step:.5f} ms, one doubling of the "
+          f"tail {pbpr_dbl:.5f} ms, from (1, 8 * Bt) buckets at T = 8: "
+          + ", ".join(f"Bt = {Bt} {t:.4f} ms" for Bt, t in pb.items())
+          + f"; pbpr_full scan level {pbpr_level:.5f} ms, from (1, T) "
+          "buckets at Bt = 1: "
+          + ", ".join(f"T = {T} {t:.4f} ms" for T, t in lv_ms.items())
+          + f"; pbpr_stage1 step (two adds at once) "
           f"{stage1_step:.5f} ms, from the same buckets: Bt = {lo} "
           f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo} "
           f"[{card}]", flush=True)
@@ -1108,7 +1132,9 @@ def latency(curve, card: str, scan_G: int) -> dict:
                 pdbl_one_warp_launched=dbl_geo,
                 col_prefix_level_ms=col_level, col_prefix_one_warp_ms=col,
                 scan_step_ms=step, pbpr_step_ms=pbpr_step,
-                pbpr_one_warp_ms=pb, pbpr_stage1_step_ms=stage1_step,
+                pbpr_doubling_ms=pbpr_dbl, pbpr_level_ms=pbpr_level,
+                pbpr_one_warp_ms=pb, pbpr_one_window_bt1_ms=lv_ms,
+                pbpr_stage1_step_ms=stage1_step,
                 pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo)
 
 
@@ -1529,13 +1555,11 @@ def window_shards(card: str) -> dict:
                 shards.append(run(w_shards=w, w_index=i))
             sync(DEVICE)
         launched = dict(kernels.LAUNCHED["pbpr_full"])
-        stage1, scan, per_chain = kernels.pbpr_full_geometry(Wl, B, T,
-                                                             *limits)
-        if (launched["stage1_blocks"], launched["scan_blocks"],
-                launched["adds_per_chain"]) != (stage1, scan, per_chain):
+        says = kernels.pbpr_full_launched(kernels.pbpr_full_geometry(
+            Wl, B, T, *limits, CURVE.num_limbs, CURVE.log_limb_size))
+        if launched != says:
             raise AssertionError(f"[sharded] w={w}: pbpr_full launched "
-                                 f"{launched}, its geometry says "
-                                 f"{(stage1, scan, per_chain)}")
+                                 f"{launched}, its geometry says {says}")
         got = pipe._decode_windows(torch.cat(shards, dim=2))
         for j, (a, b) in enumerate(zip(got, full, strict=True)):
             if not ref.jac_eq(CURVE, a, b):
@@ -1994,21 +2018,34 @@ def template_args(fn: str, name: str) -> list:
     return out
 
 
-# What the [sass] lines count, by opcode (IMAD.WIDE and IMAD.HI apart
-# from the other IMAD forms): the multiply-adds, the loads and stores by
-# state space (LD and ST without a suffix are generic), calls.
-SASS_KINDS = ("IMAD.WIDE", "IMAD.HI", "IMAD", "IADD3", "LD", "LDS", "LDG",
-              "LDL", "LDC", "ST", "STS", "STG", "STL", "CALL")
+# What the [sass] lines count, by opcode (IMAD.WIDE, IMAD.HI, IMAD.X
+# and IMAD.MOV apart from the other IMAD forms): the multiply-adds, the
+# moves, the loads and stores by state space (LD and ST without a suffix
+# are generic), calls.
+SASS_KINDS = ("IMAD.WIDE", "IMAD.HI", "IMAD.X", "IMAD.MOV", "IMAD", "MOV",
+              "IADD3", "LD", "LDS", "LDG", "LDL", "LDC", "ST", "STS", "STG",
+              "STL", "CALL")
 
 
-def sass_counts(stem: str) -> dict:
-    """Instruction counts of every kernel of csrc/<stem>.cu at the limb
-    counts PTXAS_LIMBS, read
-    from its object file with cuobjdump -sass. A kernel's listing holds
-    the out-of-line functions it calls (padd_batch's msm::mul_wide)."""
+def sass_kinds(ops) -> dict:
+    out = dict.fromkeys(("total",) + SASS_KINDS, 0)
+    for op in ops:
+        kind = next((k for k in SASS_KINDS[:4] if op.startswith(k)),
+                    op.split(".")[0])
+        out["total"] += 1
+        if kind in out:
+            out[kind] += 1
+    return out
+
+
+def sass_listings(obj) -> dict:
+    """(address, opcode, call target or None) of every instruction of each
+    kernel in the object file at the limb counts PTXAS_LIMBS, read with
+    cuobjdump -sass. A kernel's listing holds the out-of-line functions
+    it calls."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(_build.build_dir() / f"{stem}.o")],
-                          capture_output=True, text=True, check=True).stdout
+    text = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True, check=True).stdout
     out, cur = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -2017,18 +2054,58 @@ def sass_counts(stem: str) -> dict:
                      else [None])
             cur = None
             if targs[0] in map(str, PTXAS_LIMBS):
-                cur = f"{kernel_name(m[1])}<{', '.join(targs)}>"
-                out[cur] = dict.fromkeys(("total",) + SASS_KINDS, 0)
+                cur = out[f"{kernel_name(m[1])}<{', '.join(targs)}>"] = []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                     line)
-        if cur and m:
-            op = m[2]
-            kind = next((k for k in ("IMAD.WIDE", "IMAD.HI") if
-                         op.startswith(k)), op.split(".")[0])
-            out[cur]["total"] += 1
-            if kind in out[cur]:
-                out[cur][kind] += 1
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)\s*(0x[0-9a-f]+)?", line)
+        if cur is not None and m:
+            call = int(m[4], 16) if m[3].startswith("CALL") and m[4] else None
+            cur.append((int(m[1], 16), m[3], call))
+    return out
+
+
+def sass_counts(stem: str, build=None) -> dict:
+    """Instruction counts of every kernel of csrc/<stem>.cu at the limb
+    counts PTXAS_LIMBS, its out-of-line functions included, from the
+    object file in `build` (by default this build's)."""
+    obj = (build or _build.build_dir()) / f"{stem}.o"
+    return {k: sass_kinds(op for _, op, _ in ins)
+            for k, ins in sass_listings(obj).items()}
+
+
+# The multiply's instructions before its rows were carry chains (64-bit
+# multiply-adds in C++ on one accumulator): msm::mul_wide in prefix_scan's
+# object of the parent commit's build at L = 22, counted by callee_counts
+# in a scripts/torch_ab.py run (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+MUL_WIDE_SASS_BEFORE = {
+    "scan<22, 12, 6>": {"total": 736, "IMAD.WIDE": 144, "IMAD.HI": 8,
+                        "IMAD.X": 98, "IMAD.MOV": 30, "IMAD": 40, "MOV": 11,
+                        "IADD3": 173, "LDS": 53, "STS": 22},
+    "scan<22, 12, 2>": {"total": 733, "IMAD.WIDE": 144, "IMAD.HI": 8,
+                        "IMAD.X": 110, "IMAD.MOV": 31, "IMAD": 40, "MOV": 9,
+                        "IADD3": 162, "LDS": 53, "STS": 22},
+}
+
+
+def callee_counts(stem: str, build=None) -> dict:
+    """Instruction counts of the out-of-line function that each kernel of
+    csrc/<stem>.cu calls from the most sites (msm::mul_wide in
+    prefix_scan's and the shared add's kernels): from its address to its
+    first RET."""
+    obj = (build or _build.build_dir()) / f"{stem}.o"
+    out = {}
+    for k, ins in sass_listings(obj).items():
+        sites = [c for _, _, c in ins if c is not None]
+        if not sites:
+            continue
+        start = max(set(sites), key=sites.count)
+        body = []
+        for addr, op, _ in ins:
+            if addr >= start:
+                body.append(op)
+                if op.startswith("RET"):
+                    break
+        out[k] = sass_kinds(body)
     return out
 
 
@@ -2514,6 +2591,15 @@ def main_on_card(t_start: float) -> int:
             print(f"[sass] {stem}.{fn}: " + ", ".join(
                 f"{k} {v}" for k, v in counts.items() if v or k == "LD")
                 + f" [{card}]", flush=True)
+    show = lambda c: ", ".join(f"{k} {v}" for k, v in c.items() if v)
+    for fn, counts in callee_counts("prefix_scan").items():
+        sass[f"mul_wide.{fn}"] = counts
+        before = MUL_WIDE_SASS_BEFORE.get(fn)
+        print(f"[sass] mul_wide: msm::mul_wide as prefix_scan's {fn} calls "
+              f"it: {show(counts)}"
+              + (f"; before its rows were carry chains (the parent's build, "
+                 f"scripts/torch_ab.py): {show(before)}" if before else "")
+              + f" [{card}]", flush=True)
 
     return run_all(card, t_start, resources, sass)
 
@@ -2659,14 +2745,15 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                                         ).columns.bit_length() - 1, 1)
             entry["depth_floor_ms"] = levels * lat["col_prefix_level_ms"]
         if name == "pbpr_full":
-            # (Bt + 1) stage-1 steps, 2 log2 T scan levels, log2 Bt
-            # doublings and one add, each taken as one stage-1 step
+            # (Bt + 1) stage-1 steps, 2 log2 T scan levels, then the tail:
+            # log2 Bt doublings and one add, the add taken as a step
             cfg = default_config(1 << max(SIZES), CURVE)
             T = cfg.pbpr_threads
             Bt = cfg.half_columns // T
-            depth = (Bt + 1 + 2 * (T.bit_length() - 1)
-                     + Bt.bit_length() - 1 + 1)
-            entry["depth_floor_ms"] = depth * lat["pbpr_step_ms"]
+            entry["depth_floor_ms"] = (
+                (Bt + 2) * lat["pbpr_step_ms"]
+                + 2 * (T.bit_length() - 1) * lat["pbpr_level_ms"]
+                + (Bt.bit_length() - 1) * lat["pbpr_doubling_ms"])
         if name == "pbpr_stage1":
             # Bt + 1 steps, the m and g chains one step apart
             cfg = default_config(1 << max(SIZES), CURVE)

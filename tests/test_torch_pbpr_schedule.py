@@ -10,8 +10,9 @@ same with the plain point formulas (the second exchange array starts as
 noise, so a sum read before it is written would show), and must give
 `pbpr_full_plain`'s output bit for bit on TINY62 and BN254_S12, at
 T = 1, T = B, one window and scans several levels deep. The geometry is
-a pure function: every (half, window, lane) sum of a level has exactly
-one owner, and the scan launch never has more blocks than are resident."""
+a pure function: stage 1 is pbpr_stage1's launch, every (half, window,
+lane) sum of a level has exactly one owner among the chains of six
+threads, and the scan launch never has more blocks than are resident."""
 
 import numpy as np
 import pytest
@@ -122,19 +123,24 @@ GEOMETRY_SHAPES = [(16, 32768, 512), (20, 4096, 256), (9, 32768, 512),
 @pytest.mark.parametrize("Wp,B,T", GEOMETRY_SHAPES)
 def test_pbpr_full_geometry_covers_every_sum_once(Wp, B, T, per_sm,
                                                   threads):
-    sms, G = 132, 2
-    stage1, scan, per_chain = tk.pbpr_full_geometry(
-        Wp, B, T, sms, per_sm, threads, G)
-    # stage 1, blocks of one warp: lane f = block * lanes a warp + lane
-    lpw = 32 // (2 * G)
+    sms, G = 132, tk.PBPR_STAGE1_THREADS_PER_CHAIN     # kAddG = 6
+    geo = tk.pbpr_full_geometry(Wp, B, T, sms, per_sm, threads, G)
+    # stage 1 is pbpr_stage1's launch: 12 threads a lane, 2 lanes a warp,
+    # lane f = block * lanes a block + lane
+    s1 = geo.stage1
+    assert s1 == tk.pbpr_stage1_geometry(Wp, B, T, sms)
     lanes = Wp * T
-    f = np.arange(stage1 * lpw)
+    f = np.arange(s1.blocks * s1.lanes_per_block)
     assert np.array_equal(f[f < lanes], np.arange(lanes))
-    assert (stage1 - 1) * lpw < lanes
+    assert (s1.blocks - 1) * s1.lanes_per_block < lanes
     warps = threads // 32
-    # the scans: chain c takes adds c, c + chains, ... of every level
+    # the scans: chains of G threads, 5 a warp (2 threads idle); chain c
+    # takes adds c, c + chains, ... of every level
+    assert geo.threads_per_add == G == 6
+    assert geo.chains_per_block == warps * (32 // G) == warps * 5
+    scan = geo.scan_blocks
     assert 1 <= scan <= sms * per_sm
-    chains = scan * warps * (32 // G)
+    chains = scan * geo.chains_per_block
     busiest = 0
     for _, sm, sg in tk.pbpr_scan_levels(T):
         h, w, t = level_items(Wp, T, sm, sg)
@@ -147,25 +153,25 @@ def test_pbpr_full_geometry_covers_every_sum_once(Wp, B, T, per_sm,
                                for hh, st in ((0, sm), (1, sg))
                                for wi in range(Wp)])
         assert np.array_equal(pts, need)
-    assert per_chain == max(busiest, -(-Wp // chains))
+    assert geo.adds_per_chain == max(busiest, -(-Wp // chains))
     # no block idles unless the card has more room than the widest level
     widest = max([Wp] + [Wp * (T // sm + T // sg)
                          for _, sm, sg in tk.pbpr_scan_levels(T)])
-    assert (scan - 1) * warps * (32 // G) < widest
+    assert (scan - 1) * geo.chains_per_block < widest
 
 
 def test_pbpr_full_geometry_more_than_wp_blocks_at_the_msm_shapes():
     for Wp, B, T in [(16, 32768, 512), (20, 4096, 256)]:
-        stage1, scan, _ = tk.pbpr_full_geometry(Wp, B, T, 132, 2, 128, 2)
-        assert stage1 > Wp and scan > Wp
+        geo = tk.pbpr_full_geometry(Wp, B, T, 132, 2, 128, 6)
+        assert geo.stage1.blocks > Wp and geo.scan_blocks > Wp
 
 
 def test_pbpr_full_geometry_refuses_no_resident_block():
     with pytest.raises(ValueError):
-        tk.pbpr_full_geometry(16, 32768, 512, 132, 0, 128, 2)
+        tk.pbpr_full_geometry(16, 32768, 512, 132, 0, 128, 6)
     with pytest.raises(ValueError):
-        tk.pbpr_full_geometry(16, 32768, 3, 132, 2, 128, 2)
-    for threads, G in ((48, 2), (128, 3), (128, 32)):
+        tk.pbpr_full_geometry(16, 32768, 3, 132, 2, 128, 6)
+    for threads, G in ((48, 6), (128, 33), (128, 0)):
         with pytest.raises(ValueError):
             tk.pbpr_full_geometry(16, 32768, 512, 132, 2, threads, G)
 

@@ -47,8 +47,8 @@ SIGNATURES = {
     "msm_col_prefix_limits": [_I, _I, _P, _P, _P, _P],
     "msm_padd_batch": [_I, _I, _I, _I, _P, _P, _P, _I64, _I, _I, _I, _I,
                        _P, _P, _P],
-    "msm_pbpr_full": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                      _P],
+    "msm_pbpr_full": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P, _P, _P],
     "msm_pbpr_full_limits": [_I, _I, _P, _P, _P, _P],
     "msm_pdbl_batch": [_I, _I, _P, _P, _I64, _I, _I, _I, _P, _P, _P],
     "msm_pbpr_stage1": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,

@@ -22,7 +22,7 @@
 // in infinity (folded into level 0, which reads the input at c - 1 and
 // c - 2), then shifts 1, 2, 4, ... below C, each combined by
 // padd(v[c], v[c - k]) with infinity for c < k; the shared add's operands
-// and their order are Field::padd's (ops/rows.py padd_rows). Between
+// and their order are those of ops/rows.py padd_rows. Between
 // levels a lane needs the point of another lane, in general of another
 // block: every level writes its points as int16 (exact by the
 // (-2^W, 2^(W+1)) limb bound of an add's sum, W <= 13) to an exchange

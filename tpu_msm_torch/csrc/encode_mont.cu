@@ -9,7 +9,7 @@
 // is contiguous) are coalesced. The multiply is mul_wide.cuh's, inlined
 // at its one call site, with its constants in the kernel parameter
 // struct: p, n0 and R^2 come as words from the constant bank, and R^2
-// is not rippled or packed per call. Bit-identical to Field::mul by R^2.
+// is not rippled or packed per call. Bit-identical to rows.py to_mont_rows.
 #include "mul_wide.cuh"
 
 #include <cstring>
@@ -28,7 +28,11 @@ encode_kernel(const int32_t* __restrict__ xs, int32_t* __restrict__ out,
   for (int i = 0; i < L; i++) a[i] = xs[(int64_t)i * n + f];
   uint32_t aw[M::N], rw[M::N];
   M::pack(a, aw);
-  M::mont(aw, K.r2, rw, K);
+  struct {
+    const msm::WideConsts<L, W>& K;
+    __device__ __forceinline__ uint32_t next(int i) const { return K.r2[i]; }
+  } r2{K};
+  M::mont(aw, r2, rw, K);
   M::unpack(rw, a);
 #pragma unroll
   for (int i = 0; i < L; i++) out[(int64_t)i * n + f] = a[i];

@@ -1,19 +1,19 @@
 // A complete projective add shared by kAddG threads of one warp, on
-// points and scratch in shared memory, with the word-wide multiply: the add of
-// padd_batch.cu, globalize.cu and pbpr_stage1.cu. Beside it, the complete
-// doubling of pdbl_batch.cu in the same manner (`DblPhases`, below the add).
+// points and scratch in shared memory, with the word-wide multiply: the
+// add of every kernel in this directory but prefix_scan.cu (whose mixed
+// add is its own). Beside it, the complete doubling of pdbl_batch.cu and
+// of pbpr_full.cu's tail in the same manner (`DblPhases`, below the add).
 //
-// The add (RCB Algorithm 7, Field::padd) runs in four phases, and the
-// caller puts a warp barrier after each: the six independent products
-// of level 1 (x1 x2, y1 y2, z1 z2, (x1 + y1)(x2 + y2), (y1 + z1)(y2 +
-// z2), (x1 + z1)(x2 + z2)), the adds between the levels, the six
-// products of level 2 (t3 t1, t4 yz, t1 z3, yz t0, z3 t4, t0 t3), the
-// sum. kAddG = 6 threads share an add: thread g takes product g of a
-// level and limbs g, g + kAddG, ... of the adds (3 threads an add, two
-// products a thread, were timed too in pbpr_stage1.cu: slower at both
-// of its shapes; PERF.md). The operands and their order are those of
-// pbpr_full.cu's Shared::padd_level1/mid/level2/finish, so the sum is
-// bit-identical to Field::padd and to ops/rows.py padd_rows. Each
+// The add (RCB Algorithm 7, ops/rows.py padd_rows) runs in four phases,
+// and the caller puts a warp barrier after each: the six independent
+// products of level 1 (x1 x2, y1 y2, z1 z2, (x1 + y1)(x2 + y2),
+// (y1 + z1)(y2 + z2), (x1 + z1)(x2 + z2)), the adds between the levels,
+// the six products of level 2 (t3 t1, t4 yz, t1 z3, yz t0, z3 t4,
+// t0 t3), the sum. kAddG = 6 threads share an add: thread g takes
+// product g of a level and limbs g, g + kAddG, ... of the adds (3 threads
+// an add, two products a thread, were timed too in pbpr_stage1.cu:
+// slower at both of its shapes; PERF.md). The operands and their order
+// are those of padd_rows, so the sum is bit-identical to it. Each
 // product is one call of msm::mul_wide, out of line: cicc (CUDA 12.8)
 // failed on many inlined multiplies, and the threads of a warp that
 // reach the call together stay converged.
@@ -36,6 +36,41 @@
 namespace msm {
 
 constexpr int kAddG = 6;   // threads of one warp that share an add
+
+// threadIdx.x, blockIdx.x and blockDim.x, read again where they are
+// used: a value that a function keeps across a call of the out-of-line
+// multiply goes to one of 16 registers that the call preserves (the SASS
+// listings, PERF.md), and beyond those it spills; so the stores after
+// the multiplies take fresh reads rather than the ones from before.
+__device__ __forceinline__ int tid_now() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int ctaid_now() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int ntid_now() {
+  int v;
+  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(v));
+  return v;
+}
+
+// f(i) for i = g, g + G, ... below N (g < G), a loop of a fixed trip
+// count unrolled: no register keeps a count across the multiplies
+// between such loops (the stage-1 lanes spilled theirs at 64 registers).
+template <int N, int G, typename F>
+__device__ __forceinline__ void strided(int g, F&& f) {
+#pragma unroll
+  for (int r = 0; r < (N + G - 1) / G; r++) {
+    const int i = g + r * G;
+    if (i < N) f(i);
+  }
+}
 
 // An add's scratch in int32 words: the six products of a level (P) and
 // the six operands of level 2 (T).
@@ -78,7 +113,7 @@ struct Phases {
   // T = t3 t4 t1 yz z3 t0 from the products.
   static __device__ __forceinline__ void mid(int32_t* s, int g,
                                              const Consts<L>& K) {
-    for (int i = g; i < L; i += kAddG) {
+    strided<L, kAddG>(g, [&](int i) {
       const int32_t* P = s + S::P + i;
       int32_t* T = s + S::T + i;
       const int32_t m0 = P[0], m1 = P[L], m2 = P[2 * L];
@@ -90,7 +125,7 @@ struct Phases {
       T[3 * L] = (m5 - (m0 + m2) + K.kp4[i]) * K.b3;      // yz
       T[4 * L] = m1 + t2;                                 // z3
       T[5 * L] = m0 * 3;                                  // t0
-    }
+    });
   }
 
   // t3 t1, t4 yz, t1 z3, yz t0, z3 t4, t0 t3 into P, as level 1 shares
@@ -108,12 +143,12 @@ struct Phases {
   static __device__ __forceinline__ void finish(const int32_t* s, int g,
                                                 int32_t* out,
                                                 const Consts<L>& K) {
-    for (int i = g; i < L; i += kAddG) {
+    strided<L, kAddG>(g, [&](int i) {
       const int32_t* P = s + S::P + i;
       out[i] = P[0] - P[L] + K.kp2[i];
       out[L + i] = P[2 * L] + P[3 * L];
       out[2 * L + i] = P[4 * L] + P[5 * L];
-    }
+    });
   }
 };
 
@@ -127,14 +162,13 @@ struct Phases {
 // g, g + kDblG, ... of the adds, so the chain is three multiplies deep
 // (2 threads a doubling, 16 lanes a warp, were timed too: slower on the
 // 16 lanes that the reduction path doubles, level on 16,388; PERF.md).
-// The operands and their order are those of pbpr_full.cu's
-// Shared::pdbl_level1/level2/mid/level3/finish (and of pdbl_rows), each
-// product one msm::mul_wide call, so the result is bit-identical to
-// them: no product is regrouped (z (z b3m) is the same value mod p in
-// other limbs). The point's own words take
-// level 3's products, as no phase after level 1 reads the point: P4 T0
-// into y, P1 T0 into z, T1 P3 into x, T1 T2 into P0, which level 3 does
-// not read; the sum ends in the point's words in place.
+// The operands and their order are those of pdbl_rows, each product one
+// msm::mul_wide call, so the result is bit-identical to it: no product is
+// regrouped (z (z b3m) is the same value mod p in other limbs). The
+// point's own words take level 3's products, as no phase after level 1
+// reads the point: P4 T0 into y, P1 T0 into z, T1 P3 into x, T1 T2 into
+// P0, which level 3 does not read; the sum ends in the point's words in
+// place.
 constexpr int kDblG = 4;   // threads of one warp that share a doubling
 
 template <int L>
@@ -276,10 +310,14 @@ __device__ __forceinline__ void padd_block(const Tin* __restrict__ p,
   }
   __syncthreads();
 
-  if (mover) {
-    for (int row = r0; row < 3 * L; row += rstep)
-      out[(int64_t)row * n + f] =
-          static_cast<Tout>(lanes[ll * M::STRIDE + M::P1 + row]);
+  // the same movers, from fresh reads of the indices
+  const int t = tid_now(), nt = ntid_now(), lpb_s = (nt >> 5) * LPW;
+  const int ll_s = t % lpb_s, r0_s = t / lpb_s;
+  const int64_t f_s = (int64_t)ctaid_now() * lpb_s + ll_s;
+  if (r0_s < nt / lpb_s && f_s < n) {
+    for (int row = r0_s; row < 3 * L; row += nt / lpb_s)
+      out[(int64_t)row * n + f_s] =
+          static_cast<Tout>(lanes[ll_s * M::STRIDE + M::P1 + row]);
   }
 }
 

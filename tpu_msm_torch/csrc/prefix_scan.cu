@@ -20,16 +20,15 @@
 // level with msm::mul_wide (out of line, the word constants in shared
 // memory) on pointers into it, and limbs g, g + G, ... of every add
 // between the levels, with a warp barrier after each phase. Each
-// product takes the operands of Field::pmadd in the same order, and
-// mul_wide is Field::mul bit for bit on every pair of operands, so the
-// result is bit-identical to Field::pmadd (ops/rows.py pmadd_rows)
-// whatever G is.
+// product takes the operands of ops/rows.py pmadd_rows in the same
+// order, and mul_wide is its mont_mul_rows bit for bit on every pair of
+// operands, so the result is bit-identical to pmadd_rows whatever G is.
 // State in shared memory also keeps the threads' stack frames empty: with
 // the state copied into every thread (an earlier form of this kernel)
 // more than four warps an SM overflowed the L1 with local memory and
 // G = 6 ran seven times slower than G = 2 (NVIDIA H100 80GB HBM3,
 // 700 W; PERF.md has the times). The kernel is built for G = 2 and
-// G = 6. G = 1 (Field::pmadd on a point in the thread, the
+// G = 6. G = 1 (the mixed add on a point in the thread, the
 // one-thread-a-lane kernel this replaces, with the gather ahead) and
 // G = 3 were built and timed too on the 12-bit multiply, were the
 // fastest at no lane count, and were taken out; G = 3 again on the
@@ -100,7 +99,7 @@ struct LaneMem {
   static constexpr int STRIDE = WORDS | 1;   // odd: lanes on distinct banks
 };
 
-// Operands of product j of level 1, in the order of Field::pmadd:
+// Operands of product j of level 1, in the order of pmadd_rows:
 // x1 x2, y1 y2, (x1 + y1)(x2 + y2), y2 z1, x2 z1, z1 b3m.
 template <int L>
 __device__ __forceinline__ int level1_a(int j) {
@@ -139,7 +138,7 @@ __device__ __forceinline__ int level2_b(int j) {
   }
 }
 
-// One step of a lane that G threads share: Field::pmadd on the lane's
+// One step of a lane that G threads share: pmadd_rows on the lane's
 // shared memory `m`, the six word-wide multiplies of each level and the
 // limbs of every add shared out among the threads. Ends with the new
 // point in m and its int16 limbs stored to `o` (element k at

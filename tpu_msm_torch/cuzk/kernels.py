@@ -722,33 +722,44 @@ def pbpr_scan_levels(T: int) -> list:
             + [(1 << lv, 2 << lv, 2 << lv) for lv in range(bits)])
 
 
+class PbprFullGeometry(NamedTuple):
+    stage1: "Stage1Geometry"
+    scan_blocks: int
+    threads_per_add: int
+    chains_per_block: int
+    adds_per_chain: int
+
+
 def pbpr_full_geometry(Wp: int, B: int, T: int, sms: int,
                        blocks_per_sm: int, threads: int,
-                       threads_per_add: int) -> Tuple[int, int, int]:
-    """(stage-1 blocks, scan blocks, adds a chain) of one pbpr_full call:
-    a pure function, so the CPU tests can hold it.
+                       threads_per_add: int, num_limbs: int = 22,
+                       limb_bits: int = 12) -> PbprFullGeometry:
+    """The two launches of one pbpr_full call: a pure function, so the
+    CPU tests can hold it.
 
-    Stage 1 gives each of the Wp * T lanes 2 * threads_per_add threads of
-    one warp (the m add and the g add run at once): an ordinary launch of
-    as many one-warp blocks as that takes. The scans and the
-    tail are one cooperative launch, so every block must be resident at
-    once: never more than sms * blocks_per_sm blocks of threads /
-    threads_per_add add chains. Chain c of a level takes adds c,
-    c + chains, ... of it (the widest level is phase A's first; with
-    T = 1 the tail's Wp)."""
+    Stage 1 is `pbpr_stage1`'s launch over the Wp * T lanes
+    (`pbpr_stage1_geometry`: 12 threads a lane, 2 lanes a warp, its last
+    8 threads idle). The scans and the tail are one cooperative launch, so
+    every block must be resident at once: never more than
+    sms * blocks_per_sm blocks of `threads` threads. An add is a chain of
+    `threads_per_add` threads of one warp, 32 // threads_per_add chains a
+    warp (at 6 threads, 5 chains and 2 idle threads); chain c of a level
+    takes adds c, c + chains, ... of it (the widest level is phase A's
+    first; with T = 1 the tail's Wp)."""
     G = threads_per_add
     if (min(Wp, B, T, sms, blocks_per_sm, G) < 1 or B % T
-            or threads % 32 or 32 % (2 * G)):
+            or threads % 32 or G > 32):
         raise ValueError("pbpr_full_geometry: no launch for "
                          f"(Wp={Wp}, B={B}, T={T}, sms={sms}, "
                          f"blocks_per_sm={blocks_per_sm}, threads={threads}, "
                          f"threads_per_add={G})")
-    chains_per_block = threads // G
-    stage1 = -(-Wp * T // (32 // (2 * G)))
+    stage1 = pbpr_stage1_geometry(Wp, B, T, sms, num_limbs, limb_bits)
+    chains_per_block = threads // 32 * (32 // G)
     widest = max([Wp * (T // sm + T // sg)
                   for _, sm, sg in pbpr_scan_levels(T)] + [Wp])
     scan = min(-(-widest // chains_per_block), sms * blocks_per_sm)
-    return stage1, scan, -(-widest // (scan * chains_per_block))
+    return PbprFullGeometry(stage1, scan, G, chains_per_block,
+                            -(-widest // (scan * chains_per_block)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -786,23 +797,36 @@ def pbpr_full(buckets: torch.Tensor, curve: CurveParams,
         return pbpr_full_plain(buckets, curve, threads)
     L, w = _profile("pbpr_full", curve)
     _need("pbpr_full", buckets, I16, 4)
-    if buckets.data_ptr() % 4:
-        raise ValueError("pbpr_full: the buckets must be 4-byte aligned")
-    sms, per_sm, nthreads, G = _pbpr_full_limits(curve, buckets.device)
-    stage1, scan, per_chain = pbpr_full_geometry(
-        Wp, B, T, sms, per_sm, nthreads, G)
+    if buckets.data_ptr() % 4 or buckets.numel() % 2:
+        raise ValueError("pbpr_full: the buckets must be 4-byte aligned and "
+                         "of an even element count")
+    if buckets.numel() >> 31:
+        raise ValueError("pbpr_full: the kernel indexes the buckets in 31 "
+                         "bits")
+    geo = pbpr_full_geometry(Wp, B, T, *_pbpr_full_limits(
+        curve, buckets.device), L, w)
     levels = _pbpr_levels(T, buckets.device)
     out = torch.empty((3, L, Wp), dtype=I32, device=buckets.device)
     xchg = torch.empty((2, 3, L, 2 * Wp * T), dtype=I16,
                        device=buckets.device)
     rc = _build.library().msm_pbpr_full(
         L, w, buckets.data_ptr(), out.data_ptr(), xchg.data_ptr(),
-        levels.data_ptr(), levels.numel() // 3, Wp, B, T, stage1, scan,
-        _consts(curve, buckets.device).data_ptr(), _stream(buckets))
+        levels.data_ptr(), levels.numel() // 3, Wp, B, T,
+        geo.threads_per_add, geo.stage1.warps, geo.stage1.blocks,
+        geo.scan_blocks, _consts(curve, buckets.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(buckets))
     _check("pbpr_full", rc)
-    LAUNCHED["pbpr_full"] = dict(stage1_blocks=stage1, scan_blocks=scan,
-                                 threads_per_add=G, adds_per_chain=per_chain)
+    LAUNCHED["pbpr_full"] = pbpr_full_launched(geo)
     return out
+
+
+def pbpr_full_launched(geo: PbprFullGeometry) -> dict:
+    """What `LAUNCHED["pbpr_full"]` records of a launch."""
+    return dict(stage1_warps=geo.stage1.warps,
+                stage1_blocks=geo.stage1.blocks,
+                stage1_waves=geo.stage1.waves, scan_blocks=geo.scan_blocks,
+                threads_per_add=geo.threads_per_add,
+                adds_per_chain=geo.adds_per_chain)
 
 
 # ---------------------------------------------------------------------------
@@ -888,11 +912,18 @@ PBPR_STAGE1_THREADS_PER_CHAIN = 6
 """Threads of a warp that share each of a lane's two add chains in the
 stage-1 kernel (csrc/padd_lane.cuh kAddG); a lane is twice as many."""
 PBPR_STAGE1_MAX_WARPS = 4
-"""Warps a block of the stage-1 kernel at most (csrc/pbpr_stage1.cu
-kMaxWarps)."""
+"""Warps a block of the stage-1 kernels at most (csrc/pbpr_lane.cuh
+kStage1MaxWarps)."""
 PBPR_STAGE1_REGISTERS = 64
-"""Registers a thread of the stage-1 kernel at most (csrc/pbpr_stage1.cu
-kRegisters, held by its __launch_bounds__)."""
+"""Registers a thread of the stage-1 kernels at most at L <= 22
+(csrc/pbpr_lane.cuh stage1_registers, held by the kernels'
+__launch_bounds__); PBPR_STAGE1_REGISTERS_WIDE above."""
+PBPR_STAGE1_REGISTERS_WIDE = 96
+
+
+def pbpr_stage1_registers(num_limbs: int) -> int:
+    return (PBPR_STAGE1_REGISTERS if num_limbs <= 22
+            else PBPR_STAGE1_REGISTERS_WIDE)
 
 
 class Stage1Geometry(NamedTuple):
@@ -915,12 +946,12 @@ def pbpr_stage1_geometry(Wp: int, B: int, T: int, sms: int,
 
     A lane is 12 threads of one warp (PBPR_STAGE1_THREADS_PER_CHAIN for
     the m add, as many for the g add), 2 lanes a warp, and keeps 36 L + 1
-    int32 words in shared memory (csrc/pbpr_stage1.cu LaneMem), beside
+    int32 words in shared memory (csrc/pbpr_lane.cuh Stage1Lane), beside
     the block's copies of `Consts<L>` and `WideConsts<L, w>`. A lane is a
     chain of Bt + 1 steps, so the launch takes as many waves of blocks as
     the card needs to hold every lane once: the blocks an SM holds are
     bounded by its shared memory (each block also takes
-    BLOCK_RESERVED_SHARED), its registers (PBPR_STAGE1_REGISTERS a
+    BLOCK_RESERVED_SHARED), its registers (pbpr_stage1_registers a
     thread), and its block and warp slots. The rule: the fewest waves,
     then the fewest warps a block (1 to PBPR_STAGE1_MAX_WARPS), which
     spreads the lanes most evenly over the SMs."""
@@ -939,7 +970,8 @@ def pbpr_stage1_geometry(Wp: int, B: int, T: int, sms: int,
         if shared > BLOCK_SHARED_BYTES:
             break
         per_sm = min(SM_BLOCKS, SM_WARPS // warps,
-                     SM_REGISTERS // (PBPR_STAGE1_REGISTERS * 32 * warps),
+                     SM_REGISTERS // (pbpr_stage1_registers(num_limbs) * 32
+                                      * warps),
                      SM_SHARED_BYTES // (shared + BLOCK_RESERVED_SHARED))
         blocks = -(-lanes // per_block)
         waves = -(-blocks // (sms * per_sm))
