@@ -67,7 +67,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      window_sums + host Horner on staged inputs, h2d timed apart;
   7. the GLV path: the same call with the default schedule and glv=True,
      on the same inputs, EXACT against the same oracle, counted and timed
-     the same way, and `apply_glv` timed alone; then (`[schedule]`) the
+     the same way (one `glv_apply` and one `decompose_digits` a call);
+     before it, at 2^16 and 2^20 (`[apply_glv]`), `glv_apply` against
+     its plain version on apply_glv's inputs with the edge scalars (0, 1,
+     r - 1, 2^15, lambda, r - lambda, +-max_abs, k1, k2 or both negative)
+     in the first lanes, each edge lane also against the python-int
+     split, the digits of the one `decompose_digits` against the plain
+     version's, and `apply_glv` timed whole; then (`[schedule]`) the
      largest size once more under SCHEDULE, a window group of 16 that
      gives the scan 131,072 lanes and `col_prefix` several columns a
      thread, EXACT, recorded and not made the default; and (`[latency]`)
@@ -76,14 +82,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      warp, one `pbpr_full` stage-1 step, scan level and doubling of its
      tail, and one `pbpr_stage1` step, on one window, from which the
      depth floors of `col_prefix`, `prefix_scan`, `pbpr_full`,
-     `pbpr_stage1` and `pdbl_batch` on 16 lanes follow;
+     `pbpr_stage1` and `pdbl_batch` on 16 lanes follow; and one
+     `to_affine` on one point, the depth floor of its chain;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes
      (LANE_SHAPES), for every number of threads per lane, at BN254_S12
      here and at PROFILE_FULL in phase 9: what the launcher's rule of
      threads per lane rests on;
   8. affine output: `to_affine` on the window sums of the 2^16 runs
-     (without GLV, and with it, where two pad windows are at infinity)
-     against the host decode; then (`[rest]`) one real window_sums +
+     (without GLV, and with it, where two pad windows are at infinity),
+     one launch, against the host decode; the kernel against its plain
+     version on the window sums with four lanes of Z = 0, p, 2p and 3p,
+     int32 and int16, timed; then (`[rest]`) one real window_sums +
      host Horner at 2^16 and 2^20 under torch.profiler: the device time
      of the PyTorch ops outside the port's kernels, op by op, beside the
      kernels' own, and the d2h, decode and Horner on the host clock;
@@ -92,7 +101,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      inputs from gen_planar_inputs(seed=99, k_base=64)): at each size
      the nine kernels against their plain versions on the shapes its run
      gives them, timed against their bounds, the scan for both numbers
-     of threads per lane, the reduction and globalisation checks; the
+     of threads per lane, the reduction and globalisation checks,
+     `[apply_glv]`; the
      MSM EXACT at each size, counted and timed; for BLS12_377_S12 also
      the GLV MSM, to_affine, the [latency] line and the [scan-lanes]
      sweep; a [where] line for each size;
@@ -168,7 +178,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      off-curve request that must get the error frame; wall times and
      the server's compute_ms;
  18. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
-    with all nine kernels (pbpr_full with the geometry the user call
+    with all eleven kernels (pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; under "profiles" each kernel's
     time, bound, launches and error at each profile of PROFILES; the six
     of the main path with their launches on the sharded path and their
@@ -188,6 +198,7 @@ import json
 import math
 import multiprocessing
 import os
+import random
 import re
 import shutil
 import socket
@@ -237,7 +248,8 @@ PROFILE_FULL = BLS12_377_S12
 DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
         "padd_batch", "pbpr_full")
-KERNELS = MAIN + ("pdbl_batch", "pbpr_stage1", "globalize")
+KERNELS = MAIN + ("pdbl_batch", "pbpr_stage1", "globalize", "glv_apply",
+                  "to_affine")
 # (Wg, C, R) of the scan's lane sweep. On 132 SMs a block of G = 6 (20
 # lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
 # second block of G = 2 (64 lanes) above 8,448; the launcher's rule
@@ -272,6 +284,12 @@ SOURCES = {
                     "tpu_msm/cuzk/kernels.py:615", "reduce, twin"),
     "globalize": ("tpu_msm_torch/csrc/globalize.cu",
                   "tpu_msm/cuzk/kernels.py:261", "globalise"),
+    # counterparts of functions the JAX package leaves to XLA (no
+    # pallas_call): the GLV split and doubled stream, and to_affine
+    "glv_apply": ("tpu_msm_torch/csrc/glv_apply.cu",
+                  "tpu_msm/cuzk/glv.py:105", "glv, twin glv"),
+    "to_affine": ("tpu_msm_torch/csrc/to_affine.cu",
+                  "tpu_msm/ops/inverse.py:124", "affine"),
 }
 
 # Bound model (H100 SXM, published peaks at 700 W): HBM at 3.35 TB/s;
@@ -305,7 +323,31 @@ def mul_wide_mads(L: int, w: int) -> int:
 # The kernels whose Montgomery multiply is the word-wide one: their
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
 WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
-        "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full")
+        "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full", "glv_apply",
+        "to_affine")
+# 32 x 32-bit word products of the GLV split (csrc/glv_split.cuh): two
+# Babai products of 8 x 5 words and four truncated products of 5 x 6
+# words mod 2^192 (20 each); a .lo and a .hi half each.
+GLV_SPLIT_PRODUCTS = 2 * 8 * 5 + 4 * 20
+
+
+def chain_muls(curve) -> int:
+    """Multiplies of one Fermat chain over p - 2: a squaring a bit, a
+    product a set bit."""
+    e = curve.p - 2
+    return e.bit_length() + bin(e).count("1")
+
+
+def affine_muls(curve) -> int:
+    """Word-wide multiplies of csrc/to_affine.cu a point: Z times one, its
+    own chain, X zinv and Y zinv."""
+    return 3 + chain_muls(curve)
+
+
+# Multiplies an element of Montgomery's trick (a prefix product, two on
+# the way back) with Z times one, X zinv and Y zinv; the batch adds one
+# chain. The least work of to_affine, so the yardstick of its bound.
+TRICK_MULS = 6
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -328,7 +370,12 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
     mm = mont_mul_ops(L)
     if wide and name in WIDE:
         mm = 2 * mul_wide_mads(L, curve.log_limb_size)
-    nbytes = sum(a.numel() * a.element_size() for a in args + as_tuple(out)
+    ins = args
+    if name == "glv_apply":
+        # the kernel reads only the halfwords of a scalar below r
+        hs = (curve.scalar_modulus.bit_length() + 15) // 16
+        ins = args[:2] + (args[2][:hs],) + args[3:]
+    nbytes = sum(a.numel() * a.element_size() for a in ins + as_tuple(out)
                  if isinstance(a, torch.Tensor))
     if name == "encode_mont":
         ops = args[0].shape[1] * mm
@@ -360,6 +407,12 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
     elif name == "globalize":
         _, _, R, F = args[0].shape
         ops = R * F * MULS["padd"] * mm
+    elif name == "glv_apply":
+        ops = args[0].shape[1] * (mm + 4 * GLV_SPLIT_PRODUCTS)
+    elif name == "to_affine":
+        # Montgomery's trick, not the kernel's chain a point: the least
+        # work of the function (compare() adds the chain's count beside)
+        ops = (args[0][0, 0].numel() * TRICK_MULS + chain_muls(curve)) * mm
     else:
         raise KeyError(name)
     return nbytes, ops
@@ -556,6 +609,14 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
     if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
+    if name == "to_affine":
+        # the kernel's own work: a chain a point
+        K = args[0][0, 0].numel()
+        mm = 2 * mul_wide_mads(curve.num_limbs, curve.log_limb_size)
+        extra["bound_ms_chain"] = bound_ms(nbytes,
+                                           K * affine_muls(curve) * mm)[0]
+        note += (f" bound_ms by a chain a point="
+                 f"{extra['bound_ms_chain']:.4f}")
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
     how = "queued behind a busy call" if queued else "back to back"
     print(f"[kernel] {curve.name} {key} {tag} in={shape} "
@@ -1052,7 +1113,8 @@ def latency(curve, card: str, scan_G: int) -> dict:
     warp (32 lanes; one lane for pdbl_batch); on one window of 8 lanes,
     twelve threads each, two a warp, one pbpr_full stage-1 step, one
     doubling of its tail and one pbpr_stage1 step; one pbpr_full scan
-    level on one window of 8 and of 64 lanes."""
+    level on one window of 8 and of 64 lanes; one to_affine chain on one
+    point."""
     L, R = curve.num_limbs, 128
     rng = np.random.default_rng(11)
     lazy = lambda shape: torch.from_numpy(rng.integers(
@@ -1107,6 +1169,10 @@ def latency(curve, card: str, scan_G: int) -> dict:
           for Bt in (lo, hi)}
     s1_geo = dict(kernels.LAUNCHED["pbpr_stage1"])
     stage1_step = (s1[hi] - s1[lo]) / (hi - lo)
+    # to_affine on one point: one Fermat chain on a lone warp, the depth
+    # floor of any launch of it
+    one = lazy((1,)).to(torch.int32)
+    aff_ms = queued_ms(lambda: to_affine(one, curve), 20, blocker)
     print(f"[latency] {curve.name}: padd_batch on 32 lanes {padd_ms:.4f} "
           f"ms a launch "
           f"(launched {padd_geo}); pdbl_batch on 16 lanes {dbl_ms[16]:.4f} "
@@ -1125,8 +1191,9 @@ def latency(curve, card: str, scan_G: int) -> dict:
           + ", ".join(f"T = {T} {t:.4f} ms" for T, t in lv_ms.items())
           + f"; pbpr_stage1 step (two adds at once) "
           f"{stage1_step:.5f} ms, from the same buckets: Bt = {lo} "
-          f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo} "
-          f"[{card}]", flush=True)
+          f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo}; "
+          f"to_affine on one point (a chain of {affine_muls(curve)} "
+          f"multiplies) {aff_ms:.4f} ms [{card}]", flush=True)
     return dict(padd_ms=padd_ms, padd_launched=padd_geo,
                 pdbl_16_lanes_ms=dbl_ms[16], pdbl_one_warp_ms=dbl_ms[1],
                 pdbl_one_warp_launched=dbl_geo,
@@ -1135,7 +1202,8 @@ def latency(curve, card: str, scan_G: int) -> dict:
                 pbpr_doubling_ms=pbpr_dbl, pbpr_level_ms=pbpr_level,
                 pbpr_one_warp_ms=pb, pbpr_one_window_bt1_ms=lv_ms,
                 pbpr_stage1_step_ms=stage1_step,
-                pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo)
+                pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo,
+                to_affine_one_lane_ms=aff_ms)
 
 
 def first_group(curve, seen: dict):
@@ -1263,17 +1331,85 @@ def check_size(logn: int, card: str):
     results_glv = check_main_kernels(CURVE, seen, f"n=2^{logn} glv", card,
                                      reps)
     sweep_glv = scan_sweep(CURVE, seen, f"n=2^{logn} glv", card, reps)
-    _, args, kw, _ = seen["apply_glv"]
-    glv_ms = cuda_ms(lambda: glv_dev.apply_glv(*args, **kw), reps)
-    print(f"[apply_glv] n=2^{logn}: {glv_ms:.2f} ms for "
-          f"{args[0].shape[1]} points (torch ops and 2 decompose_digits "
-          f"launches) [{card}]", flush=True)
+    results_glv["glv_apply"] = glv_check(
+        CURVE, seen["apply_glv"][1], f"n=2^{logn} glv", card, reps)
+    glv_ms = results_glv["glv_apply"]["apply_glv_ms"]
     del seen
     torch.cuda.empty_cache()
     return dict(main=results, glv=results_glv, reduce_launches=red[0],
                 reduce_ms=red[1], globalize_launches=glob, apply_glv_ms=glv_ms,
                 scan_sweep=sweep, scan_sweep_glv=sweep_glv,
                 pbpr_edges=pbpr_edge)
+
+
+def glv_edge_scalars(glvp) -> list:
+    """0, 1, r - 1, 2^15, lambda, r - lambda, +-max_abs, then seeded
+    scalars until k1 alone, k2 alone and both are negative."""
+    r = glvp.curve.scalar_modulus
+    ks = [0, 1, r - 1, 1 << 15, glvp.lam, r - glvp.lam, glvp.max_abs,
+          r - glvp.max_abs]
+    rng = random.Random(14)
+    want = {(True, False), (False, True), (True, True)}
+    while want:
+        k = rng.randrange(r)
+        n1, _, n2, _ = glvp.split_signed(k)
+        if (n1, n2) in want:
+            want.discard((n1, n2))
+            ks.append(k)
+    return ks
+
+
+def glv_args(curve, logn: int) -> tuple:
+    """What the device program hands `apply_glv` at one size: the
+    Montgomery points, the (18, n) halfwords, the GLV config."""
+    n = 1 << logn
+    xs, ys, hw, _, _ = inputs(curve, logn)
+    hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(DEVICE)
+    return (kernels.encode_mont(t(xs), curve),
+            kernels.encode_mont(t(ys), curve), t(hw), config(curve, logn, True))
+
+
+def glv_check(curve, args, tag: str, card: str, reps: int) -> dict:
+    """[apply_glv]: `glv_apply` against `glv_apply_plain` on apply_glv's
+    inputs (xm, ym, hw, cfg) with the edge scalars in the first lanes,
+    timed; the digits of the one `decompose_digits` against the plain
+    version's; the edge lanes' signs and magnitudes against the python
+    ints; then `apply_glv` whole, timed."""
+    xm, ym, hw, cfg = args
+    glvp = cfg.glv_params
+    ks = glv_edge_scalars(glvp)
+    hw = hw.clone()
+    hw[:16, :len(ks)] = torch.tensor(
+        [int_to_limbs(k, 16, 16) for k in ks], dtype=torch.int32,
+        device=hw.device).T
+    res = compare(curve, "glv_apply", "glv_apply",
+                  (xm, ym, hw, curve, glvp), {}, tag, card, reps)
+    _, _, mags, neg1, neg2 = kernels.glv_apply(xm, ym, hw, curve, glvp)
+    W, s = cfg.num_windows, cfg.window_size
+    digits = glv_dev.apply_glv(xm, ym, hw, cfg)[2]
+    plain = kernels.glv_apply_plain(xm, ym, hw, curve, glvp)[2]
+    if not torch.equal(digits, kernels.decompose_digits_plain(plain, s, W)):
+        raise AssertionError(f"apply_glv at {tag}: digits differ from the "
+                             "plain version's")
+    n, m = xm.shape[1], mags[:, :len(ks)].cpu().tolist()
+    m2 = mags[:, n:n + len(ks)].cpu().tolist()
+    val = lambda rows_, i: sum(int(v[i]) << (16 * j)
+                               for j, v in enumerate(rows_))
+    for i, k in enumerate(ks):
+        got = (bool(neg1[i]), val(m, i), bool(neg2[i]), val(m2, i))
+        if got != glvp.split_signed(k):
+            raise AssertionError(f"glv_apply at {tag}: edge scalar {k} "
+                                 f"splits to {got}")
+    ms = cuda_ms(lambda: glv_dev.apply_glv(xm, ym, hw, cfg), reps)
+    print(f"[apply_glv] {curve.name} {tag}: glv_apply bit-identical to its "
+          f"plain version on {n} points, {len(ks)} edge scalars among them "
+          f"(each equal to the python-int split); the digits of the one "
+          f"decompose_digits equal; glv_apply {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.1f} ms; apply_glv (glv_apply + "
+          f"decompose_digits, back to back) {ms:.4f} ms [{card}]",
+          flush=True)
+    return dict(res, apply_glv_ms=ms, edge_scalars=len(ks))
 
 
 def main_path(curve, logn: int, card: str, glv: bool = False):
@@ -1304,6 +1440,14 @@ def main_path(curve, logn: int, card: str, glv: bool = False):
     idle = [k for k in MAIN if launches[k] == 0]
     if idle:
         raise AssertionError(f"2^{logn} {label}: kernels not launched: {idle}")
+    # under GLV one glv_apply and one decompose_digits a call, else none
+    want_glv = (1, 1) if glv else (0, 1)
+    if (launches["glv_apply"], launches["decompose_digits"]) != want_glv:
+        raise AssertionError(f"2^{logn} {label}: glv_apply and "
+                             f"decompose_digits launched "
+                             f"{launches['glv_apply']} and "
+                             f"{launches['decompose_digits']} times, "
+                             f"expected {want_glv}")
     used = {k: v for k, v in launches.items() if v}
     print(f"[{label}] {curve.name} n=2^{logn} tpu_variable_base_msm EXACT "
           f"in {t_user:.2f} s"
@@ -1376,9 +1520,10 @@ def where_line(label: str, logn: int, launches: dict, results: dict,
                total_ms: float, card: str, extra: str = "") -> None:
     """launches x kernel time (padd_batch: mean of its two dtype forms);
     returns the kernels' sum."""
+    names = MAIN + (("glv_apply",) if launches["glv_apply"] else ())
     per = {name: launches[name] * statistics.mean(
         r["ms"] for r in results.values() if r["name"] == name)
-        for name in MAIN}
+        for name in names}
     print(f"[{label}] n=2^{logn}: " + ", ".join(
         f"{k} {v:.2f}" for k, v in per.items()) + f" ms; kernels "
         f"{sum(per.values()):.2f} of {total_ms:.2f} ms end to end{extra} "
@@ -1386,8 +1531,12 @@ def where_line(label: str, logn: int, launches: dict, results: dict,
     return sum(per.values())
 
 
-def affine_check(curve, logn: int, card: str, glv: bool) -> float:
-    """Phase 8: `to_affine` on the card against the host decode."""
+def affine_check(curve, logn: int, card: str, glv: bool) -> dict:
+    """Phase 8: `to_affine` on the card. Its user call on the window sums,
+    every launch count set to 0 just before and read just after (one
+    kernel launch), against the host decode; then the kernel against its
+    plain version on the window sums with four lanes more, whose Z has
+    value 0, p, 2p and 3p, timed, and on an int16 copy of them."""
     n = 1 << logn
     cfg = config(curve, logn, glv)
     pipe = get_pipeline(cfg, DEVICE)
@@ -1397,7 +1546,11 @@ def affine_check(curve, logn: int, card: str, glv: bool) -> float:
         *(torch.from_numpy(a.astype(np.int32)).to(DEVICE)
           for a in (xs, ys, hw)), cfg)
     want = pipe._decode_windows(g)
+    kernels.reset_launches()
     (ax, ay, inf), ms = timed_once(lambda: to_affine(g, curve))
+    launches = kernels.LAUNCHES["to_affine"]
+    if launches != 1 or sum(kernels.LAUNCHES.values()) != 1:
+        raise AssertionError(f"to_affine: launches {kernels.LAUNCHES}")
     if ax.device != g.device or ax.shape != g.shape[1:]:
         raise AssertionError("to_affine: wrong device or shape")
     w = curve.log_limb_size
@@ -1412,12 +1565,34 @@ def affine_check(curve, logn: int, card: str, glv: bool) -> float:
                                  "host decode")
     if not all(is_inf for _, _, is_inf in got[len(want):]):
         raise AssertionError("to_affine: a pad window is not at infinity")
+
+    # Z of value 0, p, 2p and 3p beside the window sums' X and Y
+    L = curve.num_limbs
+    edge = g[:, :, :4].clone()
+    edge[2] = torch.tensor([int_to_limbs(k * curve.p, L, w) for k in
+                            range(4)], dtype=torch.int32, device=g.device).T
+    ge = torch.cat([g, edge], dim=2).contiguous()
+    tag = (f"n=2^{logn}{' glv' if glv else ''} window sums + Z of 0, p, 2p, "
+           f"3p")
+    res = compare(curve, "to_affine", "to_affine", (ge, curve), {}, tag,
+                  card, 5)
+    k32 = to_affine(ge, curve)
+    if not bool(k32[2][-4:].all()):
+        raise AssertionError("to_affine: a lane of Z = 0, p, 2p or 3p is "
+                             "not at infinity")
+    for a, b in zip(to_affine(ge.to(torch.int16), curve), k32, strict=True):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("to_affine: int16 limbs give other bits")
     print(f"[affine] {curve.name} n=2^{logn}{' glv' if glv else ''} "
           f"to_affine on the "
           f"(3, L, {g.shape[2]}) window sums ({g.shape[2] - len(want)} pad "
-          f"windows at infinity): equal to the host decode in all {len(want)} windows, "
-          f"infinity masks agree; {ms:.1f} ms [{card}]", flush=True)
-    return ms
+          f"windows at infinity): one launch, equal to the host decode in "
+          f"all {len(want)} windows, infinity masks agree; {ms:.3f} ms the "
+          f"user call; with 4 lanes of Z = 0, p, 2p, 3p (at infinity) "
+          f"bit-identical to its plain version, int32 and int16: kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.1f} ms [{card}]",
+          flush=True)
+    return dict(res, user_ms=ms, launches=launches)
 
 
 def run_profile(curve, sizes, card: str) -> dict:
@@ -1425,13 +1600,14 @@ def run_profile(curve, sizes, card: str) -> dict:
     the six kernels of the main path, `pbpr_stage1`, `globalize` and
     `pdbl_batch` against their plain versions on the shapes the run gives
     them, the scan for every number of threads per lane, the reduction
-    and globalisation paths (phases 3 to 5). Then the MSM at every size,
+    and globalisation paths (phases 3 to 5), and `glv_apply` against its
+    plain version (`[apply_glv]`). Then the MSM at every size,
     EXACT, counted and timed (phase 6); for PROFILE_FULL the GLV MSM and
     the [latency] line (phase 7) and to_affine (phase 8) at the smallest
     size; a [where] line for each size."""
     t0 = time.perf_counter()
     warm_plain(curve)
-    checked, nine = {}, {}
+    checked, nine, glv_checks = {}, {}, {}
     for logn in sizes:
         reps = 5 if logn < 20 else 3
         tag = f"n=2^{logn}"
@@ -1441,13 +1617,15 @@ def run_profile(curve, sizes, card: str) -> dict:
         nine[logn] = check_nine(curve, seen, logn, card, reps,
                                 checked[logn]["pbpr_full"]["ms"])
         del seen
+        glv_checks[logn] = glv_check(curve, glv_args(curve, logn),
+                                     f"n=2^{logn} glv", card, reps)
         torch.cuda.empty_cache()
     runs = {logn: main_path(curve, logn, card) for logn in sizes}
-    out = dict(checked=checked, nine=nine, runs=runs)
+    out = dict(checked=checked, nine=nine, runs=runs, glv_checks=glv_checks)
     if curve is PROFILE_FULL:
         small = min(sizes)
         out["glv"] = main_path(curve, small, card, glv=True)
-        out["affine_ms"] = affine_check(curve, small, card, glv=False)
+        out["affine"] = affine_check(curve, small, card, glv=False)
         out["latency"] = latency(curve, card, runs[max(sizes)][3])
         out["scan_by_lanes"] = lane_sweep(curve, card)
     for logn in sizes:
@@ -1465,8 +1643,30 @@ def profile_entry(name: str, prof: dict) -> dict:
     MSM."""
     out = {}
     sizes = sorted(prof["runs"])
+    if name == "to_affine":
+        # the window sums of the smallest size, PROFILE_FULL only
+        r = prof.get("affine")
+        return r and {"launches": r["launches"], "ms": r["ms"],
+                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                      "bound_ms_chain": r["bound_ms_chain"],
+                      "x_bound": r["ms"] / r["bound_ms"],
+                      "max_abs_err": r["max_abs_err"],
+                      "plain_ms": r["plain_ms"], "library_ms": None,
+                      "at": f"n=2^{min(sizes)} window sums"}
     for logn in sizes:
         sfx = "" if logn == max(sizes) else f"_2p{logn}"
+        if name == "glv_apply":
+            r = prof["glv_checks"][logn]
+            glv_run = prof.get("glv") if logn == min(sizes) else None
+            out.update({f"launches_glv{sfx}": glv_run and glv_run[0][name],
+                        f"ms{sfx}": r["ms"], f"bound_ms{sfx}": r["bound_ms"],
+                        f"bound_by{sfx}": r["bound_by"],
+                        f"x_bound{sfx}": r["ms"] / r["bound_ms"],
+                        f"max_abs_err{sfx}": r["max_abs_err"],
+                        f"plain_ms{sfx}": r["plain_ms"],
+                        f"apply_glv_ms{sfx}": r["apply_glv_ms"],
+                        f"library_ms{sfx}": None})
+            continue
         nine = prof["nine"][logn]
         r = next(v for v in (*prof["checked"][logn].values(),
                              *nine["results"].values()) if v["name"] == name)
@@ -1860,7 +2060,8 @@ def sharded_phase(card: str) -> dict:
 # (profile, log2 n, glv) of the twin's checked runs, at the default schedule
 TWIN_RUNS = ((BN254_S12, 16, False), (BN254_S12, 16, True),
              (BLS12_377_S12, 14, False))
-# the kernels the twin launches; the other four must stay idle
+# the kernels the twin launches, with glv_apply under GLV; the others
+# must stay idle
 TWIN_KERNELS = ("encode_mont", "decompose_digits", "padd_batch",
                 "pbpr_stage1", "pdbl_batch")
 # The first profile of TWIN_RUNS at 2^TWIN_FULL_LOGN once, without GLV,
@@ -1873,6 +2074,10 @@ TWIN_FULL_BUDGET_S = 90.0
 def twin_config(curve, logn: int, glv: bool) -> MSMConfig:
     return dataclasses.replace(default_config(1 << logn, curve), glv=glv,
                                backend="xla")
+
+
+def twin_kernels(glv: bool) -> tuple:
+    return TWIN_KERNELS + (("glv_apply",) if glv else ())
 
 
 def twin_label(curve, logn: int, glv: bool) -> str:
@@ -1891,7 +2096,8 @@ def twin_user_call(curve, logn: int, glv: bool, card: str,
     _, _, hw, base, want = inputs(curve, logn)
     points = [base[i % len(base)] for i in range(n)]
     scalars = preprocess.halfwords_to_ints(hw)
-    targets = [(kernels, k) for k in TWIN_KERNELS] + [(pbpr, "bucket_reduce")]
+    kset = twin_kernels(glv)
+    targets = [(kernels, k) for k in kset] + [(pbpr, "bucket_reduce")]
     seen, counts = {}, {}
     kernels.reset_launches()
     with spy(seen, targets if capture else [], counts):
@@ -1904,8 +2110,8 @@ def twin_user_call(curve, logn: int, glv: bool, card: str,
     if not ref.jac_eq(curve, got, want):
         raise AssertionError(f"[twin] {label}: MSM result differs from the "
                              "oracle")
-    idle = [k for k in TWIN_KERNELS if launches[k] == 0]
-    stray = [k for k in KERNELS if k not in TWIN_KERNELS and launches[k]]
+    idle = [k for k in kset if launches[k] == 0]
+    stray = [k for k in KERNELS if k not in kset and launches[k]]
     if idle or stray:
         raise AssertionError(f"[twin] {label}: kernels not launched {idle}, "
                              f"launched off the path {stray}")
@@ -1945,10 +2151,11 @@ def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
           f"{len(twin_w)} windows [{card}]", flush=True)
 
     tag = f"n=2^{logn}{' glv' if glv else ''} twin"
+    kset = twin_kernels(glv)
     results = {key: compare(curve, key, name, args, kw, tag, card, 3)
                for key, (name, args, kw, _) in seen.items()
-               if name in TWIN_KERNELS}
-    kern_ms = dict.fromkeys(TWIN_KERNELS, 0.0)
+               if name in kset}
+    kern_ms = dict.fromkeys(kset, 0.0)
     for key, r in results.items():
         kern_ms[r["name"]] += counts[key] * r["ms"]
     ms, h2d = timed_runs(cfg, logn, "twin", card)
@@ -1959,11 +2166,11 @@ def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
           + f"; each shape's time by its calls), outside the kernels "
           f"{ms - total:.2f} ms (the row walk's torch mixed adds, sort, "
           f"gathers, scatters, decode, Horner); launches "
-          f"{ {k: run['launches'][k] for k in TWIN_KERNELS} } [{card}]",
+          f"{ {k: run['launches'][k] for k in kset} } [{card}]",
           flush=True)
     return dict(label=label, msm_ms=ms, h2d_ms=h2d, user_s=run["user_s"],
                 kernels_ms=total, kernel_ms=kern_ms, outside_ms=ms - total,
-                launches={k: run["launches"][k] for k in TWIN_KERNELS},
+                launches={k: run["launches"][k] for k in kset},
                 results=results, calls=counts)
 
 
@@ -2434,6 +2641,10 @@ def multipass_phase(card: str) -> dict:
         if passes != expect:
             raise AssertionError(f"{label}: {passes} passes, expected "
                                  f"{expect}")
+        # one glv_apply and one decompose_digits a pass under GLV
+        if (launches.get("glv_apply", 0), launches["decompose_digits"]) != (
+                passes if glv else 0, passes):
+            raise AssertionError(f"{label}: launches {launches}")
         if not ref.jac_eq(CURVE, got, want) or \
                 not ref.jac_eq(CURVE, got, native):
             raise AssertionError(f"{label}: differs from the oracle or "
@@ -2572,7 +2783,8 @@ def main_on_card(t_start: float) -> int:
           f"(nvcc: {_build.build_seconds})", flush=True)
     resources = {}
     for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
-                 "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize"):
+                 "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
+                 "glv_apply", "to_affine"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name
@@ -2618,6 +2830,60 @@ def warm_plain(curve) -> None:
     torch.cuda.synchronize()
 
 
+def result_fields(r: dict, sfx: str = "") -> dict:
+    """What the kernels line keeps of one `compare` result."""
+    return {f"max_abs_err{sfx}": r["max_abs_err"], f"ms{sfx}": r["ms"],
+            f"ms_back_to_back{sfx}": r["ms_cuda"],
+            f"plain_ms{sfx}": r["plain_ms"], f"bound_ms{sfx}": r["bound_ms"],
+            f"bound_by{sfx}": r["bound_by"],
+            f"bound_ms_mont_mul_ops{sfx}": r["bound_ms_mont_mul_ops"],
+            f"library_ms{sfx}": None}
+
+
+def glv_entry(entry: dict, checks, runs, runs_glv, twin, host,
+              profiles) -> dict:
+    """The kernels line's `glv_apply`: launches of the GLV user calls
+    (the main path's are 0), its compare at each size, apply_glv whole,
+    the twin's and the multi-pass run's launches."""
+    for logn in sorted(SIZES, reverse=True):
+        sfx = "" if logn == max(SIZES) else f"_2p{logn}"
+        r = checks[logn]["glv"]["glv_apply"]
+        entry.update({f"launches{sfx}": runs_glv[logn][0]["glv_apply"],
+                      f"launches_main{sfx}": runs[logn][0]["glv_apply"],
+                      f"apply_glv_ms{sfx}": r["apply_glv_ms"],
+                      **result_fields(r, sfx)})
+    tr = twin["runs"].values()
+    entry["launches_twin"] = {r["label"]: r["launches"].get("glv_apply", 0)
+                              for r in tr}
+    entry["launches_multipass_glv"] = host["multipass"]["multipass glv"][
+        "launches"]["glv_apply"]
+    entry["bit_exact"] = True
+    entry["at"] = (f"n=2^{max(SIZES)} GLV (suffix _2p16: n=2^16), the edge "
+                   "scalars in the first lanes")
+    entry["profiles"] = {c: profile_entry("glv_apply", prof)
+                         for c, prof in profiles.items()}
+    return entry
+
+
+def affine_entry(entry: dict, affine, affine_glv, lat, profiles) -> dict:
+    """The kernels line's `to_affine`: the launch of the user call on the
+    window sums, its compare on them with the Z edges, without GLV and
+    with it; the depth floor of one chain; the bound of the kernel's own
+    work (a chain a point) beside the bound (Montgomery's trick)."""
+    for sfx, r in (("", affine), ("_glv", affine_glv)):
+        entry.update({f"launches{sfx}": r["launches"],
+                      f"user_ms{sfx}": r["user_ms"],
+                      f"bound_ms_chain{sfx}": r["bound_ms_chain"],
+                      **result_fields(r, sfx)})
+    entry["depth_floor_ms"] = lat["to_affine_one_lane_ms"]
+    entry["bit_exact"] = True
+    entry["at"] = (f"the (3, L, Wp + 4) window sums of n=2^{min(SIZES)} "
+                   "with 4 lanes of Z = 0, p, 2p, 3p (suffix _glv: GLV)")
+    entry["profiles"] = {c: profile_entry("to_affine", prof)
+                         for c, prof in profiles.items()}
+    return entry
+
+
 def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     """Phases 3 to 19."""
     warm_plain(CURVE)
@@ -2628,8 +2894,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     sched_ms, sched_launches = schedule_run(card)
     lat = latency(CURVE, card, runs[max(SIZES)][3])
     lanes_ms = lane_sweep(CURVE, card)
-    affine_ms = affine_check(CURVE, min(SIZES), card, glv=False)
-    affine_check(CURVE, min(SIZES), card, glv=True)
+    affine = affine_check(CURVE, min(SIZES), card, glv=False)
+    affine_glv = affine_check(CURVE, min(SIZES), card, glv=True)
     rests = {logn: rest_split(logn) for logn in SIZES}
     profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
     shard_run = sharded_phase(card)
@@ -2650,6 +2916,14 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         src, replaces, path = SOURCES[name]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "path": path}
+        if name == "glv_apply":
+            entries.append(glv_entry(entry, checks, runs, runs_glv, twin,
+                                     host, profiles))
+            continue
+        if name == "to_affine":
+            entries.append(affine_entry(entry, affine, affine_glv, lat,
+                                        profiles))
+            continue
         for logn in sorted(SIZES, reverse=True):
             # the first compared call of the kernel (padd_batch: i16 -> i32;
             # pdbl_batch: the (Wg, B+1) batch)
@@ -2798,7 +3072,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                              for k, v in checks.items()},
         "apply_glv_ms": {f"2^{k}": v["apply_glv_ms"]
                          for k, v in checks.items()},
-        "to_affine_ms": {f"2^{min(SIZES)}": affine_ms},
+        "to_affine_ms": {f"2^{min(SIZES)}": affine["user_ms"],
+                         f"2^{min(SIZES)} glv": affine_glv["user_ms"]},
         "schedule": {**SCHEDULE, "msm_ms": sched_ms,
                      "launches": sched_launches},
         "latency_32_lanes": lat, "scan_by_lanes": lanes_ms,
@@ -2815,7 +3090,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             msm_ms={f"2^{k}": v[1] for k, v in prof["runs"].items()},
             h2d_ms={f"2^{k}": v[2] for k, v in prof["runs"].items()},
             msm_glv_ms=prof["glv"][1] if "glv" in prof else None,
-            to_affine_ms=prof.get("affine_ms"),
+            to_affine_ms=prof["affine"]["user_ms"] if "affine" in prof
+            else None,
             scan_by_lanes=prof.get("scan_by_lanes"),
             bucket_reduce_ms={f"2^{k}": v["reduce_ms"]
                               for k, v in prof["nine"].items()},

@@ -18,9 +18,14 @@ default schedule:
     from a fixed seed; CUDA events around back-to-back calls, and a
     kernel under 1 ms again queued behind a busy call (`chip_smoke.py`
     `queued_ms`), which leaves out the wrapper's host cost;
+  - `apply_glv` on the inputs the 2^20 GLV device program gives it, and
+    `to_affine` on the window sums of the 2^16 MSM (one warm call on
+    the host clock between synchronizes: the plain torch version takes
+    seconds);
   - what ptxas said of every kernel at L = 22 and of any kernel with a
     stack frame or spills;
-  - the MSM end to end at 2^16 and 2^20, as `chip_smoke.py` times it.
+  - the MSM end to end at 2^16 and 2^20, without GLV and with it, as
+    `chip_smoke.py` times it.
 Then, once each checkout has run, the multiply's instructions by kind in
 each checkout's own build (`cuobjdump -sass`, counted by this
 checkout's `chip_smoke.py`): the `encode_mont` kernel, which inlines it,
@@ -31,6 +36,7 @@ It needs one card, and the checkouts' own `chip_smoke.py`.
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
@@ -44,8 +50,9 @@ def one(root: str) -> None:
     import torch
 
     import chip_smoke as cs
-    from tpu_msm_torch import _build
+    from tpu_msm_torch import _build, to_affine
     from tpu_msm_torch.constants import BN254_S12 as C
+    from tpu_msm_torch.cuzk import glv as glv_dev
     from tpu_msm_torch.cuzk import kernels
 
     L = C.num_limbs
@@ -81,6 +88,20 @@ def one(root: str) -> None:
     t, s = lazy((128, 8192)), lazy((8192,))
     out.append(timed("globalize (128, 8192)",
                      lambda: kernels.globalize(t, s, C)))
+    del seen, calls, buckets, p, t, s
+    _, args, kw, _ = cs.capture_inputs(C, 20, True)["apply_glv"]
+    out.append(timed(f"apply_glv n=2^20 {tuple(args[0].shape)}",
+                     lambda: glv_dev.apply_glv(*args, **kw)))
+    del args, kw
+    g = cs.capture_inputs(C, 16, False)["pbpr_full"][3][0]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_affine(g, C)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    out.append(f"to_affine n=2^16 window sums {tuple(g.shape)} {ms:.4f} ms "
+               "(one warm call, host clock)")
     for stem in ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
                  "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full"):
         for fn, regs, stack, st, ld in _build.resources(stem):
@@ -88,9 +109,11 @@ def one(root: str) -> None:
                 out.append(f"ptxas {stem} {fn}: {regs} registers, {stack} B "
                            f"stack frame, {st} B spill stores, {ld} B spill "
                            "loads")
-    for logn in (16, 20):
-        ms, _ = cs.timed_runs(cs.config(C, logn, False), logn, "msm", "")
-        out.append(f"msm 2^{logn} {ms:.2f} ms")
+    for glv in (False, True):
+        for logn in (16, 20):
+            label = "msm-glv" if glv else "msm"
+            ms, _ = cs.timed_runs(cs.config(C, logn, glv), logn, label, "")
+            out.append(f"{label} 2^{logn} {ms:.2f} ms")
     for line in out:
         print(f"[ab] {root} {line}", flush=True)
 

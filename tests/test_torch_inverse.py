@@ -15,6 +15,7 @@ from tpu_msm import constants as jc
 from tpu_msm.ops import inverse as jinverse
 from tpu_msm.ops.complete import ProjPoint
 from tpu_msm_torch import constants as tc
+from tpu_msm_torch.cuzk import kernels
 from tpu_msm_torch.ops import inverse, rows
 from tpu_msm_torch.utils.limbs_conversion import ints_to_planar
 
@@ -119,7 +120,7 @@ def test_to_affine(curves):
     assert list(zip(dec_mont(ax, T), dec_mont(ay, T))) == pts + [(0, 0)]
     limb_max = int(max(ax.max(), ay.max()))
     assert limb_max < (1 << T.log_limb_size)
-    rx, ry, rinf = inverse.to_affine(rows.ProjRows(*stacked), T)
+    rx, ry, rinf = inverse.to_affine_plain(rows.ProjRows(*stacked), T)
     assert torch.equal(rx, ax) and torch.equal(ry, ay)
     assert torch.equal(rinf, inf)
 
@@ -138,12 +139,13 @@ def test_to_affine_lazy_zero_z():
     stacked = torch.from_numpy(np.stack([
         enc(X + [0, 5], T), enc(Y + [T.to_mont(1), 7], T),
         enc(Z + [2 * T.p, 3 * T.p], T)]))
-    ax, ay, inf = inverse.to_affine(stacked, T)
+    ax, ay, inf = inverse.to_affine_plain(stacked, T)
     assert inf.tolist() == [False, False, False, True, True]
     assert list(zip(dec_mont(ax, T), dec_mont(ay, T))) == pts + [(0, 0)] * 2
 
 
 def test_public_exports():
-    assert tpu_msm_torch.to_affine is inverse.to_affine
+    assert tpu_msm_torch.to_affine is kernels.to_affine
+    assert kernels.to_affine_plain is inverse.to_affine_plain
     assert tpu_msm_torch.batch_inverse is inverse.batch_inverse
     assert {"to_affine", "batch_inverse"} <= set(tpu_msm_torch.__all__)

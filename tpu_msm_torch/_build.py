@@ -55,6 +55,9 @@ SIGNATURES = {
                         _P, _P],
     "msm_globalize": [_I, _I, _I, _I, _P, _P, _P, _I64, _I64, _I, _I, _I,
                       _P, _P, _P],
+    "msm_glv_apply": [_I, _I, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _P, _P,
+                      _I, _P],
+    "msm_to_affine": [_I, _I, _P, _I64, _P, _P, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

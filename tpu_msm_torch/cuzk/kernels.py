@@ -1,4 +1,4 @@
-"""The nine MSM kernels: one wrapper each.
+"""The MSM kernels: one wrapper each.
 
 Every wrapper has a plain PyTorch version built from `ops/rows.py`
 (`<name>_plain`), the launch of its hand-written CUDA kernel from
@@ -24,6 +24,18 @@ The first six are the main path (`pipeline_cuda.windows_device`);
 (`cuzk/pbpr.py`), and `globalize` is the full-stream form of the G = T + S
 step that the main path takes only at the bucket-region ends.
 
+Two more kernels replace functions that the JAX package leaves to XLA,
+no pallas_call:
+
+  wrapper            replaces                              source
+  glv_apply          tpu_msm/cuzk/glv.py apply_glv         csrc/glv_apply.cu
+                     (the split and the doubled stream)
+  to_affine          tpu_msm/ops/inverse.py to_affine      csrc/to_affine.cu
+
+`glv_apply` serves every path under `glv=True` (`cuzk/glv.apply_glv`);
+`to_affine` is the public `tpu_msm_torch.to_affine`, and its plain
+version is the product tree of `ops/inverse.py`.
+
 `psub_batch` is `padd_batch` of `pneg_stacked(q)`; on a CUDA tensor the
 padd kernel negates q itself as it loads it. `pneg_stacked` and
 `inf_stacked` stay plain torch, as the JAX package keeps them in XLA.
@@ -40,10 +52,14 @@ import torch
 
 from .. import _build
 from ..constants import CurveParams, int_to_limbs
-from ..ops import rows
+from ..glv import M_SHIFT, GLVParams
+from ..ops import limbs, rows
+from ..ops.barrett import mul_wide
+from ..ops.inverse import to_affine_plain
 
 I16 = torch.int16
 I32 = torch.int32
+I64 = torch.int64
 # Element widths the dtype-templated kernels are instantiated for.
 _BITS = {I16: 16, I32: 32}
 
@@ -55,7 +71,7 @@ CUDA_PROFILES = {(22, 12), (21, 13), (32, 12), (30, 13), (6, 12)}
 LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "prefix_scan", "col_prefix", "padd_batch",
                                  "pbpr_full", "pdbl_batch", "pbpr_stage1",
-                                 "globalize")}
+                                 "globalize", "glv_apply", "to_affine")}
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
@@ -123,9 +139,13 @@ def _wide_consts_host(curve: CurveParams) -> list:
     if curve.p >> (32 * nf):
         raise ValueError(f"{curve.name}: the word-wide multiply needs "
                          "p < 2^(32 floor(L*w/32))")
-    words = lambda v, k: [(v >> (32 * i)) & 0xFFFFFFFF for i in range(k)]
     n0 = -pow(curve.p, -1, 1 << 32) % (1 << 32)
-    return words(curve.p, nf) + [n0] + words(curve.r2_mod_p, n)
+    return _words(curve.p, nf) + [n0] + _words(curve.r2_mod_p, n)
+
+
+def _words(v: int, k: int) -> list:
+    """The k little-endian 32-bit words of a non-negative int."""
+    return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(k)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -1066,3 +1086,218 @@ def globalize(tbuf: torch.Tensor, s: torch.Tensor, curve: CurveParams,
     _check("globalize", rc)
     LAUNCHED["globalize"] = geo._asdict()
     return out
+
+
+# ---------------------------------------------------------------------------
+# 10. GLV split and the doubled point stream
+# ---------------------------------------------------------------------------
+
+# working width of the lattice combination: 12 halfwords = 192 bits of
+# two's complement, which hold |k_i| <= 2^127 and a sign
+B_LIMBS = 12
+_B_BITS = 16 * B_LIMBS
+
+# Profiles with an endomorphism that csrc/glv_apply.cu is built for:
+# BN254_S12, BN254_S13, BLS12_377_S12, BLS12_377_S13.
+GLV_PROFILES = {(22, 12), (21, 13), (32, 12), (30, 13)}
+
+
+def _const(value: int, num_limbs: int, device) -> torch.Tensor:
+    """Non-negative int -> (num_limbs, 1) int64 halfwords, broadcastable
+    over the lanes."""
+    return torch.tensor(int_to_limbs(value, num_limbs, 16), dtype=I64,
+                        device=device)[:, None]
+
+
+def split_scalars(halfwords: torch.Tensor, glvp: GLVParams
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """(H, n) scalar halfwords -> (neg1, mag1, neg2, mag2).
+
+    The mags are (B_LIMBS, n) int32 halfword magnitudes |k1|, |k2|; the
+    negs are (n,) bool sign masks. Bit for bit `GLVParams.decompose`: two
+    mul-shift Babai roundings, two lattice combinations in two's
+    complement mod 2^192, then sign and magnitude. The halfword
+    arithmetic runs on int64 limbs (`ops/limbs.py` says why)."""
+    dev = halfwords.device
+    n = halfwords.shape[1]
+    r = glvp.curve.scalar_modulus
+    hs = (r.bit_length() + 15) // 16
+    k = halfwords[:hs].to(I64)
+    shift_limbs = M_SHIFT // 16                       # 17
+
+    cs = []
+    for g in (glvp.g1, glvp.g2):
+        gh = max(1, (g.bit_length() + 15) // 16)
+        prod = mul_wide(k, _const(g, gh, dev))        # (hs + gh, n)
+        # rounding addend 2^(M_SHIFT-1): bit 15 of halfword 16
+        rnd = _const(1 << (M_SHIFT - 1), prod.shape[0], dev)
+        prod = limbs.add_unsafe(prod, rnd)
+        c = prod[shift_limbs:]                        # >> M_SHIFT
+        # c < 2^129 (k < 2^255, g < 2^147): pad or trim to 9 limbs
+        if c.shape[0] < 9:
+            c = torch.cat([c, c.new_zeros((9 - c.shape[0], n))])
+        cs.append(c[:9])
+    c1, c2 = cs
+
+    def mul_mod_b(c: torch.Tensor, const: int) -> torch.Tensor:
+        """c * const mod 2^_B_BITS (a negative const by its two's
+        complement representative)."""
+        return mul_wide(c, _const(const % (1 << _B_BITS), B_LIMBS, dev)
+                        )[:B_LIMBS]
+
+    zero = torch.zeros((B_LIMBS, n), dtype=I64, device=dev)
+    # k[:B_LIMBS] drops the top halfwords of k on purpose: mod 2^192
+    k1 = limbs.sub(limbs.sub(k[:B_LIMBS], mul_mod_b(c1, glvp.a1)),
+                   mul_mod_b(c2, glvp.a2))
+    k2 = limbs.sub(zero, limbs.add_unsafe(mul_mod_b(c1, glvp.b1),
+                                          mul_mod_b(c2, glvp.b2)))
+
+    def sign_mag(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        neg = (x[B_LIMBS - 1] >> 15) == 1             # two's complement sign
+        mag = limbs.select(neg, limbs.sub(zero, x), x)
+        return neg, mag.to(I32)
+
+    neg1, mag1 = sign_mag(k1)
+    neg2, mag2 = sign_mag(k2)
+    return neg1, mag1, neg2, mag2
+
+
+def glv_apply_plain(xm: torch.Tensor, ym: torch.Tensor,
+                    halfwords: torch.Tensor, curve: CurveParams,
+                    glvp: GLVParams):
+    neg1, mag1, neg2, mag2 = split_scalars(halfwords, glvp)
+    # phi(P) = (beta * x, y); the signs fold into y (-P = (x, -y))
+    xb = rows.mont_mul_rows(
+        xm, rows.const_rows(curve.to_mont(glvp.beta), curve, xm), curve)
+    # 2p - y, rippled again: the int16 row table needs canonical limbs
+    yn = rows.canon_rows(rows.neg_rows(ym, curve, 2), curve)
+    y1 = rows.select_rows(neg1, yn, ym)
+    y2 = rows.select_rows(neg2, yn, ym)
+    return (torch.cat([xm, xb], dim=-1), torch.cat([y1, y2], dim=-1),
+            torch.cat([mag1, mag2], dim=-1), neg1, neg2)
+
+
+def _glv_consts_host(curve: CurveParams, glvp: GLVParams) -> list:
+    """The words of `GlvConsts<L, W>` (csrc/glv_apply.cu): the
+    `WideConsts` of the multiply, beta R mod p in ceil(L w / 32) words,
+    2p in L canonical limbs, then `_glv_split_words`."""
+    n = -(-curve.num_limbs * curve.log_limb_size // 32)
+    return (_wide_consts_host(curve) + _words(curve.to_mont(glvp.beta), n)
+            + int_to_limbs(2 * curve.p, curve.num_limbs, curve.log_limb_size)
+            + _glv_split_words(glvp))
+
+
+def _glv_split_words(glvp: GLVParams) -> list:
+    """The words of `GlvSplit` (csrc/glv_split.cuh): g1 and g2 in 5
+    words, a1, a2, b1, b2 mod 2^192 in 6. Refuses a Babai multiplier of
+    2^159 or more, where k g + 2^271 could pass the 13 words of the
+    product."""
+    if max(glvp.g1, glvp.g2) >> 159:
+        raise ValueError(f"{glvp.curve.name}: a GLV multiplier is too wide "
+                         "for the kernel's 5 words")
+    mod_b = lambda v: _words(v % (1 << _B_BITS), 6)
+    return (_words(glvp.g1, 5) + _words(glvp.g2, 5) + mod_b(glvp.a1)
+            + mod_b(glvp.a2) + mod_b(glvp.b1) + mod_b(glvp.b2))
+
+
+@functools.lru_cache(maxsize=None)
+def _glv_consts(curve: CurveParams, glvp: GLVParams) -> ctypes.Array:
+    words = _glv_consts_host(curve, glvp)
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def glv_apply(xm: torch.Tensor, ym: torch.Tensor, halfwords: torch.Tensor,
+              curve: CurveParams, glvp: GLVParams):
+    """Montgomery-encoded (L, n) points and raw (H, n) 16-bit scalar
+    halfwords -> (x2, y2, mags, neg1, neg2): the doubled stream of 2n
+    lanes, sign1 * P then sign2 * phi(P), as canonical limbs (y negated
+    as 2p - y, rippled), the (B_LIMBS, 2n) int32 halfword magnitudes
+    |k1| then |k2|, and the (n,) bool signs of k1 and k2."""
+    if glvp.curve != curve:
+        raise ValueError(f"glv_apply: GLV parameters of {glvp.curve.name} "
+                         f"for {curve.name}")
+    if not _on_cuda("glv_apply", xm, ym, halfwords):
+        return glv_apply_plain(xm, ym, halfwords, curve, glvp)
+    L, w = _profile("glv_apply", curve)
+    if (L, w) not in GLV_PROFILES:
+        raise ValueError(f"glv_apply: no GLV kernel for {curve.name}")
+    for t in (xm, ym, halfwords):
+        _need("glv_apply", t, I32, 2)
+    n = xm.shape[1]
+    if ym.shape != (L, n) or xm.shape[0] != L or halfwords.shape[1] != n:
+        raise ValueError(f"glv_apply: shapes {tuple(xm.shape)}, "
+                         f"{tuple(ym.shape)}, {tuple(halfwords.shape)}")
+    hs = (curve.scalar_modulus.bit_length() + 15) // 16
+    dev = xm.device
+    x2 = torch.empty((L, 2 * n), dtype=I32, device=dev)
+    y2 = torch.empty_like(x2)
+    mags = torch.empty((B_LIMBS, 2 * n), dtype=I32, device=dev)
+    neg1 = torch.empty(n, dtype=torch.bool, device=dev)
+    neg2 = torch.empty_like(neg1)
+    if n:
+        consts = _glv_consts(curve, glvp)
+        rc = _build.library().msm_glv_apply(
+            L, w, xm.data_ptr(), ym.data_ptr(), halfwords.data_ptr(),
+            min(hs, halfwords.shape[0]), n, x2.data_ptr(), y2.data_ptr(),
+            mags.data_ptr(), neg1.data_ptr(), neg2.data_ptr(),
+            ctypes.addressof(consts), len(consts), _stream(xm))
+        _check("glv_apply", rc)
+    return x2, y2, mags, neg1, neg2
+
+
+# ---------------------------------------------------------------------------
+# 11. projective -> affine: a Fermat chain a point
+# ---------------------------------------------------------------------------
+
+
+def _affine_consts_host(curve: CurveParams) -> list:
+    """The words of `AffineConsts<L, W>` (csrc/to_affine.cu): the
+    `WideConsts` of the multiply, R mod p and the exponent p - 2 in
+    ceil(L w / 32) words each, and the exponent's bit length."""
+    n = -(-curve.num_limbs * curve.log_limb_size // 32)
+    e = curve.p - 2
+    return (_wide_consts_host(curve)
+            + _words(curve.r_mod_p, n) + _words(e, n) + [e.bit_length()])
+
+
+@functools.lru_cache(maxsize=None)
+def _affine_consts(curve: CurveParams) -> ctypes.Array:
+    words = _affine_consts_host(curve)
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def to_affine(p, curve: CurveParams
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projective (X : Y : Z), a `rows.ProjRows` or a stacked (3, L, ...)
+    tensor (int16 or int32 lazy limbs), -> affine (X/Z, Y/Z), fully
+    reduced (< p) in the Montgomery domain, and the infinity mask.
+
+    On CPU tensors `to_affine_plain` (`ops/inverse.py`, a product tree);
+    on CUDA tensors the kernel of csrc/to_affine.cu, a Fermat chain a
+    point, which gives the same bits: the outputs are fully reduced, so
+    unique."""
+    px, py, pz = p
+    if not _on_cuda("to_affine", px, py, pz):
+        return to_affine_plain(p, curve)
+    L, w = _profile("to_affine", curve)
+    batch = px.shape[1:]
+    if px.shape[0] != L or py.shape != px.shape or pz.shape != px.shape:
+        raise ValueError(f"to_affine: coordinates of shapes "
+                         f"{tuple(px.shape)}, {tuple(py.shape)}, "
+                         f"{tuple(pz.shape)} for L = {L}")
+    pts = (p if isinstance(p, torch.Tensor) else torch.stack([px, py, pz]))
+    pts = pts.to(torch.int32).reshape(3, L, -1).contiguous()
+    K = pts.shape[2]
+    x = torch.empty((L, K), dtype=torch.int32, device=pts.device)
+    y = torch.empty_like(x)
+    inf = torch.empty(K, dtype=torch.bool, device=pts.device)
+    if K:
+        consts = _affine_consts(curve)
+        rc = _build.library().msm_to_affine(
+            L, w, pts.data_ptr(), K, x.data_ptr(), y.data_ptr(),
+            inf.data_ptr(), ctypes.addressof(consts), len(consts),
+            _stream(pts))
+        _check("to_affine", rc)
+    return (x.reshape((L,) + batch), y.reshape((L,) + batch),
+            inf.reshape(batch))

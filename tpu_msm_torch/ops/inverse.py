@@ -12,7 +12,10 @@ The functions run where their tensors are (CPU or CUDA).
     `fermat_inv` at the root. Zeros are replaced by one on the way up and
     zeroed again in the result, so it agrees with `fermat_inv` element
     by element.
-  * `to_affine`: (X : Y : Z) -> (X/Z, Y/Z) and the infinity mask.
+  * `to_affine_plain`: (X : Y : Z) -> (X/Z, Y/Z) and the infinity mask,
+    on the product tree above; the plain version of the kernel
+    csrc/to_affine.cu (a Fermat chain a point), whose wrapper is
+    `cuzk/kernels.to_affine`, the public `tpu_msm_torch.to_affine`.
 """
 
 from __future__ import annotations
@@ -97,8 +100,8 @@ def batch_inverse(a: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     return inv.reshape(a.shape)
 
 
-def to_affine(p, curve: CurveParams
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def to_affine_plain(p, curve: CurveParams
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projective (X : Y : Z), a `rows.ProjRows` or a stacked (3, L, ...)
     tensor, -> affine (X/Z, Y/Z) and the infinity mask.
 
@@ -120,3 +123,4 @@ def to_affine(p, curve: CurveParams
     x = torch.where(inf, torch.zeros_like(x), x)
     y = torch.where(inf, torch.zeros_like(y), y)
     return x, y, inf
+
