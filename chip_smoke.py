@@ -18,21 +18,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the same CUDA inputs, bit-identical, with times from CUDA events
      (a kernel under QUEUE_BELOW_MS back to back is timed again queued
      behind a busy call, which leaves out its wrapper's host cost; both
-     times are printed; the eight kernels on the word-wide multiply,
+     times are printed; the nine kernels on the word-wide multiply,
      `encode_mont`, `prefix_scan`, `col_prefix`, `padd_batch`,
-     `pdbl_batch`, `pbpr_stage1`, `globalize` and `pbpr_full`, also print
-     their bound by the 12-bit multiply's count, mont_mul_ops, beside
-     their own).
-     The six kernels of the main path at both configurations, and
-     `psub_batch` (the padd kernel negating q on load) against its own
-     plain version, `padd_batch` of `pneg_stacked`;
+     `pdbl_batch`, `pbpr_stage1`, `globalize`, `pbpr_full` and
+     `extract_buckets`, also print their bound by the 12-bit multiply's
+     count, mont_mul_ops, beside their own).
+     The seven kernels of the main path at both configurations
+     (`extract_buckets` on the first window group, the whole bucket
+     tensor compared); `padd_batch` and `psub_batch` (the padd kernel
+     negating q on load; against its own plain version, `padd_batch` of
+     `pneg_stacked`) at the shapes of the stage-3 chain that
+     `extract_buckets` replaced, run on the first group after the
+     capture; `[yardstick]`: `bucket_sort` beside torch.sort (stable,
+     by |d|) and the stage-2 chain it replaced, `extract_buckets` beside
+     the nine launches it replaced, on the same inputs;
      `pbpr_stage1` on the buckets `pbpr_full` received; `pdbl_batch` on
      one (3, L, Wg, B+1) batch and on the (3, L, Wp) sum that
      `bucket_reduce` doubles; `globalize` on the first window group's
      scan output and column prefix; `prefix_scan` once more for every
      number of threads per lane its launcher can pick, bit-identical to
      the first and timed (`[scan-G]`); and, at 2^16, both redesigned
-     kernels at shapes the two sizes do not reach (`[edge]`): `col_prefix`
+     kernels at shapes the two sizes do not reach (`[edge]`):
+     `bucket_sort` on all-zero digits, one point, +-2^(s-1) in a partial
+     last tile, s = 8 (one pass), s = 16 at +-2^15 and a shard of the
+     windows; `extract_buckets` with cnt == 0 lanes (j = 0, a window, a
+     block's halo) and cnt == n lanes and at the last group; `col_prefix`
      at (Wg, C) = (1, 1), (3, 32), (4, 2048) with half the columns at
      infinity, equal neighbours and a column followed by its negative,
      (5, 64) with int16 limbs at both ends of the ledger, and (16, 8192),
@@ -59,7 +69,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      buckets, equal in the group to `pbpr_full` window by window, its
      launch counts reset before and read after;
   5. the globalisation check: `globalize(T, S)` at the bucket-region ends
-     of the first window group, bit-identical to the main path's G;
+     of the first window group (from `bucket_sort`'s counts),
+     bit-identical to the stage-3 chain's G, and the buckets made from it
+     bit-identical to those the main path's `extract_buckets` wrote;
   6. the main path, `tpu_variable_base_msm` on the card, at 2^16 and 2^20
      with inputs from gen_planar_inputs(seed=99, k_base=64): EXACT against
      the O(k_base) linearity oracle, every kernel's launch count reset
@@ -82,8 +94,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      warp, one `pbpr_full` stage-1 step, scan level and doubling of its
      tail, and one `pbpr_stage1` step, on one window, from which the
      depth floors of `col_prefix`, `prefix_scan`, `pbpr_full`,
-     `pbpr_stage1` and `pdbl_batch` on 16 lanes follow; and one
-     `to_affine` on one point, the depth floor of its chain;
+     `pbpr_stage1` and `pdbl_batch` on 16 lanes follow; one
+     `to_affine` on one point, the depth floor of its chain; and one
+     `extract_buckets` block (19 buckets of one window), its two
+     dependent adds, the depth floor of a launch;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes
      (LANE_SHAPES), for every number of threads per lane, at BN254_S12
      here and at PROFILE_FULL in phase 9: what the launcher's rule of
@@ -158,8 +172,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  14. `[profile]`: in a fresh process (torch.profiler loses the first
      kernel records of every later session of a process),
      `utils/profiling.trace` around one 2^16 `tpu_variable_base_msm`
-     (counted, EXACT), whose Chrome trace must name the six kernels of
-     the main path; `device_ms` of `apply_glv` and of `to_affine` alone
+     (counted, EXACT), whose Chrome trace must name the seven kernels of
+     the main path (`bucket_sort` by its three kernels); `device_ms` of `apply_glv` and of `to_affine` alone
      at 2^16, each with the device time of its kernels read from its own
      trace, and each trace's launches without a kernel record; then a
      StageTimer table of pack, window_sums and Horner;
@@ -178,12 +192,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      off-curve request that must get the error frame; wall times and
      the server's compute_ms;
  18. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
-    with all eleven kernels (pbpr_full with the geometry the user call
-    launched, from kernels.LAUNCHED; under "profiles" each kernel's
-    time, bound, launches and error at each profile of PROFILES; the six
+    with all thirteen kernels (pbpr_full with the geometry the user call
+    launched, from kernels.LAUNCHED; `bucket_sort` with torch.sort's time
+    as library_ms and both new kernels with their chains' as chain_ms;
+    under "profiles" each kernel's
+    time, bound, launches and error at each profile of PROFILES; the seven
     of the main path with their launches on the sharded path and their
-    largest error against the plain version there, padd_batch also its
-    halving tree's launches; the five of the twin its launches, time
+    largest error against the plain version there, padd_batch its main
+    path's launches (0 since PR 15) and its halving tree's; the five of the twin its launches, time
     and error at each of TWIN_RUNS) and the `[sharded]` and `[twin]`
     numbers under "sharded" and "twin", those of phases 13 to 17 under
     their names, and each main-path kernel's launches on their paths;
@@ -247,9 +263,9 @@ PROFILES = ((BLS12_377_S12, (16, 20)), (BN254_S13, (16,)),
 PROFILE_FULL = BLS12_377_S12
 DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
-        "padd_batch", "pbpr_full")
-KERNELS = MAIN + ("pdbl_batch", "pbpr_stage1", "globalize", "glv_apply",
-                  "to_affine")
+        "bucket_sort", "extract_buckets", "pbpr_full")
+KERNELS = MAIN + ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
+                  "glv_apply", "to_affine")
 # (Wg, C, R) of the scan's lane sweep. On 132 SMs a block of G = 6 (20
 # lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
 # second block of G = 2 (64 lanes) above 8,448; the launcher's rule
@@ -275,7 +291,7 @@ SOURCES = {
                    "tpu_msm/cuzk/kernels.py:538", "main, glv"),
     "padd_batch": ("tpu_msm_torch/csrc/padd_batch.cu",
                    "tpu_msm/cuzk/kernels.py:309",
-                   "main, glv, reduce, twin"),
+                   "reduce, twin, sharded tree"),
     "pbpr_full": ("tpu_msm_torch/csrc/pbpr_full.cu",
                   "tpu_msm/cuzk/kernels.py:656", "main, glv"),
     "pdbl_batch": ("tpu_msm_torch/csrc/pdbl_batch.cu",
@@ -290,6 +306,13 @@ SOURCES = {
                   "tpu_msm/cuzk/glv.py:105", "glv, twin glv"),
     "to_affine": ("tpu_msm_torch/csrc/to_affine.cu",
                   "tpu_msm/ops/inverse.py:124", "affine"),
+    # counterparts of what XLA compiles around the Pallas kernels of the
+    # JAX package's device program: the stage-2 sort and boundary counts,
+    # the stage-3 gathers, adds and select
+    "bucket_sort": ("tpu_msm_torch/csrc/bucket_sort.cu",
+                    "tpu_msm/cuzk/pipeline_pallas.py:208", "main, glv"),
+    "extract_buckets": ("tpu_msm_torch/csrc/extract_buckets.cu",
+                        "tpu_msm/cuzk/pipeline_pallas.py:292", "main, glv"),
 }
 
 # Bound model (H100 SXM, published peaks at 700 W): HBM at 3.35 TB/s;
@@ -324,7 +347,7 @@ def mul_wide_mads(L: int, w: int) -> int:
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
 WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
         "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full", "glv_apply",
-        "to_affine")
+        "to_affine", "extract_buckets")
 # 32 x 32-bit word products of the GLV split (csrc/glv_split.cuh): two
 # Babai products of 8 x 5 words and four truncated products of 5 x 6
 # words mod 2^192 (20 each); a .lo and a .hi half each.
@@ -348,6 +371,9 @@ def affine_muls(curve) -> int:
 # the way back) with Z times one, X zinv and Y zinv; the batch adds one
 # chain. The least work of to_affine, so the yardstick of its bound.
 TRICK_MULS = 6
+# int32 operations of bucket_sort's ranking, an element a pass: its digit,
+# the eight ballots of its peers, its rank and slot.
+SORT_OPS = 16
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -377,6 +403,13 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         ins = args[:2] + (args[2][:hs],) + args[3:]
     nbytes = sum(a.numel() * a.element_size() for a in ins + as_tuple(out)
                  if isinstance(a, torch.Tensor))
+    if name == "extract_buckets":
+        # what the function needs: T and S at the (B + 1) Wg region ends,
+        # their counts, and the group's buckets written
+        tbuf, _, cnt, _, _, Wg = args[:6]
+        ends = Wg * cnt.shape[1]
+        nbytes = (ends * (2 * 3 * L * tbuf.element_size() + 4)
+                  + (ends - Wg) * 3 * L * out.element_size())
     if name == "encode_mont":
         ops = args[0].shape[1] * mm
     elif name == "decompose_digits":
@@ -409,6 +442,12 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         ops = R * F * MULS["padd"] * mm
     elif name == "glv_apply":
         ops = args[0].shape[1] * (mm + 4 * GLV_SPLIT_PRODUCTS)
+    elif name == "bucket_sort":
+        ops = args[0].numel() * kernels.sort_passes(args[1]) * SORT_OPS
+    elif name == "extract_buckets":
+        # (B + 1) Wg adds of T and S, B Wg differences of neighbours
+        Wg, B = args[5], args[2].shape[1] - 1
+        ops = Wg * (2 * B + 1) * MULS["padd"] * mm
     elif name == "to_affine":
         # Montgomery's trick, not the kernel's chain a point: the least
         # work of the function (compare() adds the chain's count beside)
@@ -545,28 +584,82 @@ def config(curve, logn: int, glv: bool):
     return dataclasses.replace(default_config(1 << logn, curve), glv=glv)
 
 
+def stage2_chain(digits: torch.Tensor, B: int, Wg: int, C: int, R: int):
+    """Stage 2 as the main path ran it before `bucket_sort` (PR 14): the
+    sign-packed keys |d| << 1 | sign, one torch.sort, the payload, and
+    every boundary by torch.searchsorted (`boundary_positions`)."""
+    d32 = digits.to(torch.int32)
+    keys2 = (d32.abs() << 1) | (d32 < 0).to(torch.int32)
+    skeys2, perm = torch.sort(keys2, dim=-1)
+    pay = (perm.to(torch.int32) << 1) | (skeys2 & 1)
+    return pay, pipeline_cuda.boundary_positions(skeys2, B, Wg, C, R)
+
+
+def group_shape(seen: dict, cfg: MSMConfig) -> tuple:
+    """(tbuf, S, cnt, Wg, C, R) of the captured run's first window group."""
+    tbuf = seen["prefix_scan"][3][0]
+    Wg = cfg.subtask_group
+    R, F = tbuf.shape[2], tbuf.shape[3]
+    return (tbuf, seen["col_prefix"][3][0], seen["bucket_sort"][3][1], Wg,
+            F // Wg, R)
+
+
+def stage3_chain(curve, tbuf, S, cnt, buckets, Wg: int, C: int, R: int,
+                 inf_b1):
+    """Window group 0's bucket extraction as the main path ran it before
+    `extract_buckets` (PR 14), nine launches: two advanced-index gathers,
+    `padd_batch`, `torch.where`, `psub_batch` of the neighbours (and the
+    two copies its wrapper makes of them), and the copy into the group's
+    slice of `buckets`. Returns G, the (3, L, Wg, B+1) sums."""
+    L, F = curve.num_limbs, Wg * C
+    f, jt = kernels.boundary_lanes(cnt[:Wg], Wg, C, R)
+    Tall = tbuf.reshape(3, L, R * F)[:, :, jt.long()]
+    Sall = S.reshape(3, L, F)[:, :, f.long()]
+    Gall = kernels.padd_batch(Tall, Sall, curve)
+    Gp = torch.where(cnt[:Wg] == 0, inf_b1, Gall)
+    buckets[:, :, :Wg] = kernels.psub_batch(Gp[..., 1:], Gp[..., :-1], curve,
+                                            out_dtype=torch.int16)
+    return Gall
+
+
 def capture_inputs(curve, logn: int, glv: bool) -> dict:
     """Run the device program once and keep the first call of every
-    kernel wrapper of the main path, of `boundary_positions` and, under
-    GLV, of `apply_glv`."""
+    kernel wrapper of the main path and, under GLV, of `apply_glv`; then
+    run the stage-3 chain that `extract_buckets` replaced on the first
+    window group (`stage3_chain`), so that `padd_batch` and `psub_batch`
+    are kept at the shapes the main path gave them until PR 14."""
     n = 1 << logn
     xs, ys, hw, _, _ = inputs(curve, logn)
     hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
     dev = torch.device(DEVICE)
-    targets = [(kernels, k) for k in MAIN + ("psub_batch",)]
-    targets += [(pipeline_cuda, "boundary_positions"), (glv_dev, "apply_glv")]
+    cfg = config(curve, logn, glv)
+    targets = [(kernels, k) for k in MAIN + ("padd_batch", "psub_batch")]
+    targets += [(glv_dev, "apply_glv")]
     with spy({}, targets) as seen:
         pipeline_cuda.windows_device(
             torch.from_numpy(xs.astype(np.int32)).to(dev),
             torch.from_numpy(ys.astype(np.int32)).to(dev),
-            torch.from_numpy(hw.astype(np.int32)).to(dev),
-            config(curve, logn, glv))
+            torch.from_numpy(hw.astype(np.int32)).to(dev), cfg)
+        tbuf, S, cnt, Wg, C, R = group_shape(seen, cfg)
+        buckets = seen["extract_buckets"][1][3].clone()
+        stage3_chain(curve, tbuf, S, cnt, buckets, Wg, C, R,
+                     kernels.inf_stacked(curve, (Wg, 1), dev))
         torch.cuda.synchronize()
     return seen
 
 
 # A wrapper that launches another wrapper's kernel.
 KERNEL_OF = {"psub_batch": "padd_batch"}
+# A wrapper that writes its output into an argument: that argument's
+# index. Its kernel and plain version each get their own copy of it.
+IN_PLACE = {"extract_buckets": 3}
+
+
+def fresh(fn: str, args: tuple) -> tuple:
+    i = IN_PLACE.get(fn)
+    if i is None:
+        return args
+    return args[:i] + (args[i].clone(),) + args[i + 1:]
 
 
 def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
@@ -576,12 +669,12 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
     name = KERNEL_OF.get(fn, fn)
     kern = getattr(kernels, fn)
     plain = getattr(kernels, fn + "_plain")
-    got = kern(*args, **kw)
-    want, plain_ms = timed_once(lambda: plain(*args, **kw))
+    got = kern(*fresh(fn, args), **kw)
+    want, plain_ms = timed_once(lambda: plain(*fresh(fn, args), **kw))
     if plain_ms < PLAIN_COLD_MS:
         # fast enough that filling the cached constants on a first call
         # would show: time a second, warm call
-        want, plain_ms = timed_once(lambda: plain(*args, **kw))
+        want, plain_ms = timed_once(lambda: plain(*fresh(fn, args), **kw))
     torch.cuda.synchronize()
     err = 0
     for g, w in zip(as_tuple(got), as_tuple(want), strict=True):
@@ -606,7 +699,8 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
                                             False)[1])
         extra = dict(bound_ms_mont_mul_ops=b_old, bound_by_mont_mul_ops=by_old)
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
-    if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize"):
+    if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
+                "bucket_sort", "extract_buckets"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
     if name == "to_affine":
@@ -631,14 +725,44 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
 
 def check_main_kernels(curve, seen: dict, tag: str, card: str,
                        reps: int) -> dict:
-    """Phase 3 for the six kernels of the main path."""
+    """Phase 3 for the seven kernels of the main path, and for
+    `padd_batch` and `psub_batch` where the capture ran the chain that
+    `extract_buckets` replaced."""
     results = {key: compare(curve, key, name, args, kw, tag, card, reps)
                for key, (name, args, kw, _) in seen.items()
-               if KERNEL_OF.get(name, name) in MAIN}
+               if KERNEL_OF.get(name, name) in MAIN + ("padd_batch",)}
     missing = set(MAIN) - {r["name"] for r in results.values()}
     if missing:
         raise AssertionError(f"kernels never called at {tag}: {missing}")
     return results
+
+
+def yardsticks(curve, seen: dict, cfg: MSMConfig, results: dict, tag: str,
+               card: str, reps: int) -> None:
+    """Beside `bucket_sort` and `extract_buckets` on the captured inputs:
+    torch.sort (stable, by |d|: the one PyTorch call that computes the
+    sort's order; the port never calls it) and the chains of torch ops and
+    launches they replaced (`stage2_chain`, `stage3_chain`), timed the
+    same way; into their results as library_ms and chain_ms."""
+    _, (digits, B), _, _ = seen["bucket_sort"]
+    key = digits.to(torch.int32).abs()
+    tbuf, S, cnt, Wg, C, R = group_shape(seen, cfg)
+    sort_lib = cuda_ms(lambda: torch.sort(key, dim=-1, stable=True), reps)
+    sort_chain = cuda_ms(lambda: stage2_chain(digits, B, Wg, C, R), reps)
+    buckets = seen["extract_buckets"][1][3].clone()
+    inf_b1 = kernels.inf_stacked(curve, (Wg, 1), DEVICE)
+    ext_chain = cuda_ms(lambda: stage3_chain(curve, tbuf, S, cnt, buckets,
+                                             Wg, C, R, inf_b1), reps)
+    results["bucket_sort"].update(library_ms=sort_lib, chain_ms=sort_chain)
+    results["extract_buckets"].update(library_ms=None, chain_ms=ext_chain)
+    print(f"[yardstick] {curve.name} {tag}: bucket_sort "
+          f"{results['bucket_sort']['ms']:.4f} ms beside torch.sort (stable, "
+          f"by |d|) {sort_lib:.4f} ms and the stage-2 chain it replaced "
+          f"(packed keys, torch.sort, payload, searchsorted) "
+          f"{sort_chain:.4f} ms; extract_buckets "
+          f"{results['extract_buckets']['ms']:.4f} ms a group beside the "
+          f"nine launches it replaced {ext_chain:.4f} ms; all back to back "
+          f"[{card}]", flush=True)
 
 
 def scan_sweep(curve, seen: dict, tag: str, card: str, reps: int) -> dict:
@@ -665,13 +789,63 @@ def scan_sweep(curve, seen: dict, tag: str, card: str, reps: int) -> dict:
 
 def same_as_plain(label: str, name: str, args, kw=None) -> None:
     kw = kw or {}
-    got = as_tuple(getattr(kernels, name)(*args, **kw))
-    want = as_tuple(getattr(kernels, name + "_plain")(*args))
+    got = as_tuple(getattr(kernels, name)(*fresh(name, args), **kw))
+    want = as_tuple(getattr(kernels, name + "_plain")(*fresh(name, args)))
     torch.cuda.synchronize()
     if any(g.dtype != w.dtype or not torch.equal(g, w)
            for g, w in zip(got, want, strict=True)):
         raise AssertionError(f"[edge] {label}: kernel differs from its "
                              "plain version")
+
+
+def sort_extract_edges(seen: dict, cfg: MSMConfig, card: str) -> None:
+    """`bucket_sort` and `extract_buckets` against their plain versions at
+    inputs the main path may not give them: all-zero digits, one point,
+    every digit at +-2^(s-1) in a last partial tile, one pass (s = 8) and
+    the widest key (s = 16) on the captured digits' shard of windows;
+    extract_buckets with cnt == 0 lanes (j = 0, a whole window, the start
+    of a run of a block), cnt == n lanes, and at the last window group."""
+    digits, B = seen["bucket_sort"][1]
+    Wp, n = digits.shape
+    rng = np.random.default_rng(15)
+    dev = torch.device(DEVICE)
+    pm = lambda v, shape: torch.from_numpy(
+        np.where(rng.random(shape) < 0.5, -v, min(v, 32767)).astype(
+            np.int16)).to(dev)
+    cases = {
+        "all-zero digits (3, 5000)": (torch.zeros((3, 5000), dtype=torch.int16,
+                                                  device=dev), B),
+        "one point": (digits[:, :1].contiguous(), B),
+        "+-B, a partial last tile (2, 4097)": (pm(B, (2, 4097)), B),
+        "s=8 (one pass)": (digits[:, :12345].remainder(129).to(torch.int16)
+                           - 64, 128),
+        "s=16 +-2^15 (2, 70001)": (pm(32768, (2, 70001)), 32768),
+        "a shard: the last half of the windows": (
+            digits[Wp // 2:].contiguous(), B),
+    }
+    for label, (d, b) in cases.items():
+        same_as_plain(f"bucket_sort {label}", "bucket_sort", (d, b))
+    print(f"[edge] bucket_sort bit-identical to its plain version (pay and "
+          f"cnt): {', '.join(cases)} [{card}]", flush=True)
+
+    _, args, _, _ = seen["extract_buckets"]
+    tbuf, S, cnt, buckets, g, Wg, C, R, curve = args
+    G = cnt.shape[0] // Wg
+    J = kernels.extract_buckets_geometry(Wg, B).buckets_per_block
+    edged = cnt.clone()
+    edged[:, 0] = 0                               # nothing at digit 0
+    edged[Wg - 1] = 0                             # an empty window
+    edged[0, J:J + 3] = 0                         # a run's halo lane
+    edged[0, -4:] = R * C                         # cnt == n
+    cases = {"real counts, group 0": (cnt, 0),
+             "cnt == 0 and cnt == n lanes": (edged, 0),
+             "the last group": (edged, G - 1)}
+    for label, (c, grp) in cases.items():
+        same_as_plain(f"extract_buckets {label}", "extract_buckets",
+                      (tbuf, S, c, buckets, grp, Wg, C, R, curve))
+    print(f"[edge] extract_buckets bit-identical to its plain version, "
+          f"the whole (3, L, {cnt.shape[0]}, {B}) bucket tensor: "
+          f"{', '.join(cases)} (Wg = {Wg}) [{card}]", flush=True)
 
 
 def wide_edges(seen: dict, card: str) -> None:
@@ -1173,6 +1347,15 @@ def latency(curve, card: str, scan_G: int) -> dict:
     # floor of any launch of it
     one = lazy((1,)).to(torch.int32)
     aff_ms = queued_ms(lambda: to_affine(one, curve), 20, blocker)
+    # extract_buckets on one window of 19 buckets: one block, its two
+    # dependent adds (the G lanes, then their differences)
+    J = kernels.extract_buckets_geometry(1, 19).buckets_per_block
+    ext_args = (lazy((1, 32)), lazy((32,)), torch.from_numpy(np.sort(
+        rng.integers(0, 33, (1, J + 1))).astype(np.int32)).to(DEVICE),
+        torch.empty((3, L, 1, J), dtype=torch.int16, device=DEVICE), 0, 1,
+        32, 1, curve)
+    ext_ms = queued_ms(lambda: kernels.extract_buckets(*ext_args), 50,
+                       blocker)
     print(f"[latency] {curve.name}: padd_batch on 32 lanes {padd_ms:.4f} "
           f"ms a launch "
           f"(launched {padd_geo}); pdbl_batch on 16 lanes {dbl_ms[16]:.4f} "
@@ -1193,7 +1376,9 @@ def latency(curve, card: str, scan_G: int) -> dict:
           f"{stage1_step:.5f} ms, from the same buckets: Bt = {lo} "
           f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo}; "
           f"to_affine on one point (a chain of {affine_muls(curve)} "
-          f"multiplies) {aff_ms:.4f} ms [{card}]", flush=True)
+          f"multiplies) {aff_ms:.4f} ms; extract_buckets on one block "
+          f"({J} buckets of one window, two dependent adds) {ext_ms:.4f} ms"
+          f" [{card}]", flush=True)
     return dict(padd_ms=padd_ms, padd_launched=padd_geo,
                 pdbl_16_lanes_ms=dbl_ms[16], pdbl_one_warp_ms=dbl_ms[1],
                 pdbl_one_warp_launched=dbl_geo,
@@ -1203,7 +1388,7 @@ def latency(curve, card: str, scan_G: int) -> dict:
                 pbpr_one_warp_ms=pb, pbpr_one_window_bt1_ms=lv_ms,
                 pbpr_stage1_step_ms=stage1_step,
                 pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo,
-                to_affine_one_lane_ms=aff_ms)
+                to_affine_one_lane_ms=aff_ms, extract_one_block_ms=ext_ms)
 
 
 def first_group(curve, seen: dict):
@@ -1251,26 +1436,41 @@ def reduction_path(curve, seen: dict, logn: int, card: str,
 
 
 def globalise_check(curve, seen: dict, logn: int, card: str) -> int:
-    """Phase 5 at one size. Returns the launches it made (one)."""
+    """Phase 5 at one size: `globalize(T, S)` at the region ends of the
+    first window group (from `bucket_sort`'s counts) against the G of the
+    chain `extract_buckets` replaced, and the buckets made from it
+    (infinity where cnt == 0, `psub_batch` of the neighbours) against
+    what the main path's `extract_buckets` wrote. Returns the launches of
+    `globalize` it made (one)."""
     cfg = config(curve, logn, False)
-    tbuf, S = first_group(curve, seen)
-    L, Wg = curve.num_limbs, cfg.subtask_group
-    jt = seen["boundary_positions"][3][2][:Wg].long()
+    tbuf, S, cnt, Wg, C, R = group_shape(seen, cfg)
+    L = curve.num_limbs
+    jt = kernels.boundary_lanes(cnt[:Wg], Wg, C, R)[1].long()
     want = seen[f"padd_batch[{torch.int16}->{torch.int32}]"][3][0]
     kernels.reset_launches()
-    G = kernels.globalize(tbuf, S, curve)
-    got = G.reshape(3, L, -1)[:, :, jt]
-    torch.cuda.synchronize()
+    G = kernels.globalize(tbuf, S.reshape(3, L, -1), curve)
     launches = kernels.LAUNCHES["globalize"]
+    got = G.reshape(3, L, -1)[:, :, jt]
+    Gp = torch.where(cnt[:Wg] == 0, kernels.inf_stacked(curve, (Wg, 1),
+                                                        DEVICE), got)
+    bk = kernels.psub_batch(Gp[..., 1:], Gp[..., :-1], curve,
+                            out_dtype=torch.int16)
+    main_bk = seen["extract_buckets"][3][0][:, :, :Wg]
+    torch.cuda.synchronize()
     if launches == 0:
         raise AssertionError(f"2^{logn}: globalize was not launched")
     if got.dtype != want.dtype or not torch.equal(got, want):
         raise AssertionError(f"2^{logn}: globalize(T, S) at the region ends "
-                             "differs from the main path's G")
+                             "differs from the G of the stage-3 chain")
+    if not torch.equal(bk, main_bk):
+        raise AssertionError(f"2^{logn}: the buckets from globalize differ "
+                             "from the main path's extract_buckets")
     print(f"[globalise] {curve.name} n=2^{logn} globalize(T "
           f"{tuple(tbuf.shape)}, "
-          f"S {tuple(S.shape)}) at the {tuple(jt.shape)} region ends: "
-          f"bit-identical to the main path's G [{card}]", flush=True)
+          f"S {tuple(S.shape)}) at the {tuple(jt.shape)} region ends of "
+          f"bucket_sort's counts: bit-identical to the G of the stage-3 "
+          f"chain, and its buckets to those the main path's extract_buckets "
+          f"wrote [{card}]", flush=True)
     return launches
 
 
@@ -1312,8 +1512,11 @@ def check_size(logn: int, card: str):
     seen = capture_inputs(CURVE, logn, False)
     tag = f"n=2^{logn}"
     results = check_main_kernels(CURVE, seen, tag, card, reps)
+    yardsticks(CURVE, seen, config(CURVE, logn, False), results, tag, card,
+               reps)
     sweep = scan_sweep(CURVE, seen, tag, card, reps)
     if logn == min(SIZES):
+        sort_extract_edges(seen, config(CURVE, logn, False), card)
         edge_shapes(seen, card)
         wide_edges(seen, card)
         stage1_globalize_edges(seen, card)
@@ -1330,6 +1533,8 @@ def check_size(logn: int, card: str):
     seen = capture_inputs(CURVE, logn, True)
     results_glv = check_main_kernels(CURVE, seen, f"n=2^{logn} glv", card,
                                      reps)
+    yardsticks(CURVE, seen, config(CURVE, logn, True), results_glv,
+               f"n=2^{logn} glv", card, reps)
     sweep_glv = scan_sweep(CURVE, seen, f"n=2^{logn} glv", card, reps)
     results_glv["glv_apply"] = glv_check(
         CURVE, seen["apply_glv"][1], f"n=2^{logn} glv", card, reps)
@@ -1416,7 +1621,7 @@ def main_path(curve, logn: int, card: str, glv: bool = False):
     """Phase 6 (or, with glv, phase 7) at one size. Returns the launch
     counts of the user call, the timings, the threads per lane that the
     user call's scans were launched with, and the geometry its pbpr_full
-    and its last padd_batch were launched with."""
+    and its last extract_buckets were launched with."""
     n = 1 << logn
     cfg = config(curve, logn, glv)
     _, _, hw, base, want = inputs(curve, logn)
@@ -1433,7 +1638,7 @@ def main_path(curve, logn: int, card: str, glv: bool = False):
     launches = dict(kernels.LAUNCHES)
     scan_G = kernels.LAUNCHED["prefix_scan"]["threads_per_lane"]
     pbpr_geo = dict(kernels.LAUNCHED["pbpr_full"])
-    padd_geo = dict(kernels.LAUNCHED["padd_batch"])
+    ext_geo = dict(kernels.LAUNCHED["extract_buckets"])
     if not ref.jac_eq(curve, got, want):
         raise AssertionError(f"2^{logn} {label}: MSM result differs from "
                              "the oracle")
@@ -1453,10 +1658,10 @@ def main_path(curve, logn: int, card: str, glv: bool = False):
           f"in {t_user:.2f} s"
           f" (host pack included) launches={used}, the scan with {scan_G} "
           f"threads a lane, pbpr_full launched {pbpr_geo}, the last "
-          f"padd_batch launched {padd_geo} [{card}]", flush=True)
+          f"extract_buckets launched {ext_geo} [{card}]", flush=True)
 
     return (launches, *timed_runs(cfg, logn, label, card), scan_G, pbpr_geo,
-            padd_geo)
+            ext_geo)
 
 
 def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str):
@@ -1597,7 +1802,7 @@ def affine_check(curve, logn: int, card: str, glv: bool) -> dict:
 
 def run_profile(curve, sizes, card: str) -> dict:
     """A profile beyond BN254_S12 through the main path. At each size:
-    the six kernels of the main path, `pbpr_stage1`, `globalize` and
+    the seven kernels of the main path, `pbpr_stage1`, `globalize` and
     `pdbl_batch` against their plain versions on the shapes the run gives
     them, the scan for every number of threads per lane, the reduction
     and globalisation paths (phases 3 to 5), and `glv_apply` against its
@@ -1682,7 +1887,7 @@ def profile_entry(name: str, prof: dict) -> dict:
                     f"x_bound{sfx}": r["ms"] / r["bound_ms"],
                     f"max_abs_err{sfx}": r["max_abs_err"],
                     f"plain_ms{sfx}": r["plain_ms"],
-                    f"library_ms{sfx}": None})
+                    f"library_ms{sfx}": r.get("library_ms")})
         if name in WIDE:
             out[f"bound_ms_mont_mul_ops{sfx}"] = r["bound_ms_mont_mul_ops"]
     return out
@@ -1748,7 +1953,8 @@ def window_shards(card: str) -> dict:
         shards = []
         for i in range(w):
             targets = [(kernels, k) for k in ("prefix_scan", "col_prefix",
-                                              "padd_batch", "psub_batch",
+                                              "bucket_sort",
+                                              "extract_buckets",
                                               "pbpr_full")]
             with spy(seen if (w, i) == (max(SHARDED_W), 0) else {},
                      targets):
@@ -1796,7 +2002,7 @@ def rank_spans(card: str) -> dict:
     logn = SHARDED_LOGN
     cfg = config(CURVE, logn, False)
     dev_in = sharded_inputs(logn)
-    targets = [(kernels, k) for k in MAIN + ("psub_batch",)]
+    targets = [(kernels, k) for k in MAIN]
     out = {}
     for shape in SHARDED_MESHES:
         x, w = shape["x"], shape.get("w", 1)
@@ -2218,10 +2424,12 @@ def template_args(fn: str, name: str) -> list:
     """The template arguments of the mangled `<name><...>` in `fn`: each
     int (Li<n>E) as a string, each element type by name."""
     out = []
-    for m in re.finditer(r"Li(\d+)E|([a-z])|(E)", fn.split(name + "I", 1)[1]):
-        if m[3]:
+    for m in re.finditer(r"Li(\d+)E|Lb([01])E|([a-z])|(E)",
+                         fn.split(name + "I", 1)[1]):
+        if m[4]:
             break
-        out.append(m[1] or MANGLED_TYPES.get(m[2], m[2]))
+        out.append(m[1] or (m[2] and ("false", "true")[int(m[2])])
+                   or MANGLED_TYPES.get(m[3], m[3]))
     return out
 
 
@@ -2344,7 +2552,9 @@ TRACE_NAMES = {
     "decompose_digits": (r"::digits_kernel\b",),
     "prefix_scan": (r"::scan_kernel<\d+, \d+, \d+>",),
     "col_prefix": (r"::colprefix_kernel\b",),
-    "padd_batch": (r"::padd_kernel\b",),
+    "bucket_sort": (r"::radix_tile_kernel<", r"::radix_scan_kernel<",
+                    r"::radix_bounds_kernel<"),
+    "extract_buckets": (r"::extract_kernel<",),
     "pbpr_full": (r"::stage1_kernel<\d+, \d+>(\(|$)",
                   r"::scan_kernel<\d+, \d+>(\(|$)"),
 }
@@ -2542,7 +2752,7 @@ def profile_phase(card: str) -> dict:
     shutil.rmtree(logdir)
     print(f"[profile] n=2^{logn} tpu_variable_base_msm under profiling.trace,"
           f" in a fresh process: EXACT, {out['trace_bytes']} B of Chrome "
-          f"trace naming the six kernels of the main path "
+          f"trace naming the seven kernels of the main path "
           f"({out['kernel_names']} kernel names; {out['trace_lost']} "
           f"launches without a kernel record), their device time "
           f"{out['trace_kernel_ms']:.2f} ms; launches={out['launches']} "
@@ -2784,12 +2994,12 @@ def main_on_card(t_start: float) -> int:
     resources = {}
     for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
                  "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
-                 "glv_apply", "to_affine"):
+                 "glv_apply", "to_affine", "extract_buckets", "bucket_sort"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
-            # the mangled name
+            # the mangled name (bucket_sort's are no profile's)
             targs = template_args(fn, "_kernel")
-            if int(targs[0]) not in PTXAS_LIMBS:
+            if stem != "bucket_sort" and int(targs[0]) not in PTXAS_LIMBS:
                 continue
             resources[f"{stem}.{kernel_name(fn)}<{', '.join(targs)}>"] = dict(
                 registers=regs, stack_bytes=stack, spill_store_bytes=st,
@@ -2912,6 +3122,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         rest_line(logn, rests[logn], runs[logn][1] - kern_ms, card)
 
     entries = []
+    nccl, gloo = shard_run["nccl"], shard_run["gloo"]
     for name in KERNELS:
         src, replaces, path = SOURCES[name]
         entry = {"name": name, "route": "cuda", "source": src,
@@ -2932,7 +3143,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                                      if v["name"] == name)
             r = first(c["main"])
             sfx = "" if logn == max(SIZES) else f"_2p{logn}"
-            if name in MAIN:
+            if name in MAIN or name == "padd_batch":
+                # padd_batch: the main path's (0 since PR 15)
                 launches = runs[logn][0][name]
             elif name == "globalize":
                 launches = c["globalize_launches"]
@@ -2945,7 +3157,15 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                 f"plain_ms{sfx}": r["plain_ms"],
                 f"bound_ms{sfx}": r["bound_ms"],
                 f"bound_by{sfx}": r["bound_by"],
-                f"library_ms{sfx}": None})
+                f"library_ms{sfx}": r.get("library_ms")})
+            if name in ("bucket_sort", "extract_buckets"):
+                # the chain of torch ops and launches it replaced, and the
+                # geometry of its launch in the user call
+                rg = first(c["glv"])
+                entry.update({f"chain_ms{sfx}": r["chain_ms"],
+                              f"chain_ms_glv{sfx}": rg["chain_ms"],
+                              f"library_ms_glv{sfx}": rg.get("library_ms"),
+                              f"launched{sfx}": r["launched"]})
             if name in MAIN:
                 rg = first(c["glv"])
                 entry.update({
@@ -2966,10 +3186,14 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                               f"bound_ms_Wp{sfx}": rw["bound_ms"],
                               f"launched_Wp{sfx}": rw["launched"]})
             if name == "padd_batch":
+                # timed at the shapes of the stage-3 chain it served on the
+                # main path until PR 15
                 entry[f"launches_reduce{sfx}"] = c["reduce_launches"][name]
-                entry[f"launched{sfx}"] = runs[logn][5]
+                entry[f"launched{sfx}"] = r["launched"]
                 entry[f"ms_psub{sfx}"] = c["main"][
                     f"psub_batch[{torch.int32}->{torch.int16}]"]["ms"]
+            if name == "extract_buckets":
+                entry[f"launched_user_call{sfx}"] = runs[logn][5]
             if name == "pbpr_full":
                 # as the user call launched it (kernels.LAUNCHED)
                 entry[f"launched{sfx}"] = runs[logn][4]
@@ -2983,7 +3207,6 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         if name in MAIN:
             # the sharded path's launches at 2^SHARDED_LOGN: the one NCCL
             # rank's and each gloo rank's
-            nccl, gloo = shard_run["nccl"], shard_run["gloo"]
             entry["launches_sharded"] = {
                 f"x=1 {nccl['backend']}": nccl["launches"].get(name, 0),
                 **{f"{k} gloo": [r["launches"].get(name, 0)
@@ -3036,6 +3259,9 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         if name == "pdbl_batch":
             # the (3, L, Wp) shape: one doubling, on a lone warp
             entry["depth_floor_ms_Wp"] = lat["pdbl_one_warp_ms"]
+        if name == "extract_buckets":
+            # one block: two dependent adds on its lanes
+            entry["depth_floor_ms"] = lat["extract_one_block_ms"]
         if name == "prefix_scan":
             for key, run in (("", runs), ("_glv", runs_glv)):
                 R = (2 if key else 1) * (1 << max(SIZES)) // default_config(

@@ -12,7 +12,11 @@ default schedule:
   - the eight kernels on the word-wide multiply at the shapes the 2^20
     MSM gives them: `encode_mont`, `prefix_scan`, `col_prefix`,
     `padd_batch` and `pbpr_full` on the inputs of their first call in
-    the device program (captured by the checkout's `chip_smoke.py`),
+    the device program (captured by the checkout's `chip_smoke.py`;
+    `padd_batch` where the checkout's capture runs it: on the main path
+    until PR 14, on the stage-3 chain replayed after it since PR 15),
+    and where the checkout has them, `bucket_sort` and
+    `extract_buckets` the same way,
     `pbpr_stage1` on the buckets `pbpr_full` received, `pdbl_batch` on
     (3, L, 32,769) and `globalize` at (R, F) = (128, 8192) on lazy limbs
     from a fixed seed; CUDA events around back-to-back calls, and a
@@ -74,7 +78,9 @@ def one(root: str) -> None:
     for key, (name, args, kw, _) in seen.items():
         calls.setdefault(name, (key, args, kw))
     for name in ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
-                 "pbpr_full"):
+                 "pbpr_full", "bucket_sort", "extract_buckets"):
+        if name not in calls:
+            continue
         key, args, kw = calls[name]
         fn = getattr(kernels, name)
         shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
@@ -103,7 +109,10 @@ def one(root: str) -> None:
     out.append(f"to_affine n=2^16 window sums {tuple(g.shape)} {ms:.4f} ms "
                "(one warm call, host clock)")
     for stem in ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
-                 "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full"):
+                 "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full",
+                 "bucket_sort", "extract_buckets"):
+        if not (_build.CSRC / f"{stem}.cu").exists():
+            continue
         for fn, regs, stack, st, ld in _build.resources(stem):
             if "Li22ELi12E" in fn or stack or st or ld:
                 out.append(f"ptxas {stem} {fn}: {regs} registers, {stack} B "

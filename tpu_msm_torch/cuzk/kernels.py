@@ -19,7 +19,9 @@ what its design does about that.
   pbpr_stage1        _pbpr_kernel / pbpr_stage1           csrc/pbpr_stage1.cu
   globalize          _globalize_kernel / globalize        csrc/globalize.cu
 
-The first six are the main path (`pipeline_cuda.windows_device`);
+`encode_mont`, `decompose_digits`, `prefix_scan`, `col_prefix` and
+`pbpr_full` are on the main path (`pipeline_cuda.windows_device`), with
+`bucket_sort` and `extract_buckets` below;
 `pbpr_stage1` and `pdbl_batch` serve the two-stage bucket reduction
 (`cuzk/pbpr.py`), and `globalize` is the full-stream form of the G = T + S
 step that the main path takes only at the bucket-region ends.
@@ -35,6 +37,19 @@ no pallas_call:
 `glv_apply` serves every path under `glv=True` (`cuzk/glv.apply_glv`);
 `to_affine` is the public `tpu_msm_torch.to_affine`, and its plain
 version is the product tree of `ops/inverse.py`.
+
+Two more replace what XLA compiles around the Pallas kernels of the
+JAX package's device program (tpu_msm/cuzk/pipeline_pallas.py):
+
+  wrapper            replaces (pipeline_pallas.py)         source
+  bucket_sort        :208-226, lax.sort + _bucket_counts   csrc/bucket_sort.cu
+  extract_buckets    :292-304, flat_gather, padd_batch,    csrc/extract_buckets.cu
+                     where, psub_batch
+
+Both are on the main path, stages 2 and 3, so `padd_batch` and
+`psub_batch` are not: they serve the reduction path, the XLA twin and
+the sharded halving tree. `bucket_sort` sorts by |d| alone, stably, the
+sign in the payload; its plain version is torch's stable sort.
 
 `psub_batch` is `padd_batch` of `pneg_stacked(q)`; on a CUDA tensor the
 padd kernel negates q itself as it loads it. `pneg_stacked` and
@@ -71,13 +86,15 @@ CUDA_PROFILES = {(22, 12), (21, 13), (32, 12), (30, 13), (6, 12)}
 LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "prefix_scan", "col_prefix", "padd_batch",
                                  "pbpr_full", "pdbl_batch", "pbpr_stage1",
-                                 "globalize", "glv_apply", "to_affine")}
+                                 "globalize", "glv_apply", "to_affine",
+                                 "bucket_sort", "extract_buckets")}
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
 """The geometry that the last launch of `prefix_scan`, `col_prefix`,
-`padd_batch`, `pbpr_full`, `pdbl_batch`, `pbpr_stage1` and `globalize`
-passed to its kernel, written where the kernel launches."""
+`padd_batch`, `pbpr_full`, `pdbl_batch`, `pbpr_stage1`, `globalize`,
+`bucket_sort` and `extract_buckets` passed to its kernel, written where
+the kernel launches."""
 
 
 def reset_launches() -> None:
@@ -1301,3 +1318,205 @@ def to_affine(p, curve: CurveParams
         _check("to_affine", rc)
     return (x.reshape((L,) + batch), y.reshape((L,) + batch),
             inf.reshape(batch))
+
+
+# ---------------------------------------------------------------------------
+# 12. Stage 2: the stable bucket sort and its boundary counts
+# ---------------------------------------------------------------------------
+
+SORT_RADIX_BITS = 8
+"""Bits of the key that one pass of csrc/bucket_sort.cu sorts on."""
+SORT_TILE = 4096
+"""Stream elements a block of the sort ranks at once (csrc/bucket_sort.cu
+kTile: 8 warps of 32 threads, 16 elements a thread)."""
+
+
+def bucket_counts(skeys2: torch.Tensor, B: int) -> torch.Tensor:
+    """cnt[w, j] = #(keys2[w] < 2(j+1)) for j = 0..B, from the sorted keys:
+    the end of the digit-0 region (j = 0) and of each bucket's region."""
+    Wp = skeys2.shape[0]
+    q = (torch.arange(1, B + 2, dtype=I32, device=skeys2.device) * 2)
+    return torch.searchsorted(skeys2, q.expand(Wp, B + 1).contiguous()
+                              ).to(I32)
+
+
+def bucket_sort_plain(digits: torch.Tensor, B: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = digits.to(I32).abs()
+    skey, perm = torch.sort(key, dim=-1, stable=True)
+    sign = (torch.gather(digits, 1, perm) < 0).to(I32)
+    return (perm.to(I32) << 1) | sign, bucket_counts(skey << 1, B)
+
+
+def sort_passes(B: int) -> int:
+    """Passes of SORT_RADIX_BITS over the key |d| <= B."""
+    return max(-(-B.bit_length() // SORT_RADIX_BITS), 1)
+
+
+def bucket_sort(digits: torch.Tensor, B: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Wp, n) int16 signed digits with |d| <= B -> (pay, cnt).
+
+    pay: (Wp, n) int32, idx << 1 | sign in the order of a STABLE sort of
+    each window by the key |d| (ties in index order); the sign rides in
+    the payload, as stage 3 reads only the |d| boundaries. cnt: (Wp, B+1)
+    int32, cnt[w, j] = #(|d| <= j in window w), `bucket_counts` of the
+    sorted keys. The kernel is an LSD radix sort of `sort_passes(B)`
+    passes of SORT_RADIX_BITS bits, deterministic, then one launch for
+    the counts; its temporaries are torch tensors on the current
+    stream."""
+    if digits.dim() != 2 or digits.dtype != I16:
+        raise ValueError("bucket_sort: expected (Wp, n) int16 digits, got "
+                         f"{digits.dtype} {tuple(digits.shape)}")
+    Wp, n = digits.shape
+    if not 1 <= B <= 1 << 15 or n < 1 or n >> 30:
+        raise ValueError(f"bucket_sort: needs 1 <= B <= 2^15 and "
+                         f"1 <= n < 2^30, got B={B}, n={n}")
+    if not _on_cuda("bucket_sort", digits):
+        return bucket_sort_plain(digits, B)
+    digits = digits.contiguous()
+    dev = digits.device
+    passes = sort_passes(B)
+    tiles = -(-n // SORT_TILE)
+    pay = torch.empty((Wp, n), dtype=I32, device=dev)
+    cnt = torch.empty((Wp, B + 1), dtype=I32, device=dev)
+    # keys of the pass between (uint16 in the kernel), the sorted keys,
+    # the payload between, the tiles' histograms, the digit totals
+    keys_mid = torch.empty((Wp, n), dtype=I16, device=dev)
+    keys_out = torch.empty((Wp, n), dtype=I16, device=dev)
+    pay_mid = torch.empty((Wp, n) if passes > 1 else (1,), dtype=I32,
+                          device=dev)
+    hist = torch.empty((Wp, tiles, 1 << SORT_RADIX_BITS), dtype=I32,
+                       device=dev)
+    totals = torch.empty((Wp, 1 << SORT_RADIX_BITS), dtype=I32, device=dev)
+    if Wp:
+        rc = _build.library().msm_bucket_sort(
+            digits.data_ptr(), Wp, n, B, passes, pay.data_ptr(),
+            cnt.data_ptr(), keys_mid.data_ptr(), pay_mid.data_ptr(),
+            keys_out.data_ptr(), hist.data_ptr(), totals.data_ptr(),
+            _stream(digits))
+        _check("bucket_sort", rc)
+        LAUNCHED["bucket_sort"] = dict(passes=passes, tiles=tiles,
+                                       tile=SORT_TILE)
+    return pay, cnt
+
+
+# ---------------------------------------------------------------------------
+# 13. Stage 3: bucket extraction at the region ends
+# ---------------------------------------------------------------------------
+
+
+def boundary_lanes(cnt: torch.Tensor, Wg: int, C: int, R: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f, jt) of a window group's (Wg, B+1) counts: f, the lane of the
+    last position below each boundary, and jt, that position's element
+    r * F + f of the flattened (3, L, R * F) scan output (F = Wg C). Both
+    are clamped to position 0 where cnt == 0."""
+    p = (cnt - 1).clamp(min=0)
+    f = (torch.arange(cnt.shape[0], dtype=I32, device=cnt.device) % Wg
+         )[:, None] * C + p // R
+    return f, (p % R) * (Wg * C) + f
+
+
+def extract_buckets_plain(tbuf: torch.Tensor, s: torch.Tensor,
+                          cnt: torch.Tensor, buckets: torch.Tensor, g: int,
+                          Wg: int, C: int, R: int, curve: CurveParams
+                          ) -> torch.Tensor:
+    L, F = curve.num_limbs, Wg * C
+    sl = slice(g * Wg, (g + 1) * Wg)
+    cnt_g = cnt[sl]
+    f, jt = boundary_lanes(cnt_g, Wg, C, R)
+    Tall = tbuf.reshape(3, L, R * F)[:, :, jt.long()]
+    Sall = s.reshape(3, L, F)[:, :, f.long()]             # (3, L, Wg, B+1)
+    Gall = padd_batch_plain(Tall, Sall, curve)
+    # cnt == 0: nothing sorts below this boundary, G(-1) = infinity
+    Gp = torch.where(cnt_g == 0, inf_stacked(curve, (Wg, 1), tbuf.device),
+                     Gall)
+    # bucket b (multiplier b+1) = G(end of its region) - G(previous end)
+    buckets[:, :, sl] = psub_batch_plain(Gp[..., 1:], Gp[..., :-1], curve,
+                                         out_dtype=I16)
+    return buckets
+
+
+EXTRACT_WARPS = 4
+"""Warps a block of csrc/extract_buckets.cu (padd_lane.cuh kPaddMaxWarps)."""
+
+
+class ExtractGeometry(NamedTuple):
+    lanes_per_block: int
+    buckets_per_block: int
+    blocks: int
+    threads: int
+    shared_bytes: int
+
+
+def extract_buckets_geometry(Wg: int, B: int, num_limbs: int = 22,
+                             limb_bits: int = 12) -> ExtractGeometry:
+    """One extract_buckets launch for a window group of Wg windows of B
+    buckets: a pure function, so the CPU tests can hold it.
+
+    A block is EXTRACT_WARPS warps of padd_lane.cuh's lanes, 6 threads a
+    lane and 5 lanes a warp (20 lanes). It owns a run of J = lanes - 1
+    consecutive buckets b0 .. b0 + J - 1 of one window: phase A adds
+    G_j = T + S at the J + 1 region ends b0 .. b0 + J (the halo lane
+    b0 is the previous block's last), phase B subtracts neighbours,
+    bucket b = G_{b+1} - G_b, on J lanes. Shared memory: each lane's
+    15 L + 1 words (PaddLane), the J + 1 sums G in 3 L words each, the
+    lanes' gather positions and the block's copies of the constants."""
+    if min(Wg, B, num_limbs, limb_bits) < 1:
+        raise ValueError("extract_buckets_geometry: Wg, B, num_limbs and "
+                         "limb_bits must be >= 1")
+    lanes = EXTRACT_WARPS * (32 // PADD_THREADS_PER_LANE)
+    J = lanes - 1
+    shared = 4 * (lanes * ((15 * num_limbs | 1) + 3 * num_limbs)
+                  + 3 * lanes + _static_shared_words(num_limbs, limb_bits))
+    _fits_block("extract_buckets_geometry", shared)
+    return ExtractGeometry(lanes, J, Wg * -(-B // J), 32 * EXTRACT_WARPS,
+                           shared)
+
+
+def extract_buckets(tbuf: torch.Tensor, s: torch.Tensor, cnt: torch.Tensor,
+                    buckets: torch.Tensor, g: int, Wg: int, C: int, R: int,
+                    curve: CurveParams) -> torch.Tensor:
+    """Window group g's buckets, written into buckets[:, :, g Wg:(g+1) Wg]
+    in place; returns `buckets`.
+
+    tbuf: (3, L, R, F) int16 scan output of the group (F = Wg C); s: its
+    exclusive column prefix, (3, L, Wg, C) or (3, L, F) int16; cnt: the
+    (Wp, B+1) int32 counts of `bucket_sort` for every window; buckets:
+    (3, L, Wp, B) int16. For each window w of the group and j = 0..B,
+    G_j = T + S at the last position below cnt[w, j] (`boundary_lanes`),
+    infinity where cnt == 0; bucket b = G_{b+1} - G_b, the subtrahend's
+    y taken as 4p - y, as `psub_batch` computes it. The kernel keeps G
+    in shared memory (`extract_buckets_geometry`)."""
+    L = curve.num_limbs
+    F = Wg * C
+    Wp = cnt.shape[0]
+    B = cnt.shape[1] - 1
+    if (tbuf.shape != (3, L, R, F) or s.numel() != 3 * L * F
+            or cnt.dim() != 2 or buckets.shape != (3, L, Wp, B)
+            or not 0 <= g < Wp // Wg or B < 1):
+        raise ValueError(f"extract_buckets: shapes T {tuple(tbuf.shape)}, "
+                         f"S {tuple(s.shape)}, cnt {tuple(cnt.shape)}, "
+                         f"buckets {tuple(buckets.shape)} for g={g}, "
+                         f"Wg={Wg}, C={C}, R={R}, L={L}")
+    if not _on_cuda("extract_buckets", tbuf, s, cnt, buckets):
+        return extract_buckets_plain(tbuf, s, cnt, buckets, g, Wg, C, R,
+                                     curve)
+    L, w = _profile("extract_buckets", curve)
+    for t, dt, nd in ((tbuf, I16, 4), (cnt, I32, 2), (buckets, I16, 4)):
+        _need("extract_buckets", t, dt, nd)
+    if s.dtype != I16 or not s.is_contiguous():
+        raise ValueError("extract_buckets: S must be contiguous int16")
+    if R * F >> 31:
+        raise ValueError("extract_buckets: the kernel takes fewer than "
+                         "2^31 positions a group")
+    geo = extract_buckets_geometry(Wg, B, L, w)
+    rc = _build.library().msm_extract_buckets(
+        L, w, tbuf.data_ptr(), s.data_ptr(), cnt.data_ptr(),
+        buckets.data_ptr(), Wp, B, g * Wg, Wg, C, R, EXTRACT_WARPS,
+        geo.blocks, _consts(curve, tbuf.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(tbuf))
+    _check("extract_buckets", rc)
+    LAUNCHED["extract_buckets"] = geo._asdict()
+    return buckets

@@ -7,14 +7,15 @@
            digits of |k1| ++ |k2|); pad the windows to Wp with zero
            digits; under a window shard (w_shards > 1) keep the shard's
            block of whole window groups, before the sort.
-  Stage 2  sign-packed keys |d| << 1 | sign and ONE torch.sort over all
-           windows; the payload idx << 1 | sign rides the permutation.
-           Every bucket boundary cnt[w, j] = #(keys < 2(j+1)) comes from
-           torch.searchsorted on the sorted keys.
+  Stage 2  `bucket_sort`: each window's digits sorted stably by |d|, the
+           sign riding in the payload idx << 1 | sign, and the counts
+           cnt[w, j] = #(|d| <= j), every bucket boundary; one call over
+           all windows (an LSD radix sort on the card).
   Stage 3  per window group: prefix_scan (which gathers its own point
-           rows), col_prefix over the column totals, G = T + S at the
-           B+1 region ends through padd_batch (infinity where cnt == 0),
-           and bucket = psub_batch(G[1:], G[:-1]).
+           rows), col_prefix over the column totals, and
+           `extract_buckets`: G = T + S at the B+1 region ends
+           (infinity where cnt == 0) and bucket = G[1:] - G[:-1], written
+           into the group's slice of the bucket tensor in one launch.
   Stage 4  pbpr_full -> (3, L, Wp) window sums.
 
 Lane layout (the port's own; the TPU's (8, F8) sublane tiling is not
@@ -44,13 +45,7 @@ I16 = torch.int16
 I32 = torch.int32
 
 
-def bucket_counts(skeys2: torch.Tensor, B: int) -> torch.Tensor:
-    """cnt[w, j] = #(keys2[w] < 2(j+1)) for j = 0..B, from the sorted keys:
-    the end of the digit-0 region (j = 0) and of each bucket's region."""
-    Wp = skeys2.shape[0]
-    q = (torch.arange(1, B + 2, dtype=I32, device=skeys2.device) * 2)
-    return torch.searchsorted(skeys2, q.expand(Wp, B + 1).contiguous()
-                              ).to(I32)
+bucket_counts = kernels.bucket_counts
 
 
 def boundary_positions(skeys2: torch.Tensor, B: int, Wg: int, C: int, R: int):
@@ -59,13 +54,10 @@ def boundary_positions(skeys2: torch.Tensor, B: int, Wg: int, C: int, R: int):
     From the (Wp, n) sorted keys: cnt (Wp, B+1), the `bucket_counts`; f,
     the lane of the last position below each boundary; and jt, that
     position's element r * F + f of the flattened (3, L, R * F) scan
-    output. Both are clamped to position 0 where cnt == 0."""
-    Wp = skeys2.shape[0]
+    output (`kernels.boundary_lanes`). Both are clamped to position 0
+    where cnt == 0."""
     cnt = bucket_counts(skeys2, B)
-    p = (cnt - 1).clamp(min=0)
-    f = (torch.arange(Wp, dtype=I32, device=skeys2.device) % Wg)[:, None] * C \
-        + p // R
-    return cnt, f, (p % R) * (Wg * C) + f
+    return (cnt, *kernels.boundary_lanes(cnt, Wg, C, R))
 
 
 def windows_device(xs: torch.Tensor, ys: torch.Tensor,
@@ -99,7 +91,6 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     if n % C:
         raise ValueError(f"n={n} is not a multiple of columns={C}")
     R = n // C
-    F = Wg * C
 
     # ---- stage 1 ----
     xm = kernels.encode_mont(xs.contiguous(), curve)
@@ -112,35 +103,23 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     if Wp > W:
         digits = torch.cat([digits, digits.new_zeros((Wp - W, n))])
     # the shard's window groups; Wg divides Wp, so the lanes of
-    # boundary_positions stay right
+    # kernels.boundary_lanes stay right
     Wp, G = Wp // w_shards, G // w_shards
     digits = digits[w_index * Wp:(w_index + 1) * Wp]
 
-    # ---- stage 2: one sort for all windows, boundaries by searchsorted ----
-    d32 = digits.to(I32)
-    keys2 = (d32.abs() << 1) | (d32 < 0).to(I32)
-    skeys2, perm = torch.sort(keys2, dim=-1)
-    pay_all = (perm.to(I32) << 1) | (skeys2 & 1)
-    cnt_all, f_all, jt_all = boundary_positions(skeys2, B, Wg, C, R)
+    # ---- stage 2: one stable sort of all windows by |d|, and the counts
+    pay_all, cnt_all = kernels.bucket_sort(digits.contiguous(), B)
     pts_rows = torch.cat([xm, ym]).to(I16).T.contiguous()     # (n, 2L)
-    inf_b1 = kernels.inf_stacked(curve, (Wg, 1), dev)
 
     # ---- stage 3: per window group ----
     buckets = torch.empty((3, L, Wp, B), dtype=I16, device=dev)
     for g in range(G):
         sl = slice(g * Wg, (g + 1) * Wg)
-        tbuf = kernels.prefix_scan(pts_rows, pay_all[sl].contiguous(), curve,
-                                   C)                         # (3, L, R, F)
+        tbuf = kernels.prefix_scan(pts_rows, pay_all[sl], curve, C)
         coltot = tbuf[:, :, R - 1].reshape(3, L, Wg, C).contiguous()
         S = kernels.col_prefix(coltot, curve)                 # exclusive
-        Tall = tbuf.reshape(3, L, R * F)[:, :, jt_all[sl].long()]
-        Sall = S.reshape(3, L, F)[:, :, f_all[sl].long()]     # (3,L,Wg,B+1)
-        Gall = kernels.padd_batch(Tall, Sall, curve)
-        # cnt == 0: nothing sorts below this boundary, G(-1) = infinity
-        Gp = torch.where(cnt_all[sl] == 0, inf_b1, Gall)
-        # bucket b (multiplier b+1) = G(end of its region) - G(previous end)
-        buckets[:, :, sl] = kernels.psub_batch(Gp[..., 1:], Gp[..., :-1],
-                                               curve, out_dtype=I16)
+        kernels.extract_buckets(tbuf, S, cnt_all, buckets, g, Wg, C, R,
+                                curve)
 
     # ---- stage 4 ----
     return kernels.pbpr_full(buckets, curve, min(cfg.pbpr_threads, B))
