@@ -39,10 +39,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      number of threads per lane its launcher can pick, bit-identical to
      the first and timed (`[scan-G]`); and, at 2^16, both redesigned
      kernels at shapes the two sizes do not reach (`[edge]`):
-     `bucket_sort` on all-zero digits, one point, +-2^(s-1) in a partial
-     last tile, s = 8 (one pass), s = 16 at +-2^15 and a shard of the
-     windows; `extract_buckets` with cnt == 0 lanes (j = 0, a window, a
-     block's halo) and cnt == n lanes and at the last group; `col_prefix`
+     `bucket_sort` on all-zero digits, every digit equal, one point,
+     +-2^(s-1) in a partial last tile, s = 8 (one pass), s = 16 at
+     +-2^15 and a shard of the windows; `extract_buckets` with cnt == 0
+     lanes (j = 0, a window, a run's halo) and cnt == n lanes, at the
+     last group and with a last run of one bucket a window; with the
+     `[kernel]` lines of both, `[occupancy]`: each of their kernels'
+     blocks, the blocks an SM holds (from [ptxas] and the launch
+     geometry) and its waves, and the sort's launches a call; `col_prefix`
      at (Wg, C) = (1, 1), (3, 32), (4, 2048) with half the columns at
      infinity, equal neighbours and a column followed by its negative,
      (5, 64) with int16 limbs at both ends of the ledger, and (16, 8192),
@@ -96,8 +100,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      depth floors of `col_prefix`, `prefix_scan`, `pbpr_full`,
      `pbpr_stage1` and `pdbl_batch` on 16 lanes follow; one
      `to_affine` on one point, the depth floor of its chain; and one
-     `extract_buckets` block (19 buckets of one window), its two
-     dependent adds, the depth floor of a launch;
+     `extract_buckets` run (39 buckets of one window on one block), its
+     two dependent adds, the depth floor of a launch;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes
      (LANE_SHAPES), for every number of threads per lane, at BN254_S12
      here and at PROFILE_FULL in phase 9: what the launcher's rule of
@@ -153,11 +157,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      decoding to the CUDA path's on the same inputs; every call of
      `encode_mont`, `decompose_digits`, `padd_batch` (the stitch, the
      inject, the reduction's tree and stage 2), `pbpr_stage1` and
-     `pdbl_batch`, once per shape, against its plain version, timed; the
-     median of 3 timed runs and its split into the kernels' time (each
-     shape's time by its calls) and the rest (`[twin-where]`); then
-     BN254_S12 at 2^20 once, EXACT and counted, if 16 times the 2^16
-     median stays under TWIN_FULL_BUDGET_S;
+     `pdbl_batch`, once per shape, against its plain version, timed; one
+     timed run (the row walk takes seconds on the host, and the script
+     keeps to its time limit) and its split into the kernels' time (each
+     shape's time by its calls) and the rest (`[twin-where]`);
+     then BN254_S12 at 2^20 once, EXACT and counted, if 16 times the 2^16
+     run stays under TWIN_FULL_BUDGET_S;
  12. the `pbpr_full` edges whose plain versions ran on the CPU;
  13. `[autotune]`: `utils/window.autotune` on BN254_S12 at 2^16 (the
      model's 36 candidates and the static default) and 2^20 (its 24,
@@ -173,7 +178,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel records of every later session of a process),
      `utils/profiling.trace` around one 2^16 `tpu_variable_base_msm`
      (counted, EXACT), whose Chrome trace must name the seven kernels of
-     the main path (`bucket_sort` by its three kernels); `device_ms` of `apply_glv` and of `to_affine` alone
+     the main path (`bucket_sort` by its three kernels: the upsweep, the
+     counts and the pass); `device_ms` of `apply_glv` and of `to_affine` alone
      at 2^16, each with the device time of its kernels read from its own
      trace, and each trace's launches without a kernel record; then a
      StageTimer table of pack, window_sums and Horner;
@@ -371,8 +377,9 @@ def affine_muls(curve) -> int:
 # the way back) with Z times one, X zinv and Y zinv; the batch adds one
 # chain. The least work of to_affine, so the yardstick of its bound.
 TRICK_MULS = 6
-# int32 operations of bucket_sort's ranking, an element a pass: its digit,
-# the eight ballots of its peers, its rank and slot.
+# int32 operations of bucket_sort's ranking, an element a pass (each
+# element is ranked once a pass): its digit, the eight ballots of its
+# peers, its rank and slot.
 SORT_OPS = 16
 
 
@@ -734,6 +741,10 @@ def check_main_kernels(curve, seen: dict, tag: str, card: str,
     missing = set(MAIN) - {r["name"] for r in results.values()}
     if missing:
         raise AssertionError(f"kernels never called at {tag}: {missing}")
+    for r in results.values():
+        if r["name"] in ("bucket_sort", "extract_buckets"):
+            r["occupancy"] = occupancy(curve, r["name"], r["launched"], tag,
+                                       card)
     return results
 
 
@@ -800,11 +811,14 @@ def same_as_plain(label: str, name: str, args, kw=None) -> None:
 
 def sort_extract_edges(seen: dict, cfg: MSMConfig, card: str) -> None:
     """`bucket_sort` and `extract_buckets` against their plain versions at
-    inputs the main path may not give them: all-zero digits, one point,
-    every digit at +-2^(s-1) in a last partial tile, one pass (s = 8) and
-    the widest key (s = 16) on the captured digits' shard of windows;
-    extract_buckets with cnt == 0 lanes (j = 0, a whole window, the start
-    of a run of a block), cnt == n lanes, and at the last window group."""
+    inputs the main path may not give them: all-zero digits, every digit
+    equal, one point, every digit at +-2^(s-1) in a last partial tile,
+    one pass (s = 8) and the widest key (s = 16) on the captured digits'
+    shard of windows; extract_buckets with cnt == 0 lanes (j = 0, a whole
+    window, a run's halo lane), cnt == n lanes, at the last window group,
+    and on the first 40 and 79 region ends, whose last run of a window is
+    one bucket (the captured 2^16 shape's B = 4096 = 105 * 39 + 1 is one
+    too)."""
     digits, B = seen["bucket_sort"][1]
     Wp, n = digits.shape
     rng = np.random.default_rng(15)
@@ -815,6 +829,8 @@ def sort_extract_edges(seen: dict, cfg: MSMConfig, card: str) -> None:
     cases = {
         "all-zero digits (3, 5000)": (torch.zeros((3, 5000), dtype=torch.int16,
                                                   device=dev), B),
+        "every digit -777 (3, 9000)": (torch.full(
+            (3, 9000), -777, dtype=torch.int16, device=dev), B),
         "one point": (digits[:, :1].contiguous(), B),
         "+-B, a partial last tile (2, 4097)": (pm(B, (2, 4097)), B),
         "s=8 (one pass)": (digits[:, :12345].remainder(129).to(torch.int16)
@@ -831,21 +847,26 @@ def sort_extract_edges(seen: dict, cfg: MSMConfig, card: str) -> None:
     _, args, _, _ = seen["extract_buckets"]
     tbuf, S, cnt, buckets, g, Wg, C, R, curve = args
     G = cnt.shape[0] // Wg
-    J = kernels.extract_buckets_geometry(Wg, B).buckets_per_block
+    J = kernels.EXTRACT_LANES - 1
     edged = cnt.clone()
     edged[:, 0] = 0                               # nothing at digit 0
     edged[Wg - 1] = 0                             # an empty window
     edged[0, J:J + 3] = 0                         # a run's halo lane
     edged[0, -4:] = R * C                         # cnt == n
-    cases = {"real counts, group 0": (cnt, 0),
-             "cnt == 0 and cnt == n lanes": (edged, 0),
-             "the last group": (edged, G - 1)}
-    for label, (c, grp) in cases.items():
+    cases = {"real counts, group 0": (cnt, buckets, 0),
+             "cnt == 0 and cnt == n lanes": (edged, buckets, 0),
+             "the last group": (edged, buckets, G - 1)}
+    for b in (J + 1, 2 * J + 1):
+        cases[f"B = {b}: the last run of a window one bucket"] = (
+            edged[:, :b + 1].contiguous(), buckets[:, :, :, :b].contiguous(),
+            0)
+    for label, (c, bk, grp) in cases.items():
         same_as_plain(f"extract_buckets {label}", "extract_buckets",
-                      (tbuf, S, c, buckets, grp, Wg, C, R, curve))
+                      (tbuf, S, c, bk, grp, Wg, C, R, curve))
     print(f"[edge] extract_buckets bit-identical to its plain version, "
-          f"the whole (3, L, {cnt.shape[0]}, {B}) bucket tensor: "
-          f"{', '.join(cases)} (Wg = {Wg}) [{card}]", flush=True)
+          f"the whole (3, L, {cnt.shape[0]}, B) bucket tensor: "
+          f"{', '.join(cases)} (Wg = {Wg}; B = {B} unless named) [{card}]",
+          flush=True)
 
 
 def wide_edges(seen: dict, card: str) -> None:
@@ -1347,9 +1368,9 @@ def latency(curve, card: str, scan_G: int) -> dict:
     # floor of any launch of it
     one = lazy((1,)).to(torch.int32)
     aff_ms = queued_ms(lambda: to_affine(one, curve), 20, blocker)
-    # extract_buckets on one window of 19 buckets: one block, its two
+    # extract_buckets on one window of one run: one block, its two
     # dependent adds (the G lanes, then their differences)
-    J = kernels.extract_buckets_geometry(1, 19).buckets_per_block
+    J = kernels.EXTRACT_LANES - 1
     ext_args = (lazy((1, 32)), lazy((32,)), torch.from_numpy(np.sort(
         rng.integers(0, 33, (1, J + 1))).astype(np.int32)).to(DEVICE),
         torch.empty((3, L, 1, J), dtype=torch.int16, device=DEVICE), 0, 1,
@@ -1376,8 +1397,9 @@ def latency(curve, card: str, scan_G: int) -> dict:
           f"{stage1_step:.5f} ms, from the same buckets: Bt = {lo} "
           f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo}; "
           f"to_affine on one point (a chain of {affine_muls(curve)} "
-          f"multiplies) {aff_ms:.4f} ms; extract_buckets on one block "
-          f"({J} buckets of one window, two dependent adds) {ext_ms:.4f} ms"
+          f"multiplies) {aff_ms:.4f} ms; extract_buckets on one run "
+          f"({J} buckets of one window on one block, two dependent adds) "
+          f"{ext_ms:.4f} ms"
           f" [{card}]", flush=True)
     return dict(padd_ms=padd_ms, padd_launched=padd_geo,
                 pdbl_16_lanes_ms=dbl_ms[16], pdbl_one_warp_ms=dbl_ms[1],
@@ -1664,16 +1686,18 @@ def main_path(curve, logn: int, card: str, glv: bool = False):
             ext_geo)
 
 
-def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str):
+def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str,
+               runs: int = 3):
     """Bench-style timing: int16/uint16 wire inputs, staged h2d timed
-    apart, then window_sums + host Horner; median of 3, each EXACT."""
+    apart, then window_sums + host Horner; the median of `runs`, each
+    EXACT."""
     n = 1 << logn
     pipe = get_pipeline(cfg, DEVICE)
     xs, ys, hw, _, want = inputs(cfg.curve, logn)
     wire = (xs.astype(np.int16), ys.astype(np.int16),
             np.concatenate([hw, np.zeros((2, n), np.uint32)]).astype(np.uint16))
     times, h2ds = [], []
-    for _ in range(3):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dev_in = [torch.from_numpy(a).to(DEVICE) for a in wire]
@@ -2334,8 +2358,9 @@ def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
     """One checked run of the twin: the user call; its window sums
     against the CUDA path's on the same inputs, window by window after
     decoding; each captured kernel call against its plain version, timed
-    (3 reps); the median of 3 timed runs; the kernels' time (each shape's
-    time by its calls) and the rest."""
+    (3 reps); one timed run (the row walk on the host takes seconds, so
+    the script's time limit takes no more); the kernels' time (each
+    shape's time by its calls) and the rest."""
     label = twin_label(curve, logn, glv)
     run = twin_user_call(curve, logn, glv, card, capture=True)
     cfg, seen, counts = run["cfg"], run["seen"], run["counts"]
@@ -2364,9 +2389,9 @@ def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
     kern_ms = dict.fromkeys(kset, 0.0)
     for key, r in results.items():
         kern_ms[r["name"]] += counts[key] * r["ms"]
-    ms, h2d = timed_runs(cfg, logn, "twin", card)
+    ms, h2d = timed_runs(cfg, logn, "twin", card, runs=1)
     total = sum(kern_ms.values())
-    print(f"[twin-where] {label}: median {ms:.2f} ms end to end; kernels "
+    print(f"[twin-where] {label}: one run {ms:.2f} ms end to end; kernels "
           f"{total:.2f} ms (" + ", ".join(f"{k} {v:.2f}" for k, v in
                                          kern_ms.items())
           + f"; each shape's time by its calls), outside the kernels "
@@ -2382,7 +2407,7 @@ def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
 
 def twin_phase(card: str) -> dict:
     """The [twin] runs, then the first of them at 2^TWIN_FULL_LOGN once if
-    its median says it fits TWIN_FULL_BUDGET_S."""
+    its timed run says it fits TWIN_FULL_BUDGET_S."""
     t0 = time.perf_counter()
     runs = {}
     for curve, logn, glv in TWIN_RUNS:
@@ -2401,7 +2426,7 @@ def twin_phase(card: str) -> dict:
             k: run["launches"][k] for k in TWIN_KERNELS})
     else:
         print(f"[twin] {twin_label(curve, TWIN_FULL_LOGN, False)} not "
-              f"run: 2^{TWIN_FULL_LOGN - logn} x the 2^{logn} median is "
+              f"run: 2^{TWIN_FULL_LOGN - logn} x the 2^{logn} run is "
               f"{est:.1f} s, over {TWIN_FULL_BUDGET_S:.0f} s [{card}]",
               flush=True)
     torch.cuda.empty_cache()
@@ -2524,10 +2549,97 @@ def callee_counts(stem: str, build=None) -> dict:
     return out
 
 
+def kernel_label(fn: str) -> str:
+    """`name<template arguments>` of a mangled kernel symbol (`name` alone
+    where the kernel is no template)."""
+    targs = template_args(fn, "_kernel") if "_kernelI" in fn else []
+    return kernel_name(fn) + (f"<{', '.join(targs)}>" if targs else "")
+
+
+def ptxas_table(stem: str) -> dict:
+    """{kernel label: (registers, static shared bytes)} of every kernel of
+    csrc/<stem>.cu, from what ptxas printed when the library was built."""
+    text = (_build.build().parent / f"{stem}.ptxas.txt").read_text()
+    out = {}
+    for chunk in text.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        out[kernel_label(chunk.split("'", 1)[0])] = (
+            int(regs[1]), int(smem[1]) if smem else 0)
+    return out
+
+
+def resident_blocks(threads: int, regs: int, shared: int) -> int:
+    """Blocks of a kernel that an H100 SM holds at once: by its block
+    slots, its warps, its registers (allocated 256 a warp) and its shared
+    memory (with the 1 KB reserved a block)."""
+    warps = -(-threads // 32)
+    warp_regs = -(-regs * 32 // 256) * 256
+    return min(kernels.SM_BLOCKS, kernels.SM_WARPS // warps,
+               kernels.SM_REGISTERS // (warp_regs * warps),
+               kernels.SM_SHARED_BYTES
+               // (shared + kernels.BLOCK_RESERVED_SHARED))
+
+
+def occupancy(curve, name: str, launched: dict, tag: str, card: str) -> dict:
+    """`[occupancy]`: for `bucket_sort` each of its kernels' blocks, the
+    blocks an SM holds (from [ptxas] and the launch geometry) and its
+    waves, and its launches a call; for `extract_buckets` its persistent
+    blocks, the blocks an SM holds by the occupancy query and by [ptxas],
+    its waves and its runs. Estimates without ncu: no achieved
+    occupancy."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    table = ptxas_table(name)
+    out = {}
+    if name == "bucket_sort":
+        Wp = launched["upsweep_blocks"] // launched["chunks"]
+        forms = ([("true", "true")] if launched["passes"] == 1
+                 else [("true", "false"), ("false", "true")])
+        parts = [("radix_upsweep", kernels.SORT_UPSWEEP_THREADS,
+                  launched["upsweep_shared_bytes"], launched["upsweep_blocks"]),
+                 ("radix_counts", 256, 0, launched["count_blocks"])]
+        parts += [(f"radix_pass<{a}, {b}>", 256, 0, Wp * launched["tiles"])
+                  for a, b in forms]
+        for label, threads, dyn, blocks in parts:
+            regs, smem = table[label]
+            per_sm = resident_blocks(threads, regs, smem + dyn)
+            out[label] = dict(blocks=blocks, threads=threads, registers=regs,
+                              shared_bytes=smem + dyn, blocks_per_sm=per_sm,
+                              waves=-(-blocks // (sms * per_sm)))
+        out["launches"] = launched["launches"]
+        text = (f"{launched['launches']} launches a call; " + "; ".join(
+            f"{k} {v['blocks']} blocks of {v['threads']} threads, "
+            f"{v['blocks_per_sm']} an SM ({v['registers']} registers, "
+            f"{v['shared_bytes']} B shared), waves {v['waves']}"
+            for k, v in out.items() if isinstance(v, dict)))
+    else:
+        L = curve.num_limbs
+        label = f"extract<{L}, {curve.log_limb_size}>"
+        regs, smem = table[label]
+        dyn = 4 * kernels.EXTRACT_LANES * (15 * L | 1)
+        out = dict(blocks=launched["blocks"], threads=launched["threads"],
+                   registers=regs, shared_bytes=smem + dyn,
+                   blocks_per_sm=launched["blocks_per_sm"],
+                   blocks_per_sm_ptxas=resident_blocks(
+                       launched["threads"], regs, smem + dyn),
+                   waves=launched["waves"], runs=launched["runs"],
+                   runs_per_block=launched["runs_per_block"])
+        text = (f"{out['blocks']} persistent blocks of {out['threads']} "
+                f"threads, {out['blocks_per_sm']} an SM by the occupancy "
+                f"query ({out['blocks_per_sm_ptxas']} by [ptxas]: "
+                f"{regs} registers, {smem + dyn} B shared), "
+                f"waves {out['waves']}, {out['runs']} runs of "
+                f"{kernels.EXTRACT_LANES - 1} buckets, at most "
+                f"{out['runs_per_block']} a block")
+    print(f"[occupancy] {curve.name} {tag} {name}: {text} [{card}]",
+          flush=True)
+    return out
+
+
 def kernel_name(fn: str) -> str:
-    """`name` of a mangled `<name>_kernel<...>` symbol: the identifier
-    that its length, in decimal, precedes."""
-    head = fn.split("_kernelI")[0]
+    """`name` of a mangled `<name>_kernel<...>` or `<name>_kernel` symbol:
+    the identifier that its length, in decimal, precedes."""
+    head = re.split(r"_kernel(?=[IE])", fn, maxsplit=1)[0]
     for i in range(len(head) - 1, 0, -1):
         if (head[i].isalpha() and head[i - 1].isdigit()
                 and head[:i].endswith(str(len(head) - i + 7))):
@@ -2552,8 +2664,8 @@ TRACE_NAMES = {
     "decompose_digits": (r"::digits_kernel\b",),
     "prefix_scan": (r"::scan_kernel<\d+, \d+, \d+>",),
     "col_prefix": (r"::colprefix_kernel\b",),
-    "bucket_sort": (r"::radix_tile_kernel<", r"::radix_scan_kernel<",
-                    r"::radix_bounds_kernel<"),
+    "bucket_sort": (r"::radix_upsweep_kernel\b", r"::radix_counts_kernel\b",
+                    r"::radix_pass_kernel<"),
     "extract_buckets": (r"::extract_kernel<",),
     "pbpr_full": (r"::stage1_kernel<\d+, \d+>(\(|$)",
                   r"::scan_kernel<\d+, \d+>(\(|$)"),
@@ -2998,10 +3110,11 @@ def main_on_card(t_start: float) -> int:
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name (bucket_sort's are no profile's)
-            targs = template_args(fn, "_kernel")
+            targs = (template_args(fn, "_kernel") if "_kernelI" in fn
+                     else [])
             if stem != "bucket_sort" and int(targs[0]) not in PTXAS_LIMBS:
                 continue
-            resources[f"{stem}.{kernel_name(fn)}<{', '.join(targs)}>"] = dict(
+            resources[f"{stem}.{kernel_label(fn)}"] = dict(
                 registers=regs, stack_bytes=stack, spill_store_bytes=st,
                 spill_load_bytes=ld)
     for k, v in resources.items():

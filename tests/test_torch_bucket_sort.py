@@ -9,10 +9,15 @@ on its block path and its flat path; the key order against
 `jax.lax.sort` of the sign-packed keys |d| << 1 | sign, and each
 |d| region's payloads against lax.sort's as sets (the JAX sort packs the
 sign into the key, so the order inside a region differs); the order
-against numpy's stable argsort exactly. The kernel's design (tiles of
-4,096, a warp's 32-element steps ranked by digit peers, the scan over
-the tiles, the scatter, the warp-wide fill of the counts) is replayed
-step by step in numpy and must give the plain version's bits."""
+against numpy's stable argsort exactly. The kernel's design is replayed
+step by step in numpy and must give the plain version's bits: the
+upsweep's chunk histograms and digit counts, the counts kernel's
+segments (cnt and each pass's digit bases), and each pass's tiles of
+4,096 (each warp's early counts published as the tile's aggregate, a
+warp's 32-element steps ranked by digit peers straight into slots, the
+decoupled look-back over the tiles before, run with the tiles' steps
+interleaved in any order, the staged scatter); and
+`bucket_sort_geometry`."""
 
 import jax
 import jax.numpy as jnp
@@ -161,90 +166,246 @@ def test_wrapper_refusals_and_passes():
 
 TILE, WARPS, ITEMS, RADIX = kernels.SORT_TILE, 8, 16, 256
 SPAN = TILE // WARPS
+AGGREGATE, INCLUSIVE = 1 << 30, 2 << 30
 
 
-def tile_ranks(keys, n, shift, tile):
-    """`radix_tile_kernel`'s ranking of one tile: each element's rank
-    among its warp's earlier elements of its digit, and the warps'
-    histograms. Warp w takes [w SPAN, (w + 1) SPAN) of the tile, 32
-    elements a step; the lowest peer adds the peers' count."""
-    rank = np.zeros(TILE, np.int64)
-    digit = np.full(TILE, RADIX, np.int64)
-    whist = np.zeros((WARPS, RADIX + 1), np.int64)
+def upsweep(keys, geo, B):
+    """`radix_upsweep_kernel`: each (window, chunk)'s histogram of the
+    clamped keys, its bins 0 .. B (part) and each pass's digit counts
+    (pdig), sums of its bins."""
+    Wp, n = keys.shape
+    span = -(-n // geo.chunks)
+    nbins = ((geo.key_max >> 8) + 1) * RADIX
+    part = np.zeros((Wp, geo.chunks, B + 1), np.int64)
+    pdig = np.zeros((Wp, geo.chunks, geo.passes, RADIX), np.int64)
+    for w in range(Wp):
+        for c in range(geo.chunks):
+            h = np.bincount(keys[w, c * span:(c + 1) * span],
+                            minlength=nbins)
+            part[w, c] = h[:B + 1]
+            bins = h.reshape(-1, RADIX)            # (segments, 256)
+            pdig[w, c, 0] = bins.sum(0)
+            if geo.passes > 1:
+                pdig[w, c, 1, :bins.shape[0]] = bins.sum(1)
+    return part, pdig
+
+
+def counts(part, pdig, B):
+    """`radix_counts_kernel`: a block a segment of 256 bins: the bins
+    summed over the chunks and scanned, plus the pass-1 digits below the
+    segment; dbase, each pass's digits' exclusive prefix."""
+    Wp, _, passes, _ = pdig.shape
+    cnt = np.zeros((Wp, B + 1), np.int64)
+    for w in range(Wp):
+        for s in range((B >> 8) + 1):
+            seg = part[w, :, s * RADIX:(s + 1) * RADIX].sum(0)
+            below = pdig[w, :, 1, :s].sum() if s else 0
+            cnt[w, s * RADIX:s * RADIX + seg.size] = below + np.cumsum(seg)
+    tot = pdig.sum(1)                                  # (Wp, passes, 256)
+    dbase = (np.cumsum(tot, -1) - tot).transpose(1, 0, 2)
+    return cnt, dbase
+
+
+def early_counts(keys, n, shift, tile):
+    """The early counts of one tile: each warp's count of each digit (its
+    SPAN elements), before any rank."""
+    idx = tile * TILE + np.arange(TILE)
+    dg = (keys[np.minimum(idx, n - 1)] >> shift) & (RADIX - 1)
+    whist = np.zeros((WARPS, RADIX), np.int64)
+    for w in range(WARPS):
+        sl = slice(w * SPAN, (w + 1) * SPAN)
+        np.add.at(whist[w], dg[sl][idx[sl] < n], 1)
+    return whist
+
+
+def tile_slots(keys, n, shift, tile, warp_base):
+    """The rank straight into slots: warp w walks its SPAN elements 32 at
+    a time; a lane's slot is its warp's next slot of its digit plus its
+    peers of lower lane, and the lowest peer moves the next slot on."""
+    slot = np.full(TILE, -1, np.int64)
+    nxt = warp_base.copy()
+    lower = np.tril(np.ones((32, 32), bool), -1)
     for w in range(WARPS):
         for c in range(ITEMS):
-            lanes = np.arange(32)
-            loc = w * SPAN + c * 32 + lanes
+            loc = w * SPAN + c * 32 + np.arange(32)
             idx = tile * TILE + loc
             valid = idx < n
             dg = np.where(valid, (keys[np.minimum(idx, n - 1)] >> shift)
-                          & (RADIX - 1), RADIX)
-            for lane in lanes[valid]:
-                peers = dg == dg[lane]
-                before = int(np.sum(peers[:lane]))
-                rank[loc[lane]] = whist[w, dg[lane]] + before
-            for d in np.unique(dg[valid]):
-                whist[w, d] += int(np.sum(dg == d))
-            digit[loc] = dg
-    return rank, digit, whist[:, :RADIX]
+                          & (RADIX - 1), RADIX - 1)
+            peers = (dg[:, None] == dg[None, :]) & valid[None, :]
+            before = (peers & lower).sum(1)
+            slot[loc[valid]] = (nxt[w, dg] + before)[valid]
+            np.add.at(nxt[w], dg[valid], 1)
+    # every warp ends at the next warp's first slot of each digit
+    assert np.array_equal(nxt[:-1], warp_base[1:])
+    return slot
 
 
-def replay(digits, B):
-    """The passes of msm_bucket_sort, then radix_bounds_kernel."""
-    Wp, n = digits.shape
-    passes = kernels.sort_passes(B)
+def pass_tiles(keys, pays, n, shift, dbase_w, rng, stats):
+    """`radix_pass_kernel` on one window: each tile a coroutine that
+    counts its warps' digits, publishes its aggregate, ranks its tile
+    into slots, looks back (spinning on a tile not ready), publishes its
+    inclusive prefix and scatters. Tiles take their ids in order, but
+    `rng` interleaves their steps in any order, so tiles finish in any
+    order; the output must not depend on it. With rng None the tiles run
+    in reverse."""
     tiles = -(-n // TILE)
+    status = np.zeros((tiles, RADIX), np.int64)
+    out_keys, out_pays = np.zeros_like(keys), np.zeros_like(pays)
+
+    def tile_job(t):
+        whist = early_counts(keys, n, shift, t)
+        count = whist.sum(0)
+        status[t] = (INCLUSIVE if t == 0 else AGGREGATE) | count
+        yield
+        first = np.cumsum(count) - count
+        slots = tile_slots(keys, n, shift, t,
+                           first + np.cumsum(whist, 0) - whist)
+        excl = np.zeros(RADIX, np.int64)
+        if t:
+            for d in range(RADIX):
+                q = t - 1
+                while True:
+                    while status[q, d] < AGGREGATE:   # not ready: spin
+                        stats["spins"] += 1
+                        yield
+                    v = status[q, d]
+                    excl[d] += v & (AGGREGATE - 1)
+                    if v >= INCLUSIVE:
+                        break
+                    stats["aggregates"] += 1
+                    q -= 1
+            status[t] = INCLUSIVE | (excl + count)
+        yield
+        off = dbase_w + excl - first
+        for loc in range(TILE):
+            idx = t * TILE + loc
+            if idx < n:
+                d = (keys[idx] >> shift) & (RADIX - 1)
+                out_keys[off[d] + slots[loc]] = keys[idx]
+                out_pays[off[d] + slots[loc]] = pays[idx]
+
+    if rng is None:
+        # every tile's aggregate first, newest first, then each tile to
+        # its end, newest first: each walks back over all the aggregates
+        jobs = [tile_job(t) for t in range(tiles)]
+        for job in reversed(jobs):
+            next(job)
+        for job in reversed(jobs):
+            for _ in job:
+                pass
+        return out_keys, out_pays
+    started, running = 0, []
+    while started < tiles or running:
+        if started < tiles and (not running or rng.random() < 0.3):
+            running.append(tile_job(started))       # the next tile id
+            started += 1
+        job = running[rng.integers(len(running))]
+        try:
+            next(job)
+        except StopIteration:
+            running.remove(job)
+    return out_keys, out_pays
+
+
+def replay(digits, B, sms, rng, stats):
+    """msm_bucket_sort: the upsweep, the counts, then the passes."""
+    Wp, n = digits.shape
+    geo = kernels.bucket_sort_geometry(Wp, n, B, sms)
     d32 = digits.astype(np.int64)
-    keys = np.abs(d32)
+    keys = np.minimum(np.abs(d32), geo.key_max)
     pays = (np.arange(n)[None] << 1) | (d32 < 0)
-    for ps in range(passes):
-        shift = 8 * ps
-        new_keys, new_pays = np.zeros_like(keys), np.zeros_like(pays)
-        for w in range(Wp):
-            ranked = [tile_ranks(keys[w], n, shift, t) for t in range(tiles)]
-            hist = np.array([r[2].sum(0) for r in ranked])   # (tiles, 256)
-            prefix = np.cumsum(hist, 0) - hist                # scan kernel
-            totals = hist.sum(0)
-            digit_base = np.cumsum(totals) - totals
-            for t, (rank, digit, whist) in enumerate(ranked):
-                warp_base = np.cumsum(whist, 0) - whist
-                for loc in range(TILE):
-                    idx = t * TILE + loc
-                    if idx >= n:
-                        continue
-                    d = digit[loc]
-                    pos = (digit_base[d] + prefix[t, d]
-                           + warp_base[loc // SPAN, d] + rank[loc])
-                    new_keys[w, pos] = keys[w, idx]
-                    new_pays[w, pos] = pays[w, idx]
-        keys, pays = new_keys, new_pays
-    # the counts: position p fills [key[p], key[p + 1]) with p + 1 (up to
-    # B + 1 after the last), position 0 fills [0, key[0]) with 0
-    cnt = np.full((Wp, B + 1), -1, np.int64)
-    for w in range(Wp):
-        k = np.minimum(keys[w], B + 1)
-        nxt = np.append(k[1:], B + 1)
-        cnt[w, :k[0]] = 0
-        for p in range(n):
-            cnt[w, k[p]:nxt[p]] = p + 1
-    return pays.astype(I32), cnt.astype(I32)
+    part, pdig = upsweep(keys, geo, B)
+    cnt, dbase = counts(part, pdig, B)
+    for ps in range(geo.passes):
+        out = [pass_tiles(keys[w], pays[w], n, 8 * ps, dbase[ps, w], rng,
+                          stats) for w in range(Wp)]
+        keys = np.stack([k for k, _ in out])
+        pays = np.stack([p for _, p in out])
+    return pays.astype(I32), cnt.astype(I32), geo
 
 
-@pytest.mark.parametrize("shape,B", [((2, 5000), 4096), ((1, 9000), 32768),
-                                     ((3, 1), 4096), ((1, 700), 128),
-                                     ((2, 4096), 256)])
-def test_kernel_replay_matches_plain(shape, B):
-    """Two tiles and a partial third, one point, one pass (B = 128), two
-    passes at 9 bits (B = 256), a whole tile; long runs of equal digits
-    and zeros in the first window."""
-    rng = np.random.default_rng(shape[1])
+@pytest.mark.parametrize("shape,B,kind", [
+    ((2, 5000), 4096, "runs"), ((1, 9000), 32768, "runs"),
+    ((3, 1), 4096, "runs"), ((1, 700), 128, "runs"),
+    ((2, 4096), 256, "runs"), ((2, 6000), 4096, "equal"),
+    ((3, 3000), 255, "runs"), ((2, 9000), 32768, "top")])
+def test_kernel_replay_matches_plain(shape, B, kind):
+    """Two tiles and a partial third, n = 1, one pass (B = 128 and 255),
+    two passes at 9 bits (B = 256), a whole tile, every digit equal, a
+    top window (only small |d|, the upper buckets empty); long runs of
+    equal digits and zeros in the first window; a card of 3 SMs, so
+    that a window takes several upsweep chunks."""
+    rng = np.random.default_rng(shape[1] + B)
     digits = rng.integers(-B, B, shape)
-    digits[0, : shape[1] // 3] = rng.integers(-2, 3, shape[1] // 3)
+    if kind == "runs":
+        digits[0, : shape[1] // 3] = rng.integers(-2, 3, shape[1] // 3)
+    elif kind == "equal":
+        digits[:] = -777
+    else:
+        digits = rng.integers(-300, 300, shape)
     digits = digits.astype(np.int16)
-    pay, cnt = replay(digits, B)
+    stats = {"spins": 0, "aggregates": 0}
+    pay, cnt, geo = replay(digits, B, 3, rng, stats)
+    assert geo.launches == 2 + geo.passes <= 4
+    assert geo.passes == (1 if B < 256 else 2)
     want_pay, want_cnt = kernels.bucket_sort(torch.from_numpy(digits), B)
     assert np.array_equal(pay, want_pay.numpy())
     assert np.array_equal(cnt, want_cnt.numpy())
+
+
+@pytest.mark.parametrize("order", ["reversed", "random"])
+def test_lookback_any_finish_order(order):
+    """The look-back of 9 tiles of one window, whose steps run in reverse
+    (each tile's aggregate before any look-back: every tile walks back to
+    tile 0) or in a random order, gives the stable order."""
+    n, B = 9 * TILE - 5, 4096
+    rng = np.random.default_rng(9)
+    digits = rng.integers(-B, B, (1, n)).astype(np.int16)
+    stats = {"spins": 0, "aggregates": 0}
+    sched = None if order == "reversed" else rng
+    pay, cnt, _ = replay(digits, B, 1, sched, stats)
+    want_pay, want_cnt = kernels.bucket_sort_plain(torch.from_numpy(digits),
+                                                   B)
+    assert np.array_equal(pay, want_pay.numpy())
+    assert np.array_equal(cnt, want_cnt.numpy())
+    # reversed: in each of the two passes tile t reads the aggregates of
+    # tiles t - 1 .. 1 of every digit; random: tiles waited on tiles not
+    # ready and read aggregates
+    if order == "reversed":
+        assert stats["aggregates"] == 2 * RADIX * sum(range(8))
+    else:
+        assert stats["spins"] and stats["aggregates"]
+
+
+@pytest.mark.parametrize("Wp,n,B,sms", [(16, 1 << 20, 1 << 15, 132),
+                                        (9, 1 << 21, 1 << 15, 132),
+                                        (20, 1 << 16, 1 << 12, 132),
+                                        (3, 1, 128, 132), (65535, 7, 255, 4),
+                                        (1, 5000, 256, 1)])
+def test_geometry(Wp, n, B, sms):
+    geo = kernels.bucket_sort_geometry(Wp, n, B, sms)
+    assert geo.passes == kernels.sort_passes(B)
+    assert geo.launches == 2 + geo.passes <= 4
+    assert geo.tiles == -(-n // kernels.SORT_TILE)
+    assert geo.key_max == min(B + 1, (1 << (8 * geo.passes)) - 1) >= B
+    # the histogram fits a block, and the chunks of the upsweep are the
+    # resident blocks (at least one a window, at most one a tile)
+    assert geo.upsweep_shared_bytes <= kernels.BLOCK_SHARED_BYTES
+    assert geo.upsweep_shared_bytes >= 4 * (geo.key_max + 1)
+    assert 1 <= geo.chunks <= geo.tiles
+    assert geo.upsweep_blocks == Wp * geo.chunks
+    if Wp <= sms * geo.upsweep_blocks_per_sm and geo.chunks < geo.tiles:
+        assert (geo.upsweep_blocks
+                > sms * geo.upsweep_blocks_per_sm - Wp)
+    assert geo.upsweep_blocks <= max(sms * geo.upsweep_blocks_per_sm, Wp)
+    assert geo.count_blocks == Wp * ((B >> 8) + 1)
+    assert geo.work_words == (Wp * geo.chunks * (B + 1)
+                              + Wp * geo.chunks * geo.passes * 256
+                              + geo.passes * Wp * 256
+                              + geo.passes * Wp * (geo.tiles * 256 + 1))
+    with pytest.raises(ValueError):
+        kernels.bucket_sort_geometry(0, n, B, sms)
 
 
 def test_pipeline_stage2_is_bucket_sort(monkeypatch):

@@ -11,9 +11,11 @@ interpret mode. BN254_S12: against the torch sequence of the stage 3
 that came before (two advanced-index gathers, `padd_batch`,
 `torch.where`, `psub_batch` of the neighbours into the group's slice),
 bit for bit. Edges: cnt == 0 at j = 0, an empty window, cnt == n, and
-Wg = 1 and 4. The kernel's block split (runs of 19 buckets, the halo lane,
-the last partial run) is replayed with the plain add and must give the
-plain version's bits."""
+Wg = 1 and 4. The kernel's persistent blocks (each walking its runs of
+39 buckets, the loader staging run k + 1 before the adds of run k, the
+halo lane, the masked last run of a window, the divisions by a multiply
+and a shift) are replayed with the plain add and must give the plain
+version's bits."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,7 @@ import torch
 from tpu_msm import constants as jc
 from tpu_msm.cuzk import kernels as jk
 from tpu_msm_torch.config import MSMConfig
-from tpu_msm_torch.constants import BN254_S12, TINY62
+from tpu_msm_torch.constants import BN254_S12, TINY62, int_to_limbs
 from tpu_msm_torch.cuzk import kernels, pipeline_cuda
 from tpu_msm_torch.cuzk.pipeline import get_pipeline
 from tpu_msm_torch.reference import curve as ref
@@ -171,66 +173,165 @@ def test_boundary_positions_and_counts_agree():
 
 
 # ---------------------------------------------------------------------------
-# csrc/extract_buckets.cu: its geometry and its blocks replayed
+# csrc/extract_buckets.cu: its geometry and its persistent blocks replayed
 # ---------------------------------------------------------------------------
 
 
-def replay(tbuf, S, cnt, buckets, g, Wg, C, R, curve):
-    """The kernel's blocks, one after another: block k of window wl takes
-    buckets b0 = (k mod chunks) J .. b0 + J - 1, adds G on its J + 1
-    region ends (the halo b0 included), infinity where cnt == 0, then
-    the neighbours' differences, and stores them at its run."""
+def replay(tbuf, S, cnt, buckets, g, Wg, C, R, curve, sms, per_sm,
+           order=None):
+    """The kernel's blocks: block k takes runs k, k + blocks, ... of 39
+    buckets, its loader warp staging run k + 1 (cnt, the positions by
+    `fast_div`, the T and S gathers) once the add warps have copied run k
+    into their lanes and before they add it. The lanes: G = T + S into
+    each lane's q words, then one move (lane l's G, infinity where
+    cnt == 0, as p of bucket l - 1 and, y negated, as q of bucket l),
+    then the differences, stored at the run. The blocks run one after
+    another in `order` (any order: each writes only its own runs)."""
     L, F, B = curve.num_limbs, Wg * C, cnt.shape[1] - 1
-    geo = kernels.extract_buckets_geometry(Wg, B, L, curve.log_limb_size)
-    J = geo.buckets_per_block
-    chunks = geo.blocks // Wg
-    f_all, jt_all = kernels.boundary_lanes(cnt, Wg, C, R)
+    geo = kernels.extract_buckets_geometry(Wg, B, sms, per_sm, L,
+                                           curve.log_limb_size)
+    lanes, J, rpw = geo.lanes_per_block, geo.buckets_per_run, \
+        geo.runs_per_window
+    by_r, by_rpw = kernels.fast_div(R), kernels.fast_div(rpw)
+    div = lambda x, f: (x * f[0]) >> f[1]
     tflat, sflat = tbuf.reshape(3, L, R * F), S.reshape(3, L, F)
-    one = kernels.inf_stacked(curve, (1,))[..., 0]
-    for blk in range(geo.blocks):
-        wl, b0 = blk // chunks, (blk % chunks) * J
-        w = g * Wg + wl
-        nA = min(J + 1, B + 1 - b0)
-        js = torch.arange(b0, b0 + nA)
-        G = kernels.padd_batch_plain(tflat[:, :, jt_all[w, js].long()],
-                                     sflat[:, :, f_all[w, js].long()], curve)
-        G[:, :, cnt[w, js] == 0] = one[:, :, None]
-        buckets[:, :, w, b0:b0 + nA - 1] = kernels.psub_batch_plain(
-            G[..., 1:], G[..., :-1], curve, out_dtype=I16)
-    return buckets
+    one = kernels.inf_stacked(curve, (1,))[:, :, 0]
+    kp4 = torch.tensor(int_to_limbs(4 * curve.p, L, curve.log_limb_size),
+                       dtype=I32)
+    staged = []                         # runs staged and not yet added
+
+    def stage(run):
+        """The loader: one run into the staging buffer."""
+        wl = div(run, by_rpw)
+        assert wl == run // rpw
+        b0 = (run - wl * rpw) * J
+        nA = min(lanes, B + 1 - b0)
+        c = cnt[g * Wg + wl, b0:b0 + nA]
+        p = (c - 1).clamp(min=0)
+        q = torch.tensor([div(int(v), by_r) for v in p], dtype=torch.int64)
+        assert torch.equal(q, p.long() // R)
+        f = wl * C + q
+        jt = (p - q * R) * F + f
+        t = torch.zeros((3, L, lanes), dtype=I16)
+        s = torch.zeros((3, L, lanes), dtype=I16)
+        t[:, :, :nA] = tflat[:, :, jt]
+        s[:, :, :nA] = sflat[:, :, f]
+        staged.append(dict(t=t, s=s, zero=c == 0, wl=wl, b0=b0, nA=nA))
+
+    blocks = range(geo.blocks) if order is None else order
+    for k in blocks:
+        runs = list(range(k, geo.runs, geo.blocks))
+        assert len(runs) <= geo.runs_per_block
+        stage(runs[0])
+        for i, run in enumerate(runs):
+            st = staged.pop(0)
+            p1, p2 = st["t"].to(I32), st["s"].to(I32)   # the lanes' copy
+            if i + 1 < len(runs):
+                stage(runs[i + 1])      # run k + 1 in flight during the adds
+            nA = st["nA"]
+            G = kernels.padd_batch_plain(p1[..., :nA], p2[..., :nA], curve)
+            G[:, :, st["zero"]] = one[:, :, None]
+            p_b = G[..., 1:]                             # lane l - 1's p
+            q_b = G.clone()
+            q_b[1] = kp4[:, None] - q_b[1]               # y -> 4p - y
+            out = kernels.padd_batch_plain(p_b, q_b[..., :nA - 1], curve)
+            w = g * Wg + st["wl"]
+            buckets[:, :, w, st["b0"]:st["b0"] + nA - 1] = out.to(I16)
+        assert not staged
+    return buckets, geo
 
 
 @pytest.mark.parametrize("Wg,n,s", [(1, 96, 8), (4, 64, 6), (2, 32, 10)])
 def test_kernel_blocks_replayed(Wg, n, s):
-    """B = 128 (6 full runs of 19 and one of 14), 32 (a run of 13) and
-    512 (26 runs and one of 18) buckets, with cnt == 0 and cnt == n lanes at
-    run edges."""
+    """Real inputs: B = 128 (3 full runs of 39 and one of 11), 32 (one
+    run of 32) and 512 (13 runs and one of 5) buckets, with cnt == 0 and
+    cnt == n lanes at run edges; a card of one SM of 2 blocks, so that a
+    block walks several runs of several windows."""
     cfg = MSMConfig(curve=TINY62, window_size=s, columns=16, pbpr_threads=8,
                     subtask_group=Wg)
     Wp = cfg.padded_windows
     tbuf, S, cnt, C, R = stage3_inputs(cfg, n)
     cnt = cnt.clone()
-    cnt[0, :20] = 0                     # the first run and the next halo
+    cnt[0, :41] = 0                     # the first run and the next halo
     cnt[Wg - 1, 37:40] = R * C
-    got = replay(tbuf, S, cnt, empty_buckets(cfg, Wp), 0, Wg, C, R, TINY62)
+    got, geo = replay(tbuf, S, cnt, empty_buckets(cfg, Wp), 0, Wg, C, R,
+                      TINY62, 1, 2)
+    assert geo.runs_per_block > 1
     want = kernels.extract_buckets(tbuf, S, cnt, empty_buckets(cfg, Wp), 0,
                                    Wg, C, R, TINY62)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Wg,B,C,R,curve", [
+    (1, 40, 64, 4, TINY62), (2, 79, 32, 8, TINY62), (3, 39, 16, 5, TINY62),
+    (1, 1, 8, 2, TINY62), (2, 118, 32, 3, BN254_S12)])
+def test_kernel_runs_synthetic(Wg, B, C, R, curve):
+    """Lazy limbs from a seed and sorted counts: a window whose last run is
+    one bucket (B = 40, 79) or none (B = 39, 118: whole runs), B = 1;
+    cnt == 0 at j = 0 .. 2 and cnt == n at the top; blocks in a shuffled
+    order, each walking runs of several windows; the group g = 1."""
+    rng = np.random.default_rng(B)
+    L, F, Wp = curve.num_limbs, Wg * C, 2 * Wg
+    lazy = lambda shape: torch.from_numpy(rng.integers(
+        0, 1 << curve.log_limb_size, (3, L) + shape).astype(np.int16))
+    tbuf, S = lazy((R, F)), lazy((F,))
+    cnt = torch.from_numpy(np.sort(rng.integers(0, R * C + 1, (Wp, B + 1)),
+                                   axis=1).astype(np.int32))
+    cnt[:, :3] = 0
+    cnt[:, -1] = R * C
+    bk = torch.from_numpy(rng.integers(-9, 9, (3, L, Wp, B)).astype(np.int16))
+    geo = kernels.extract_buckets_geometry(Wg, B, 1, 2, L,
+                                           curve.log_limb_size)
+    order = rng.permutation(geo.blocks).tolist()
+    got, _ = replay(tbuf, S, cnt, bk.clone(), 1, Wg, C, R, curve, 1, 2,
+                    order)
+    want = kernels.extract_buckets_plain(tbuf, S, cnt, bk.clone(), 1, Wg, C,
+                                         R, curve)
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("L,w", [(22, 12), (21, 13), (32, 12), (30, 13),
                                  (6, 12)])
 def test_geometry(L, w):
-    for Wg, B in ((1, 1 << 15), (4, 1 << 12), (16, 1 << 15), (1, 1)):
-        geo = kernels.extract_buckets_geometry(Wg, B, L, w)
-        assert geo.lanes_per_block == 20 and geo.buckets_per_block == 19
-        assert geo.threads == 128
-        assert geo.blocks == Wg * -(-B // 19)
-        # the lanes' words, the sums G, the positions and the constants
+    for Wg, B, sms, per_sm in ((1, 1 << 15, 132, 3), (4, 1 << 12, 132, 3),
+                               (16, 1 << 15, 132, 2), (1, 1, 132, 3),
+                               (9, 1 << 15, 1, 1)):
+        geo = kernels.extract_buckets_geometry(Wg, B, sms, per_sm, L, w)
+        assert geo.lanes_per_block == 40 and geo.buckets_per_run == 39
+        assert geo.threads == 32 * 9
+        assert geo.runs_per_window == -(-B // 39)
+        assert geo.runs == Wg * geo.runs_per_window
+        # a persistent grid: the resident blocks, one wave, each block
+        # its share of the runs
+        assert geo.blocks == min(geo.runs, sms * per_sm)
+        assert geo.waves == 1 and geo.blocks_per_sm == per_sm
+        assert (geo.runs_per_block - 1) * geo.blocks < geo.runs
+        assert geo.runs <= geo.runs_per_block * geo.blocks
+        # the lanes' words, the staging of T and S, the constants
         assert geo.shared_bytes <= kernels.BLOCK_SHARED_BYTES
-        assert geo.shared_bytes >= 4 * 20 * (15 * L + 1 + 3 * L)
+        assert geo.shared_bytes >= 4 * 40 * (15 * L + 1) + 2 * 2 * 3 * L * 40
     with pytest.raises(ValueError):
-        kernels.extract_buckets_geometry(0, 4)
+        kernels.extract_buckets_geometry(0, 4, 132, 3)
+    with pytest.raises(ValueError):
+        kernels.extract_buckets_geometry(1, 4, 132, 0)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 7, 39, 106, 128, 841, 8192,
+                               12345677, (1 << 31) - 1])
+def test_fast_div(d):
+    """csrc/extract_buckets.cu's division by a multiply and a shift, at
+    the divisors it meets (R, the runs of a window) and the ends of its
+    range, on dividends at the ends and from a seed."""
+    m, s = kernels.fast_div(d)
+    rng = np.random.default_rng(d)
+    xs = [0, 1, d - 1, d, d + 1, 2 * d - 1, (1 << 31) - 2, (1 << 31) - 1]
+    xs += rng.integers(0, 1 << 31, 3000).tolist()
+    for x in xs:
+        if 0 <= x < 1 << 31:
+            assert (x * m) >> s == x // d, (x, d)
+            assert x * m < 1 << 64              # the kernel's 64-bit product
+    with pytest.raises(ValueError):
+        kernels.fast_div(0)
 
 
 def test_wrapper_refusals():

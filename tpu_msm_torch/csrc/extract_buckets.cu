@@ -13,30 +13,44 @@
 // Montgomery multiplies each, mul_wide.cuh) against 3 L int16 gathered
 // from T and from S at each of the (B + 1) Wg region ends and 3 L int16
 // written a bucket: about 0.015 ms a launch at 2^20 (B = 2^15, Wg = 1).
-// Design: a block of padd_lane.cuh's lanes (kAddG = 6 threads of one warp
-// a lane, 5 lanes a warp, kPaddMaxWarps = 4 warps, so 20 lanes) owns a
-// run of J = 19 consecutive buckets b0 .. b0 + J - 1 of one window
-// (cuzk/kernels.py `extract_buckets_geometry`).
-//  1. Threads 0 .. J read cnt at j = b0 .. b0 + J and keep, in shared
-//     memory, p = max(cnt - 1, 0), the lane f = (w mod Wg) C + p / R and
-//     the element jt = (p mod R) F + f of the flattened scan output, as
-//     cuzk/kernels.py `boundary_lanes` computes them.
-//  2. The block gathers T at jt and S at f, a (coordinate, limb) row at a
-//     time, into the lanes' shared memory as int32 (a gather: no
-//     coalescing to be had; each thread keeps kGather loads in flight
-//     before it stores them, so the block waits on device memory about
-//     twice, not once an element), and phase A adds them on J + 1 lanes with
-//     padd_lane.cuh's phases, the operands and their order those of
-//     padd_batch, so G is its bits. The sums go to a G array in shared
-//     memory (int32, as the plain version's G), infinity where cnt == 0.
-//     Lane 0 is the halo, G_{b0}, which the block before also computes.
-//  3. Phase B loads p = G_{l+1} and q = G_l with y -> 4p - y into lane l,
-//     as the padd kernel loads q for psub_batch, and adds them on J lanes.
-//  4. The block stores the buckets as int16 (a truncating cast, exact by
-//     the limb bound, as psub_batch's int16 output), a row at a time:
-//     each row's J buckets are consecutive in memory.
-// No G leaves the block. The halo lane costs one add in 19 more than the
-// 2 B + 1 a window needs.
+// Design: a persistent grid, as many blocks as are resident on the card
+// (msm_extract_buckets_limits; cuzk/kernels.py
+// `extract_buckets_geometry`), one wave. A block is kAddWarps warps of
+// padd_lane.cuh's lanes (kAddG = 6 threads of one warp a lane, 5 lanes a
+// warp: kLanes = 40 lanes) and one loader warp. The group's buckets are
+// cut into runs of kRun = 39 consecutive buckets b0 .. b0 + 38 of one
+// window (the last run of a window shorter, its lanes masked); block k
+// takes runs k, k + blocks, ... and holds the curve's constants in
+// shared memory for all of them.
+//  - The loader warp reads cnt at the run's j = b0 .. b0 + 39 and keeps
+//    p = max(cnt - 1, 0), the lane f = (w mod Wg) C + p / R and the
+//    element jt = (p mod R) F + f of the flattened scan output, as
+//    cuzk/kernels.py `boundary_lanes` computes them (p / R and the run's
+//    window by a multiply and a shift, `FastDiv`), gathers T at jt and S
+//    at f, kGather loads a thread in flight, into a staging buffer in
+//    shared memory (int16, a (coordinate, limb) row of the 40 lanes at a
+//    time), and signals the add warps (named barrier kBarFull). It then
+//    waits for them to empty the buffer (kBarEmpty) and gathers the next
+//    run while they add this one: the gathers of run k + 1 are in flight
+//    during the adds of run k.
+//  - The add warps copy the staged run into their lanes (T as p, S as
+//    q, int32), release the buffer, and add G_j = T + S on the run's
+//    lanes with padd_lane.cuh's phases, the operands and their order
+//    those of padd_batch, so G is its bits; the sum goes to the lane's
+//    own q words. Lane 0 is the halo, G_{b0}, which the run before also
+//    computes (one add in 40 more than the 2 B + 1 a window needs).
+//    Then one move: lane l's G (infinity where cnt == 0) is p of
+//    bucket l - 1, copied into lane l - 1, and q of bucket l, its y
+//    taken as 4p - y in place, as the padd kernel loads q for
+//    psub_batch; each element is read and written by one thread, so no
+//    barrier splits the move. The lanes add again: bucket b0 + l =
+//    G_{l+1} - G_l, on 39 lanes, and the block stores the buckets as
+//    int16 (a truncating cast, exact by the limb bound, as psub_batch's
+//    int16 output), each row's buckets consecutive in memory.
+// The loops are laid out lane by lane, by the compile-time kLanes: no
+// run-time division. The add warps meet at named barrier kBarAdd; the
+// loader never waits for them but at kBarEmpty. No G leaves the block.
+// padd_lane.cuh's add is used as it is.
 // Layouts: tbuf (3, L, R, F) int16; S (3, L, F) int16; cnt (Wp, B + 1)
 // int32; buckets (3, L, Wp, B) int16, of which the kernel writes windows
 // [w0, w0 + Wg).
@@ -48,27 +62,66 @@ namespace {
 
 using namespace msm;
 
-constexpr int kLanes = kPaddMaxWarps * kPaddLanesPerWarp;   // 20
-constexpr int kGather = 8;   // gathered elements a thread in flight
+constexpr int kAddWarps = 8;   // cuzk/kernels.py EXTRACT_ADD_WARPS
+constexpr int kLanes = kAddWarps * kPaddLanesPerWarp;   // 40
+constexpr int kRun = kLanes - 1;                        // buckets a run
+constexpr int kAddThreads = kAddWarps * 32;
+constexpr int kThreads = kAddThreads + 32;              // and the loader
+// the add warps' movers: element (row, lane l) <-> thread
+// l + kLanes (row mod kRowStep); the last kAddThreads mod kLanes idle
+constexpr int kRowStep = kAddThreads / kLanes;
+constexpr int kGather = 8;     // gathered elements a loader thread in flight
+// named barriers; 0 is __syncthreads
+constexpr int kBarAdd = 1, kBarFull = 2, kBarEmpty = 3;
 
-// The block's part of the group: its window and first bucket, its G
-// lanes (nA) and bucket lanes (nB = nA - 1), and each G lane's gather
-// positions and whether its count is 0.
-struct Part {
-  int wl, b0, nA, nB;
-  int jt[kLanes], f[kLanes], zero[kLanes];
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// x / d = (x m) >> s for 0 <= x < 2^31 (Granlund and Montgomery: m =
+// floor(2^(32 + l) / d) + 1 with 2^(l - 1) < d <= 2^l, s = 32 + l;
+// cuzk/kernels.py fast_div, which the tests hold).
+struct FastDiv {
+  unsigned long long m;
+  int s;
 };
 
+FastDiv fast_div(uint32_t d) {
+  int l = 0;
+  while ((1ull << l) < d) l++;
+  return FastDiv{(1ull << (32 + l)) / d + 1, 32 + l};
+}
+
+__device__ __forceinline__ uint32_t div_by(uint32_t x, const FastDiv& f) {
+  return static_cast<uint32_t>((x * f.m) >> f.s);
+}
+
+// The run the loader staged: T and S at its G lanes' region ends, a
+// (coordinate, limb) row at a time, and the run itself.
 template <int L>
-struct ExtractMem {
-  static constexpr int LANE = PaddLane<L>::STRIDE;
-  static constexpr int G = 3 * L;                      // a sum's words
-  static constexpr int WORDS = kLanes * (LANE + G);    // dynamic, a block
+struct Stage {
+  int16_t t[3 * L][kLanes];
+  int16_t s[3 * L][kLanes];
+  unsigned long long zero;   // bit l: cnt == 0 at G lane l
+  int wl, b0, nA;            // window in the group, first bucket, G lanes
 };
 
+struct Run {
+  unsigned long long zero;
+  int wl, b0, nA;
+};
+
+// out = p + q on lanes [0, n) of the add warps, p in the lane's P1
+// words and q in its P2 words; the sum into the lane's words at `out`
+// (P2: the add's scratch no longer reads them when it writes the sum;
+// P1).
 template <int L, int W>
-__device__ __forceinline__ void add_lanes(int32_t* lanes, int n,
-                                          int32_t* gout, const Consts<L>& K,
+__device__ __forceinline__ void add_lanes(int32_t* lanes, int n, int out,
+                                          const Consts<L>& K,
                                           const WideConsts<L, W>& KW) {
   using M = PaddLane<L>;
   using Ph = Phases<L, W>;
@@ -85,142 +138,214 @@ __device__ __forceinline__ void add_lanes(int32_t* lanes, int n,
     __syncwarp(mask);
     Ph::level2(m + M::S, g, KW);
     __syncwarp(mask);
-    Ph::finish(m + M::S, g,
-               gout ? gout + l * ExtractMem<L>::G : m + M::P1, K);
+    Ph::finish(m + M::S, g, m + out, K);
   }
 }
 
 template <int L, int W>
-__global__ void __launch_bounds__(kPaddMaxWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 extract_kernel(const int16_t* __restrict__ tbuf,
                const int16_t* __restrict__ sbuf,
                const int32_t* __restrict__ cnt,
                int16_t* __restrict__ buckets, int Wp, int B, int w0, int C,
-               int R, int F, int chunks, const int32_t* __restrict__ kc,
+               int R, int F, int runs, int rpw, const FastDiv by_r,
+               const FastDiv by_rpw, const int32_t* __restrict__ kc,
                const WideConsts<L, W> KW) {
   using M = PaddLane<L>;
-  using X = ExtractMem<L>;
   __shared__ Consts<L> K;
   __shared__ WideConsts<L, W> KWs;
-  __shared__ Part part;
-  extern __shared__ int32_t smem[];   // lanes [kLanes][LANE], G [kLanes][G]
-  int32_t* lanes = smem;
-  int32_t* gs = smem + kLanes * X::LANE;
-  if (threadIdx.x == 0) {
-    KWs = KW;
-    part.wl = blockIdx.x / chunks;
-    part.b0 = (blockIdx.x % chunks) * (kLanes - 1);
-    part.nA = min(kLanes, B + 1 - part.b0);
-    part.nB = part.nA - 1;
-  }
-  load_consts<L>(K, kc);                 // ends in __syncthreads
+  __shared__ Stage<L> st;
+  __shared__ Run cur;
+  __shared__ int jt_s[kLanes], f_s[kLanes];
+  extern __shared__ int32_t lanes[];   // [kLanes][STRIDE]
+  if (threadIdx.x == 0) KWs = KW;
+  load_consts<L>(K, kc);               // ends in __syncthreads
 
-  // 1. the gather positions of the G lanes
-  if (threadIdx.x < part.nA) {
-    const int j = part.b0 + threadIdx.x;
-    const int c = cnt[(int64_t)(w0 + part.wl) * (B + 1) + j];
-    const int p = c > 0 ? c - 1 : 0;
-    const int f = part.wl * C + p / R;
-    part.f[threadIdx.x] = f;
-    part.jt[threadIdx.x] = (p % R) * F + f;
-    part.zero[threadIdx.x] = c == 0;
-  }
-  __syncthreads();
-
-  // 2. gather T and S, kGather elements a thread in flight, then
-  // G = T + S on nA lanes
-  {
-    const int nA = part.nA, total = 3 * L * nA;
+  if (threadIdx.x >= kAddThreads) {
+    // the loader warp: run k + 1 into the staging buffer while the add
+    // warps add run k
+    const int lane = threadIdx.x & 31;
     const int64_t RF = (int64_t)R * F;
-    for (int i0 = threadIdx.x; i0 < total; i0 += kGather * blockDim.x) {
-      int16_t tv[kGather], sv[kGather];
+    int k = 0;
+    for (int run = blockIdx.x; run < runs; run += gridDim.x, k++) {
+      const int wl = static_cast<int>(div_by(run, by_rpw));
+      const int b0 = (run - wl * rpw) * kRun;
+      const int nA = min(kLanes, B + 1 - b0);
+      const int32_t* cw = cnt + (int64_t)(w0 + wl) * (B + 1) + b0;
+      unsigned long long zero = 0;
+      __syncwarp();   // the last run's gathers have read jt_s and f_s
 #pragma unroll
-      for (int u = 0; u < kGather; u++) {
-        const int i = i0 + u * blockDim.x;
-        if (i < total) {
-          const int l = i % nA, row = i / nA;
-          tv[u] = tbuf[row * RF + part.jt[l]];
-          sv[u] = sbuf[(int64_t)row * F + part.f[l]];
+      for (int l0 = 0; l0 < kLanes; l0 += 32) {
+        const int l = l0 + lane;
+        const bool on = l < nA;
+        const int c = on ? cw[l] : 1;
+        const uint32_t p = c > 0 ? c - 1 : 0;
+        const uint32_t q = div_by(p, by_r);
+        const int f = wl * C + static_cast<int>(q);
+        if (l < kLanes) {
+          f_s[l] = f;
+          jt_s[l] = static_cast<int>(p - q * R) * F + f;
+        }
+        zero |= static_cast<unsigned long long>(
+                    __ballot_sync(0xffffffffu, on && c == 0))
+                << l0;
+      }
+      __syncwarp();
+      if (k) bar_sync(kBarEmpty, kThreads);
+      for (int e0 = lane; e0 < 3 * L * kLanes; e0 += 32 * kGather) {
+        int16_t tv[kGather], sv[kGather];
+#pragma unroll
+        for (int u = 0; u < kGather; u++) {
+          const int e = e0 + 32 * u;
+          const int row = e / kLanes, l = e % kLanes;
+          if (e < 3 * L * kLanes && l < nA) {
+            tv[u] = tbuf[row * RF + jt_s[l]];
+            sv[u] = sbuf[(int64_t)row * F + f_s[l]];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGather; u++) {
+          const int e = e0 + 32 * u;
+          const int row = e / kLanes, l = e % kLanes;
+          if (e < 3 * L * kLanes && l < nA) {
+            st.t[row][l] = tv[u];
+            st.s[row][l] = sv[u];
+          }
         }
       }
-#pragma unroll
-      for (int u = 0; u < kGather; u++) {
-        const int i = i0 + u * blockDim.x;
-        if (i < total) {
-          const int l = i % nA, row = i / nA;
-          int32_t* m = lanes + l * M::STRIDE;
-          m[M::P1 + row] = tv[u];
-          m[M::P2 + row] = sv[u];
+      if (lane == 0) {
+        st.zero = zero;
+        st.wl = wl;
+        st.b0 = b0;
+        st.nA = nA;
+      }
+      bar_arrive(kBarFull, kThreads);
+    }
+    if (k) bar_sync(kBarEmpty, kThreads);   // the last run's release
+    return;
+  }
+
+  for (int run = blockIdx.x; run < runs; run += gridDim.x) {
+    bar_sync(kBarFull, kThreads);
+    // the staged run into the lanes: T as p, S as q
+    {
+      const int t = tid_now(), ll = t % kLanes, r0 = t / kLanes;
+      if (r0 < kRowStep) {
+        int32_t* m = lanes + ll * M::STRIDE;
+        for (int row = r0; row < 3 * L; row += kRowStep) {
+          m[M::P1 + row] = st.t[row][ll];
+          m[M::P2 + row] = st.s[row][ll];
+        }
+      }
+      if (t == 0) cur = Run{st.zero, st.wl, st.b0, st.nA};
+    }
+    bar_arrive(kBarEmpty, kThreads);
+    bar_sync(kBarAdd, kAddThreads);
+    // G_l = T + S into the lane's q words
+    add_lanes<L, W>(lanes, cur.nA, M::P2, K, KWs);
+    bar_sync(kBarAdd, kAddThreads);
+    // lane l's G, infinity where cnt == 0: p of bucket l - 1 into lane
+    // l - 1, and q of bucket l with y -> 4p - y in place
+    {
+      const int t = tid_now(), ll = t % kLanes, r0 = t / kLanes;
+      if (r0 < kRowStep && ll < cur.nA) {
+        const bool z = (cur.zero >> ll) & 1ull;
+        int32_t* m = lanes + ll * M::STRIDE;
+        for (int row = r0; row < 3 * L; row += kRowStep) {
+          const bool yrow = row >= L && row < 2 * L;
+          int32_t v = m[M::P2 + row];
+          if (z) v = yrow ? K.one[row - L] : 0;
+          if (ll > 0) m[M::P1 + row - M::STRIDE] = v;
+          if (yrow)
+            v = static_cast<int32_t>(static_cast<uint32_t>(K.kp4[row - L]) -
+                                     static_cast<uint32_t>(v));
+          m[M::P2 + row] = v;
         }
       }
     }
-  }
-  __syncthreads();
-  add_lanes<L, W>(lanes, part.nA, gs, K, KWs);
-  __syncthreads();
-  // cnt == 0: nothing sorts below this boundary, G is infinity
-  for (int i = tid_now(); i < 3 * L * part.nA; i += ntid_now()) {
-    const int l = i % part.nA, row = i / part.nA;
-    if (part.zero[l])
-      gs[l * X::G + row] = row >= L && row < 2 * L ? K.one[row - L] : 0;
-  }
-  __syncthreads();
-
-  // 3. bucket b0 + l = G_{l+1} - G_l on nB lanes
-  for (int i = tid_now(); i < 3 * L * part.nB; i += ntid_now()) {
-    const int l = i % part.nB, row = i / part.nB;
-    int32_t* m = lanes + l * M::STRIDE;
-    m[M::P1 + row] = gs[(l + 1) * X::G + row];
-    int32_t y = gs[l * X::G + row];
-    if (row >= L && row < 2 * L)   // y -> 4p - y, as psub_batch loads q
-      y = static_cast<int32_t>(static_cast<uint32_t>(K.kp4[row - L]) -
-                               static_cast<uint32_t>(y));
-    m[M::P2 + row] = y;
-  }
-  __syncthreads();
-  add_lanes<L, W>(lanes, part.nB, nullptr, K, KWs);
-  __syncthreads();
-
-  // 4. the buckets, int16, a row of nB consecutive buckets at a time
-  {
-    const int nB = part.nB;
-    int16_t* out = buckets + (int64_t)(w0 + part.wl) * B + part.b0;
-    for (int i = tid_now(); i < 3 * L * nB; i += ntid_now()) {
-      const int l = i % nB, row = i / nB;
-      out[(int64_t)row * Wp * B + l] =
-          static_cast<int16_t>(lanes[l * M::STRIDE + M::P1 + row]);
+    bar_sync(kBarAdd, kAddThreads);
+    // bucket b0 + l = G_{l+1} - G_l into the lane's p words
+    add_lanes<L, W>(lanes, cur.nA - 1, M::P1, K, KWs);
+    bar_sync(kBarAdd, kAddThreads);
+    // the buckets, int16, a row of consecutive buckets at a time
+    {
+      const int t = tid_now(), ll = t % kLanes, r0 = t / kLanes;
+      if (r0 < kRowStep && ll < cur.nA - 1) {
+        int16_t* out = buckets + (int64_t)(w0 + cur.wl) * B + cur.b0 + ll;
+        const int32_t* m = lanes + ll * M::STRIDE;
+        for (int row = r0; row < 3 * L; row += kRowStep)
+          out[(int64_t)row * Wp * B] = static_cast<int16_t>(m[M::P1 + row]);
+      }
     }
+    bar_sync(kBarAdd, kAddThreads);   // P1 read before the next run lands
   }
+}
+
+template <int L>
+constexpr size_t lanes_bytes() {
+  return (size_t)kLanes * PaddLane<L>::STRIDE * sizeof(int32_t);
 }
 
 }  // namespace
 
+// The persistent grid's limits: resident blocks an SM of the kernel at
+// (num_limbs, limb_bits), the card's SMs, threads a block and lanes a
+// block.
+extern "C" int msm_extract_buckets_limits(int num_limbs, int limb_bits,
+                                          int* blocks_per_sm, int* sms,
+                                          int* threads, int* lanes) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  rc = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  *threads = kThreads;
+  *lanes = kLanes;
+  MSM_DISPATCH_PROFILE(num_limbs, limb_bits, {
+    constexpr size_t smem = lanes_bytes<L>();
+    rc = cudaFuncSetAttribute(extract_kernel<L, W>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, extract_kernel<L, W>, kThreads, smem);
+  });
+  return static_cast<int>(rc);
+}
+
 // One window group: tbuf (3, L, R, F) and S (3, L, F) int16 with
 // F = Wg C and R F < 2^31; cnt (Wp, B + 1) int32; buckets (3, L, Wp, B)
-// int16, windows [w0, w0 + Wg) written. warps must be kPaddMaxWarps (the
-// wrapper's geometry rests on it) and blocks Wg ceil(B / (lanes - 1))
-// (cuzk/kernels.py extract_buckets_geometry); wide: host memory, the
+// int16, windows [w0, w0 + Wg) written. threads must be kThreads and
+// blocks at most the Wg ceil(B / kRun) runs (cuzk/kernels.py
+// extract_buckets_geometry: the resident ones); wide: host memory, the
 // words of msm::WideConsts<L, W>.
 extern "C" int msm_extract_buckets(int num_limbs, int limb_bits,
                                    const int16_t* tbuf, const int16_t* sbuf,
                                    const int32_t* cnt, int16_t* buckets,
                                    int Wp, int B, int w0, int Wg, int C,
-                                   int R, int warps, int blocks,
+                                   int R, int threads, int blocks,
                                    const int32_t* consts,
                                    const uint32_t* wide, void* stream) {
-  const int chunks = (B + kLanes - 2) / (kLanes - 1);
+  const int rpw = (B + kRun - 1) / kRun;
+  const int64_t runs = (int64_t)Wg * rpw;
   if (B < 1 || Wg < 1 || C < 1 || R < 1 || w0 < 0 || w0 + Wg > Wp ||
-      (int64_t)R * Wg * C >= (int64_t{1} << 31) ||
-      warps != kPaddMaxWarps || (int64_t)blocks != (int64_t)Wg * chunks)
+      (int64_t)R * Wg * C >= (int64_t{1} << 31) || threads != kThreads ||
+      blocks < 1 || blocks > runs)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = (cudaStream_t)stream;
   MSM_DISPATCH_PROFILE(num_limbs, limb_bits, {
     msm::WideConsts<L, W> KW;
     std::memcpy(&KW, wide, sizeof(KW));
-    return msm::launch_lanes(extract_kernel<L, W>, warps,
-                             ExtractMem<L>::WORDS / kPaddMaxWarps, blocks, s,
-                             tbuf, sbuf, cnt, buckets, Wp, B, w0, C, R,
-                             Wg * C, chunks, consts, KW);
+    constexpr size_t smem = lanes_bytes<L>();
+    cudaError_t rc = cudaFuncSetAttribute(
+        extract_kernel<L, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    extract_kernel<L, W><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        tbuf, sbuf, cnt, buckets, Wp, B, w0, C, R, Wg * C,
+        static_cast<int>(runs), rpw, fast_div(static_cast<uint32_t>(R)),
+        fast_div(static_cast<uint32_t>(rpw)), consts, KW);
+    return static_cast<int>(cudaGetLastError());
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1327,8 +1327,12 @@ def to_affine(p, curve: CurveParams
 SORT_RADIX_BITS = 8
 """Bits of the key that one pass of csrc/bucket_sort.cu sorts on."""
 SORT_TILE = 4096
-"""Stream elements a block of the sort ranks at once (csrc/bucket_sort.cu
-kTile: 8 warps of 32 threads, 16 elements a thread)."""
+"""Stream elements a block of the sort's pass kernel ranks at once
+(csrc/bucket_sort.cu kTile: 8 warps of 32 threads, 16 elements a
+thread)."""
+SORT_UPSWEEP_THREADS = 1024
+"""Threads a block of the sort's upsweep (csrc/bucket_sort.cu
+kUpThreads)."""
 
 
 def bucket_counts(skeys2: torch.Tensor, B: int) -> torch.Tensor:
@@ -1353,6 +1357,53 @@ def sort_passes(B: int) -> int:
     return max(-(-B.bit_length() // SORT_RADIX_BITS), 1)
 
 
+class SortGeometry(NamedTuple):
+    passes: int
+    tiles: int
+    key_max: int
+    chunks: int
+    upsweep_blocks: int
+    upsweep_shared_bytes: int
+    upsweep_blocks_per_sm: int
+    count_blocks: int
+    launches: int
+    work_words: int
+
+
+def bucket_sort_geometry(Wp: int, n: int, B: int, sms: int) -> SortGeometry:
+    """One bucket_sort call on (Wp, n) digits with |d| <= B on a card of
+    `sms` SMs: a pure function, so the CPU tests can hold it.
+
+    Launches: the upsweep, the counts, and one pass kernel a pass
+    (csrc/bucket_sort.cu). The upsweep's block counts a chunk of one
+    window's keys min(|d|, key_max) in a histogram of key_max + 1 bins,
+    rounded up to whole segments of 256, in shared memory; it takes
+    `chunks` blocks a window, as many as are resident beside each other
+    on the card (SORT_UPSWEEP_THREADS threads, the histogram, the SM's
+    shared memory), at least one and never more than a chunk a tile of
+    the window. The counts take a block a segment of 256 bins of a
+    window. A pass takes a block a tile of SORT_TILE elements. work_words:
+    the int32 temporaries of csrc/bucket_sort.cu msm_bucket_sort."""
+    if min(Wp, n, B, sms) < 1:
+        raise ValueError("bucket_sort_geometry: Wp, n, B and sms must be "
+                         ">= 1")
+    passes = sort_passes(B)
+    radix = 1 << SORT_RADIX_BITS
+    key_max = min(B + 1, (1 << (SORT_RADIX_BITS * passes)) - 1)
+    bins = ((key_max >> SORT_RADIX_BITS) + 1) * radix
+    shared = 4 * bins
+    _fits_block("bucket_sort_geometry", shared)
+    per_sm = min(SM_WARPS // (SORT_UPSWEEP_THREADS // 32),
+                 SM_SHARED_BYTES // (shared + BLOCK_RESERVED_SHARED))
+    tiles = -(-n // SORT_TILE)
+    chunks = max(1, min(sms * per_sm // Wp, tiles))
+    work = (Wp * chunks * (B + 1) + Wp * chunks * passes * radix
+            + passes * Wp * radix + passes * Wp * (tiles * radix + 1))
+    return SortGeometry(passes, tiles, key_max, chunks,
+                        Wp * chunks, shared, per_sm,
+                        Wp * ((B >> SORT_RADIX_BITS) + 1), 2 + passes, work)
+
+
 def bucket_sort(digits: torch.Tensor, B: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Wp, n) int16 signed digits with |d| <= B -> (pay, cnt).
@@ -1361,10 +1412,11 @@ def bucket_sort(digits: torch.Tensor, B: int
     each window by the key |d| (ties in index order); the sign rides in
     the payload, as stage 3 reads only the |d| boundaries. cnt: (Wp, B+1)
     int32, cnt[w, j] = #(|d| <= j in window w), `bucket_counts` of the
-    sorted keys. The kernel is an LSD radix sort of `sort_passes(B)`
-    passes of SORT_RADIX_BITS bits, deterministic, then one launch for
-    the counts; its temporaries are torch tensors on the current
-    stream."""
+    sorted keys. The kernel is a one-sweep LSD radix sort of
+    `sort_passes(B)` passes of SORT_RADIX_BITS bits after an upsweep that
+    counts the keys and a launch that scans them into cnt
+    (`bucket_sort_geometry`); deterministic. Its temporaries are torch
+    tensors on the current stream."""
     if digits.dim() != 2 or digits.dtype != I16:
         raise ValueError("bucket_sort: expected (Wp, n) int16 digits, got "
                          f"{digits.dtype} {tuple(digits.shape)}")
@@ -1376,28 +1428,22 @@ def bucket_sort(digits: torch.Tensor, B: int
         return bucket_sort_plain(digits, B)
     digits = digits.contiguous()
     dev = digits.device
-    passes = sort_passes(B)
-    tiles = -(-n // SORT_TILE)
     pay = torch.empty((Wp, n), dtype=I32, device=dev)
     cnt = torch.empty((Wp, B + 1), dtype=I32, device=dev)
-    # keys of the pass between (uint16 in the kernel), the sorted keys,
-    # the payload between, the tiles' histograms, the digit totals
-    keys_mid = torch.empty((Wp, n), dtype=I16, device=dev)
-    keys_out = torch.empty((Wp, n), dtype=I16, device=dev)
-    pay_mid = torch.empty((Wp, n) if passes > 1 else (1,), dtype=I32,
-                          device=dev)
-    hist = torch.empty((Wp, tiles, 1 << SORT_RADIX_BITS), dtype=I32,
-                       device=dev)
-    totals = torch.empty((Wp, 1 << SORT_RADIX_BITS), dtype=I32, device=dev)
     if Wp:
+        geo = bucket_sort_geometry(Wp, n, B, _sm_count(dev))
+        # the keys and payloads between the passes (uint16 keys in the
+        # kernel), and the int32 temporaries
+        mid = (Wp, n) if geo.passes > 1 else (1,)
+        keys_mid = torch.empty(mid, dtype=I16, device=dev)
+        pay_mid = torch.empty(mid, dtype=I32, device=dev)
+        work = torch.empty(geo.work_words, dtype=I32, device=dev)
         rc = _build.library().msm_bucket_sort(
-            digits.data_ptr(), Wp, n, B, passes, pay.data_ptr(),
-            cnt.data_ptr(), keys_mid.data_ptr(), pay_mid.data_ptr(),
-            keys_out.data_ptr(), hist.data_ptr(), totals.data_ptr(),
-            _stream(digits))
+            digits.data_ptr(), Wp, n, B, geo.passes, geo.chunks,
+            pay.data_ptr(), cnt.data_ptr(), keys_mid.data_ptr(),
+            pay_mid.data_ptr(), work.data_ptr(), _stream(digits))
         _check("bucket_sort", rc)
-        LAUNCHED["bucket_sort"] = dict(passes=passes, tiles=tiles,
-                                       tile=SORT_TILE)
+        LAUNCHED["bucket_sort"] = geo._asdict()
     return pay, cnt
 
 
@@ -1438,41 +1484,96 @@ def extract_buckets_plain(tbuf: torch.Tensor, s: torch.Tensor,
     return buckets
 
 
-EXTRACT_WARPS = 4
-"""Warps a block of csrc/extract_buckets.cu (padd_lane.cuh kPaddMaxWarps)."""
+EXTRACT_ADD_WARPS = 8
+"""Warps of lanes a block of csrc/extract_buckets.cu (kAddWarps); one
+loader warp more."""
+EXTRACT_LANES = EXTRACT_ADD_WARPS * (32 // PADD_THREADS_PER_LANE)
+EXTRACT_THREADS = 32 * (EXTRACT_ADD_WARPS + 1)
 
 
 class ExtractGeometry(NamedTuple):
     lanes_per_block: int
-    buckets_per_block: int
+    buckets_per_run: int
+    runs_per_window: int
+    runs: int
     blocks: int
+    runs_per_block: int
+    blocks_per_sm: int
+    waves: int
     threads: int
     shared_bytes: int
 
 
-def extract_buckets_geometry(Wg: int, B: int, num_limbs: int = 22,
-                             limb_bits: int = 12) -> ExtractGeometry:
+def extract_buckets_geometry(Wg: int, B: int, sms: int, blocks_per_sm: int,
+                             num_limbs: int = 22, limb_bits: int = 12
+                             ) -> ExtractGeometry:
     """One extract_buckets launch for a window group of Wg windows of B
-    buckets: a pure function, so the CPU tests can hold it.
+    buckets on a card of `sms` SMs that holds `blocks_per_sm` blocks of
+    the kernel (`msm_extract_buckets_limits`): a pure function, so the CPU
+    tests can hold it.
 
-    A block is EXTRACT_WARPS warps of padd_lane.cuh's lanes, 6 threads a
-    lane and 5 lanes a warp (20 lanes). It owns a run of J = lanes - 1
-    consecutive buckets b0 .. b0 + J - 1 of one window: phase A adds
-    G_j = T + S at the J + 1 region ends b0 .. b0 + J (the halo lane
-    b0 is the previous block's last), phase B subtracts neighbours,
-    bucket b = G_{b+1} - G_b, on J lanes. Shared memory: each lane's
-    15 L + 1 words (PaddLane), the J + 1 sums G in 3 L words each, the
-    lanes' gather positions and the block's copies of the constants."""
-    if min(Wg, B, num_limbs, limb_bits) < 1:
-        raise ValueError("extract_buckets_geometry: Wg, B, num_limbs and "
-                         "limb_bits must be >= 1")
-    lanes = EXTRACT_WARPS * (32 // PADD_THREADS_PER_LANE)
+    A block is EXTRACT_ADD_WARPS warps of padd_lane.cuh's lanes, 6
+    threads a lane and 5 lanes a warp (40 lanes), and a loader warp. A run
+    is 39 = lanes - 1 consecutive buckets b0 .. b0 + 38 of one window
+    (the last run of a window shorter): G_j = T + S at the 40 region ends
+    b0 .. b0 + 39 (the halo lane b0 is the run before's last), then
+    bucket b = G_{b+1} - G_b on 39 lanes. The grid is persistent, as many
+    blocks as are resident and no more than the runs, one wave; block k
+    takes runs k, k + blocks, ..., at most runs_per_block of them.
+    Shared memory: each lane's 15 L + 1 words (PaddLane), the loader's
+    staging of T and S (3 L int16 a lane each) and the run's gather
+    positions, and the block's copies of the constants."""
+    if min(Wg, B, sms, blocks_per_sm, num_limbs, limb_bits) < 1:
+        raise ValueError("extract_buckets_geometry: Wg, B, sms, "
+                         "blocks_per_sm, num_limbs and limb_bits must be "
+                         ">= 1")
+    lanes = EXTRACT_LANES
     J = lanes - 1
-    shared = 4 * (lanes * ((15 * num_limbs | 1) + 3 * num_limbs)
-                  + 3 * lanes + _static_shared_words(num_limbs, limb_bits))
+    rpw = -(-B // J)
+    runs = Wg * rpw
+    resident = sms * blocks_per_sm
+    blocks = min(runs, resident)
+    shared = 4 * (lanes * (15 * num_limbs | 1) + lanes * 3 * num_limbs
+                  + 2 * lanes + 12 + _static_shared_words(num_limbs,
+                                                          limb_bits))
     _fits_block("extract_buckets_geometry", shared)
-    return ExtractGeometry(lanes, J, Wg * -(-B // J), 32 * EXTRACT_WARPS,
-                           shared)
+    return ExtractGeometry(lanes, J, rpw, runs, blocks, -(-runs // blocks),
+                           blocks_per_sm, -(-blocks // resident),
+                           EXTRACT_THREADS, shared)
+
+
+def fast_div(d: int) -> Tuple[int, int]:
+    """(m, s) with x // d == (x * m) >> s for 0 <= x < 2^31 and
+    1 <= d < 2^31: Granlund and Montgomery's multiply for a division,
+    m = floor(2^(32 + l) / d) + 1 where 2^(l - 1) < d <= 2^l and
+    s = 32 + l; csrc/extract_buckets.cu `fast_div` divides so."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError(f"fast_div: divisor {d} out of range")
+    lg = (d - 1).bit_length()
+    return (1 << (32 + lg)) // d + 1, 32 + lg
+
+
+@functools.lru_cache(maxsize=None)
+def _extract_limits(curve: CurveParams, device: torch.device
+                    ) -> Tuple[int, int]:
+    """(SMs, resident blocks an SM) of the extract_buckets kernel."""
+    L, w = _profile("extract_buckets", curve)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        rc = _build.library().msm_extract_buckets_limits(
+            L, w, *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError("extract_buckets: occupancy query failed "
+                           f"(cudaError_t {rc})")
+    per_sm, sms, threads, lanes = (v.value for v in out)
+    if (threads, lanes) != (EXTRACT_THREADS, EXTRACT_LANES):
+        raise RuntimeError(f"extract_buckets: the kernel has {threads} "
+                           f"threads and {lanes} lanes a block, the wrapper "
+                           f"{EXTRACT_THREADS} and {EXTRACT_LANES}")
+    if per_sm < 1:
+        raise RuntimeError("extract_buckets: no block of the kernel is "
+                           "resident")
+    return sms, per_sm
 
 
 def extract_buckets(tbuf: torch.Tensor, s: torch.Tensor, cnt: torch.Tensor,
@@ -1488,7 +1589,8 @@ def extract_buckets(tbuf: torch.Tensor, s: torch.Tensor, cnt: torch.Tensor,
     G_j = T + S at the last position below cnt[w, j] (`boundary_lanes`),
     infinity where cnt == 0; bucket b = G_{b+1} - G_b, the subtrahend's
     y taken as 4p - y, as `psub_batch` computes it. The kernel keeps G
-    in shared memory (`extract_buckets_geometry`)."""
+    in shared memory, its persistent blocks walking runs of 39 buckets
+    (`extract_buckets_geometry`)."""
     L = curve.num_limbs
     F = Wg * C
     Wp = cnt.shape[0]
@@ -1511,10 +1613,11 @@ def extract_buckets(tbuf: torch.Tensor, s: torch.Tensor, cnt: torch.Tensor,
     if R * F >> 31:
         raise ValueError("extract_buckets: the kernel takes fewer than "
                          "2^31 positions a group")
-    geo = extract_buckets_geometry(Wg, B, L, w)
+    geo = extract_buckets_geometry(
+        Wg, B, *_extract_limits(curve, tbuf.device), L, w)
     rc = _build.library().msm_extract_buckets(
         L, w, tbuf.data_ptr(), s.data_ptr(), cnt.data_ptr(),
-        buckets.data_ptr(), Wp, B, g * Wg, Wg, C, R, EXTRACT_WARPS,
+        buckets.data_ptr(), Wp, B, g * Wg, Wg, C, R, EXTRACT_THREADS,
         geo.blocks, _consts(curve, tbuf.device).data_ptr(),
         ctypes.addressof(_wide_consts(curve)), _stream(tbuf))
     _check("extract_buckets", rc)
