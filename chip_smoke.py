@@ -99,7 +99,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      tail, and one `pbpr_stage1` step, on one window, from which the
      depth floors of `col_prefix`, `prefix_scan`, `pbpr_full`,
      `pbpr_stage1` and `pdbl_batch` on 16 lanes follow; one
-     `to_affine` on one point, the depth floor of its chain; and one
+     `to_affine` on one point (the root's chain and 3 multiplies, which
+     with a multiply a tree level give the depth floors of `to_affine`
+     and `batch_inverse`); and one
      `extract_buckets` run (39 buckets of one window on one block), its
      two dependent adds, the depth floor of a launch;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes
@@ -110,7 +112,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      (without GLV, and with it, where two pad windows are at infinity),
      one launch, against the host decode; the kernel against its plain
      version on the window sums with four lanes of Z = 0, p, 2p and 3p,
-     int32 and int16, timed; then (`[rest]`) one real window_sums +
+     int32 and int16, timed, and `batch_inverse` on the window sums' Z
+     plane against its plain version; then at full width (`affine_full`),
+     K = 2^20 - 3 projective points made on the card (the inputs'
+     affine points in Montgomery form times a random Z, lanes of Z = 0,
+     p, 2p, 3p about the tree's block boundaries): `to_affine`'s user
+     call with every launch count set to 0 just before and read just
+     after (the three launches of `batch_inverse_geometry`, nothing
+     else), equal to the known affine points, infinity exactly at the
+     edge lanes; bit-identical to `to_affine_plain`, run once, int32 and
+     int16, timed; `batch_inverse` on the Z plane (the edge lanes 0 and
+     p), counted the same way, bit-identical to the plain
+     `batch_inverse`, run once, zero at the edges and z^-1 z = 1
+     elsewhere, timed; then (`[rest]`) one real window_sums +
      host Horner at 2^16 and 2^20 under torch.profiler: the device time
      of the PyTorch ops outside the port's kernels, op by op, beside the
      kernels' own, and the d2h, decode and Horner on the host clock;
@@ -122,8 +136,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      of threads per lane, the reduction and globalisation checks,
      `[apply_glv]`; the
      MSM EXACT at each size, counted and timed; for BLS12_377_S12 also
-     the GLV MSM, to_affine, the [latency] line and the [scan-lanes]
-     sweep; a [where] line for each size;
+     the GLV MSM, to_affine (on the window sums, and `affine_full` at
+     K = 2^16 - 3 with batch_inverse), the [latency] line and the
+     [scan-lanes] sweep; a [where] line for each size;
  10. `[sharded]`, the multi-device MSM (`tpu_msm_torch/parallel/sharded.py`)
      on BN254_S12 at 2^20, the same inputs, EXACT against the same
      oracle: (1) `windows_device` at w = 2 and 4 window shards, every
@@ -198,7 +213,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      off-curve request that must get the error frame; wall times and
      the server's compute_ms;
  18. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
-    with all thirteen kernels (pbpr_full with the geometry the user call
+    with all fourteen kernels (to_affine and batch_inverse with their
+    user calls at K = 2^20 - 3, to_affine also on the window sums;
+    pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; `bucket_sort` with torch.sort's time
     as library_ms and both new kernels with their chains' as chain_ms;
     under "profiles" each kernel's
@@ -239,7 +256,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from tpu_msm_torch import _build, to_affine  # noqa: E402
+from tpu_msm_torch import _build, batch_inverse, to_affine  # noqa: E402
 from tpu_msm_torch.app import protocol as app_protocol  # noqa: E402
 from tpu_msm_torch.app import service as app_service  # noqa: E402
 from tpu_msm_torch.config import (MSMConfig, default_config,  # noqa: E402
@@ -254,6 +271,7 @@ from tpu_msm_torch.cuzk import pipeline_cuda  # noqa: E402
 from tpu_msm_torch.cuzk.pipeline import (get_pipeline,  # noqa: E402
                                          tpu_variable_base_msm)
 from tpu_msm_torch.host import cpu_msm  # noqa: E402
+from tpu_msm_torch.ops import inverse, rows  # noqa: E402
 from tpu_msm_torch.parallel import sharded, spawn  # noqa: E402
 from tpu_msm_torch.reference import curve as ref  # noqa: E402
 from tpu_msm_torch.utils import preprocess, profiling, window  # noqa: E402
@@ -263,7 +281,8 @@ SIZES = (16, 20)
 # The profiles beyond BN254_S12 that the script drives through the main
 # path (`run_profile`), each at its sizes: at every size each kernel is
 # held against its plain version and timed, and the reduction and
-# globalisation paths run. PROFILE_FULL also runs GLV and to_affine.
+# globalisation paths run. PROFILE_FULL also runs GLV, to_affine and
+# batch_inverse.
 PROFILES = ((BLS12_377_S12, (16, 20)), (BN254_S13, (16,)),
             (BLS12_377_S13, (16,)))
 PROFILE_FULL = BLS12_377_S12
@@ -271,7 +290,7 @@ DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
         "bucket_sort", "extract_buckets", "pbpr_full")
 KERNELS = MAIN + ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
-                  "glv_apply", "to_affine")
+                  "glv_apply", "to_affine", "batch_inverse")
 # (Wg, C, R) of the scan's lane sweep. On 132 SMs a block of G = 6 (20
 # lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
 # second block of G = 2 (64 lanes) above 8,448; the launcher's rule
@@ -307,11 +326,14 @@ SOURCES = {
     "globalize": ("tpu_msm_torch/csrc/globalize.cu",
                   "tpu_msm/cuzk/kernels.py:261", "globalise"),
     # counterparts of functions the JAX package leaves to XLA (no
-    # pallas_call): the GLV split and doubled stream, and to_affine
+    # pallas_call): the GLV split and doubled stream, to_affine and
+    # batch_inverse (both on the tree of csrc/batch_inv.cuh)
     "glv_apply": ("tpu_msm_torch/csrc/glv_apply.cu",
                   "tpu_msm/cuzk/glv.py:105", "glv, twin glv"),
     "to_affine": ("tpu_msm_torch/csrc/to_affine.cu",
                   "tpu_msm/ops/inverse.py:124", "affine"),
+    "batch_inverse": ("tpu_msm_torch/csrc/batch_inverse.cu",
+                      "tpu_msm/ops/inverse.py:85", "affine"),
     # counterparts of what XLA compiles around the Pallas kernels of the
     # JAX package's device program: the stage-2 sort and boundary counts,
     # the stage-3 gathers, adds and select
@@ -353,7 +375,7 @@ def mul_wide_mads(L: int, w: int) -> int:
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
 WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
         "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full", "glv_apply",
-        "to_affine", "extract_buckets")
+        "to_affine", "batch_inverse", "extract_buckets")
 # 32 x 32-bit word products of the GLV split (csrc/glv_split.cuh): two
 # Babai products of 8 x 5 words and four truncated products of 5 x 6
 # words mod 2^192 (20 each); a .lo and a .hi half each.
@@ -367,16 +389,13 @@ def chain_muls(curve) -> int:
     return e.bit_length() + bin(e).count("1")
 
 
-def affine_muls(curve) -> int:
-    """Word-wide multiplies of csrc/to_affine.cu a point: Z times one, its
-    own chain, X zinv and Y zinv."""
-    return 3 + chain_muls(curve)
-
-
 # Multiplies an element of Montgomery's trick (a prefix product, two on
 # the way back) with Z times one, X zinv and Y zinv; the batch adds one
-# chain. The least work of to_affine, so the yardstick of its bound.
+# chain. The least work of to_affine, so the yardstick of its bound, and
+# the work of its kernel, the product tree of csrc/batch_inv.cuh.
 TRICK_MULS = 6
+# The same without Z one, X zinv and Y zinv: batch_inverse.
+INVERSE_MULS = 3
 # int32 operations of bucket_sort's ranking, an element a pass (each
 # element is ranked once a pass): its digit, the eight ballots of its
 # peers, its rank and slot.
@@ -456,9 +475,10 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         Wg, B = args[5], args[2].shape[1] - 1
         ops = Wg * (2 * B + 1) * MULS["padd"] * mm
     elif name == "to_affine":
-        # Montgomery's trick, not the kernel's chain a point: the least
-        # work of the function (compare() adds the chain's count beside)
+        # Montgomery's trick: the least work of the function
         ops = (args[0][0, 0].numel() * TRICK_MULS + chain_muls(curve)) * mm
+    elif name == "batch_inverse":
+        ops = (args[0][0].numel() * INVERSE_MULS + chain_muls(curve)) * mm
     else:
         raise KeyError(name)
     return nbytes, ops
@@ -707,17 +727,10 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
         extra = dict(bound_ms_mont_mul_ops=b_old, bound_by_mont_mul_ops=by_old)
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
     if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
-                "bucket_sort", "extract_buckets"):
+                "bucket_sort", "extract_buckets", "to_affine",
+                "batch_inverse"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
-    if name == "to_affine":
-        # the kernel's own work: a chain a point
-        K = args[0][0, 0].numel()
-        mm = 2 * mul_wide_mads(curve.num_limbs, curve.log_limb_size)
-        extra["bound_ms_chain"] = bound_ms(nbytes,
-                                           K * affine_muls(curve) * mm)[0]
-        note += (f" bound_ms by a chain a point="
-                 f"{extra['bound_ms_chain']:.4f}")
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
     how = "queued behind a busy call" if queued else "back to back"
     print(f"[kernel] {curve.name} {key} {tag} in={shape} "
@@ -1364,8 +1377,8 @@ def latency(curve, card: str, scan_G: int) -> dict:
           for Bt in (lo, hi)}
     s1_geo = dict(kernels.LAUNCHED["pbpr_stage1"])
     stage1_step = (s1[hi] - s1[lo]) / (hi - lo)
-    # to_affine on one point: one Fermat chain on a lone warp, the depth
-    # floor of any launch of it
+    # to_affine on one point: one launch of one thread, z = Z one, the
+    # root's chain, X zinv and Y zinv, chain_muls + 3 multiplies deep
     one = lazy((1,)).to(torch.int32)
     aff_ms = queued_ms(lambda: to_affine(one, curve), 20, blocker)
     # extract_buckets on one window of one run: one block, its two
@@ -1396,7 +1409,7 @@ def latency(curve, card: str, scan_G: int) -> dict:
           + f"; pbpr_stage1 step (two adds at once) "
           f"{stage1_step:.5f} ms, from the same buckets: Bt = {lo} "
           f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo}; "
-          f"to_affine on one point (a chain of {affine_muls(curve)} "
+          f"to_affine on one point (a chain of {chain_muls(curve) + 3} "
           f"multiplies) {aff_ms:.4f} ms; extract_buckets on one run "
           f"({J} buckets of one window on one block, two dependent adds) "
           f"{ext_ms:.4f} ms"
@@ -1765,7 +1778,9 @@ def affine_check(curve, logn: int, card: str, glv: bool) -> dict:
     every launch count set to 0 just before and read just after (one
     kernel launch), against the host decode; then the kernel against its
     plain version on the window sums with four lanes more, whose Z has
-    value 0, p, 2p and 3p, timed, and on an int16 copy of them."""
+    value 0, p, 2p and 3p, timed, and on an int16 copy of them; and
+    `batch_inverse` against its plain version on the window sums' Z
+    plane."""
     n = 1 << logn
     cfg = config(curve, logn, glv)
     pipe = get_pipeline(cfg, DEVICE)
@@ -1812,6 +1827,8 @@ def affine_check(curve, logn: int, card: str, glv: bool) -> dict:
     for a, b in zip(to_affine(ge.to(torch.int16), curve), k32, strict=True):
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise AssertionError("to_affine: int16 limbs give other bits")
+    same_as_plain(f"batch_inverse on the Z plane at {tag}", "batch_inverse",
+                  (g[2].contiguous(), curve))
     print(f"[affine] {curve.name} n=2^{logn}{' glv' if glv else ''} "
           f"to_affine on the "
           f"(3, L, {g.shape[2]}) window sums ({g.shape[2] - len(want)} pad "
@@ -1819,9 +1836,134 @@ def affine_check(curve, logn: int, card: str, glv: bool) -> dict:
           f"all {len(want)} windows, infinity masks agree; {ms:.3f} ms the "
           f"user call; with 4 lanes of Z = 0, p, 2p, 3p (at infinity) "
           f"bit-identical to its plain version, int32 and int16: kernel "
-          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.1f} ms [{card}]",
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.1f} ms; batch_inverse "
+          f"on the window sums' Z plane bit-identical to its plain version "
+          f"[{card}]",
           flush=True)
-    return dict(res, user_ms=ms, launches=launches)
+    return dict(res, user_ms=ms, launches=launches, K=ge.shape[2])
+
+
+# The full-width to_affine: K = 2^AFFINE_LOGK - 3 points (not a power of
+# two, so the tree's padding runs) at BN254_S12, 2^PROFILE_AFFINE_LOGK - 3
+# at PROFILE_FULL; the phase's Z from a numpy generator of this seed.
+AFFINE_LOGK = 20
+PROFILE_AFFINE_LOGK = 16
+AFFINE_SEED = 17
+
+
+def affine_edge_lanes(K: int) -> list:
+    """Lanes about the tree's block boundaries (blocks of 1,024 leaves,
+    threads of 4, the top level's halves) and the last lane."""
+    Kp = 1 << (K - 1).bit_length()
+    lanes = (0, 1, 3, 4, 1023, 1024, 1025, 4095, 4096, Kp // 2 - 1, Kp // 2,
+             K - 1)
+    return sorted({f for f in lanes if 0 <= f < K})
+
+
+def affine_points(curve, K: int):
+    """K projective points made on the card: the affine points of
+    gen_planar_inputs(seed=99, k_base=64) encoded to Montgomery form, a
+    random Z below p from a numpy generator (AFFINE_SEED), (X Z, Y Z, Z)
+    by the row multiply; then lanes of Z of value 0, p, 2p and 3p in turn
+    at `affine_edge_lanes`. Returns the (3, L, K) points, the affine
+    coordinates they stand for (fully reduced, zero at the edge lanes),
+    the infinity mask and the edge lanes."""
+    L, w = curve.num_limbs, curve.log_limb_size
+    xs, ys, _, _, _ = inputs(curve, (K - 1).bit_length())
+    t = lambda a: torch.from_numpy(a[:, :K].astype(np.int32)).to(DEVICE)
+    xm, ym = kernels.encode_mont(t(xs), curve), kernels.encode_mont(t(ys),
+                                                                   curve)
+    rng = np.random.default_rng(AFFINE_SEED)
+    z = rng.integers(0, 1 << w, (L, K)).astype(np.int32)
+    z[-1] = rng.integers(0, curve.p >> (w * (L - 1)), K)     # below p
+    z = torch.from_numpy(z).to(DEVICE)
+    pts = torch.stack([rows.mont_mul_rows(xm, z, curve),
+                       rows.mont_mul_rows(ym, z, curve), z])
+    edges = affine_edge_lanes(K)
+    pts[2][:, edges] = torch.tensor(
+        [int_to_limbs(i % 4 * curve.p, L, w) for i in range(len(edges))],
+        dtype=torch.int32, device=pts.device).T
+    inf = torch.zeros(K, dtype=torch.bool, device=pts.device)
+    inf[edges] = True
+    want = [torch.where(inf, 0, inverse.reduce_once(c, curve))
+            for c in (xm, ym)]
+    return pts, want[0], want[1], inf, edges
+
+
+def counted(name: str, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: the wrapper `name` launched the plan of
+    `batch_inverse_geometry` and nothing else launched."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out, ms = timed_once(fn)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    K = kernels.LAUNCHED[name]["K"]
+    want = len(kernels.batch_inverse_geometry(K).launches)
+    if launches != {name: want}:
+        raise AssertionError(f"{name}: launches {launches}, want "
+                             f"{ {name: want} }")
+    return out, ms, want
+
+
+def affine_full(curve, logk: int, card: str) -> dict:
+    """Phase 8 at full width: `to_affine` on K = 2^logk - 3 points made
+    on the card (`affine_points`), its user call counted (the tree's
+    launches, nothing else), equal to the known affine points with
+    infinity exactly at the edge lanes; against `to_affine_plain`, run
+    once, bit for bit, int32 and int16, and timed. Then `batch_inverse`
+    on their Z plane with the edge lanes of 2p and 3p made 0 and p (zero
+    by the value test it keeps), counted, against the plain
+    `batch_inverse` run once, bit for bit, zero at the edge lanes and an
+    inverse by value (a z^-1 z = 1) at the others, and timed."""
+    K = (1 << logk) - 3
+    pts, wx, wy, winf, edges = affine_points(curve, K)
+    (ax, ay, inf), user_ms, launches = counted(
+        "to_affine", lambda: to_affine(pts, curve))
+    if not (torch.equal(ax, wx) and torch.equal(ay, wy)
+            and torch.equal(inf, winf)):
+        raise AssertionError(f"to_affine at K={K}: not the known affine "
+                             "points")
+    tag = f"K={K} (Z of 0, p, 2p, 3p at {len(edges)} lanes)"
+    res = compare(curve, "to_affine", "to_affine", (pts, curve), {}, tag,
+                  card, 5)
+    for a, b in zip(to_affine(pts.to(torch.int16), curve), (ax, ay, inf),
+                    strict=True):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("to_affine: int16 limbs give other bits")
+
+    L, w = curve.num_limbs, curve.log_limb_size
+    z = pts[2].clone()
+    z[:, edges] = torch.tensor(
+        [int_to_limbs(i % 2 * curve.p, L, w) for i in range(len(edges))],
+        dtype=torch.int32, device=z.device).T
+    zinv, inv_user_ms, inv_launches = counted(
+        "batch_inverse", lambda: batch_inverse(z, curve))
+    one = rows.mont_mul_rows(zinv, z, curve)
+    want_one = torch.where(winf, 0, inverse.reduce_once(
+        rows.mont_one_rows(curve, z), curve))
+    if (not torch.equal(torch.where(winf, 0, inverse.reduce_once(one, curve)),
+                        want_one) or bool(zinv[:, edges].any())):
+        raise AssertionError(f"batch_inverse at K={K}: not the inverses")
+    res_inv = compare(curve, "batch_inverse", "batch_inverse", (z, curve), {},
+                      f"K={K} (the Z plane, 0 and p at {len(edges)} lanes)",
+                      card, 5)
+    print(f"[affine] {curve.name} K={K}: to_affine's user call "
+          f"{launches} launches ({kernels.LAUNCHED['to_affine']['plan']}), "
+          f"{user_ms:.4f} ms, equal to the known affine points, infinity "
+          f"exactly at the {len(edges)} edge lanes; bit-identical to "
+          f"to_affine_plain, int32 and int16: kernel {res['ms']:.4f} ms, "
+          f"plain {res['plain_ms']:.1f} ms once, bound {res['bound_ms']:.4f} "
+          f"ms ({res['bound_by']}); batch_inverse on the Z plane "
+          f"{inv_launches} launches, {inv_user_ms:.4f} ms the user call, "
+          f"bit-identical to the plain batch_inverse, zero at the edges, "
+          f"z^-1 z = 1 elsewhere: kernel {res_inv['ms']:.4f} ms, plain "
+          f"{res_inv['plain_ms']:.1f} ms once, bound "
+          f"{res_inv['bound_ms']:.4f} ms ({res_inv['bound_by']}) [{card}]",
+          flush=True)
+    return dict(to_affine=dict(res, user_ms=user_ms, launches=launches, K=K),
+                batch_inverse=dict(res_inv, user_ms=inv_user_ms,
+                                   launches=inv_launches, K=K))
 
 
 def run_profile(curve, sizes, card: str) -> dict:
@@ -1832,8 +1974,9 @@ def run_profile(curve, sizes, card: str) -> dict:
     and globalisation paths (phases 3 to 5), and `glv_apply` against its
     plain version (`[apply_glv]`). Then the MSM at every size,
     EXACT, counted and timed (phase 6); for PROFILE_FULL the GLV MSM and
-    the [latency] line (phase 7) and to_affine (phase 8) at the smallest
-    size; a [where] line for each size."""
+    the [latency] line (phase 7), to_affine on the window sums of the
+    smallest size and `affine_full` at K = 2^PROFILE_AFFINE_LOGK - 3
+    (phase 8); a [where] line for each size."""
     t0 = time.perf_counter()
     warm_plain(curve)
     checked, nine, glv_checks = {}, {}, {}
@@ -1855,6 +1998,7 @@ def run_profile(curve, sizes, card: str) -> dict:
         small = min(sizes)
         out["glv"] = main_path(curve, small, card, glv=True)
         out["affine"] = affine_check(curve, small, card, glv=False)
+        out["affine_full"] = affine_full(curve, PROFILE_AFFINE_LOGK, card)
         out["latency"] = latency(curve, card, runs[max(sizes)][3])
         out["scan_by_lanes"] = lane_sweep(curve, card)
     for logn in sizes:
@@ -1872,16 +2016,26 @@ def profile_entry(name: str, prof: dict) -> dict:
     MSM."""
     out = {}
     sizes = sorted(prof["runs"])
-    if name == "to_affine":
-        # the window sums of the smallest size, PROFILE_FULL only
-        r = prof.get("affine")
-        return r and {"launches": r["launches"], "ms": r["ms"],
-                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                      "bound_ms_chain": r["bound_ms_chain"],
-                      "x_bound": r["ms"] / r["bound_ms"],
-                      "max_abs_err": r["max_abs_err"],
-                      "plain_ms": r["plain_ms"], "library_ms": None,
-                      "at": f"n=2^{min(sizes)} window sums"}
+    if name in ("to_affine", "batch_inverse"):
+        # PROFILE_FULL only: K = 2^PROFILE_AFFINE_LOGK - 3 points, and
+        # to_affine on the window sums of the smallest size
+        if "affine_full" not in prof:
+            return None
+        r = prof["affine_full"][name]
+        out = {"launches": r["launches"], "ms": r["ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "x_bound": r["ms"] / r["bound_ms"],
+               "max_abs_err": r["max_abs_err"], "plain_ms": r["plain_ms"],
+               "library_ms": None, "at": f"K={r['K']}"}
+        if name == "to_affine":
+            w = prof["affine"]
+            out.update(launches_window_sums=w["launches"],
+                       ms_window_sums=w["ms"],
+                       bound_ms_window_sums=w["bound_ms"],
+                       max_abs_err_window_sums=w["max_abs_err"],
+                       plain_ms_window_sums=w["plain_ms"],
+                       at_window_sums=f"n=2^{min(sizes)} window sums")
+        return out
     for logn in sizes:
         sfx = "" if logn == max(sizes) else f"_2p{logn}"
         if name == "glv_apply":
@@ -3106,7 +3260,8 @@ def main_on_card(t_start: float) -> int:
     resources = {}
     for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
                  "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
-                 "glv_apply", "to_affine", "extract_buckets", "bucket_sort"):
+                 "glv_apply", "to_affine", "batch_inverse",
+                 "extract_buckets", "bucket_sort"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name (bucket_sort's are no profile's)
@@ -3188,21 +3343,45 @@ def glv_entry(entry: dict, checks, runs, runs_glv, twin, host,
     return entry
 
 
-def affine_entry(entry: dict, affine, affine_glv, lat, profiles) -> dict:
-    """The kernels line's `to_affine`: the launch of the user call on the
-    window sums, its compare on them with the Z edges, without GLV and
-    with it; the depth floor of one chain; the bound of the kernel's own
-    work (a chain a point) beside the bound (Montgomery's trick)."""
-    for sfx, r in (("", affine), ("_glv", affine_glv)):
-        entry.update({f"launches{sfx}": r["launches"],
-                      f"user_ms{sfx}": r["user_ms"],
-                      f"bound_ms_chain{sfx}": r["bound_ms_chain"],
-                      **result_fields(r, sfx)})
-    entry["depth_floor_ms"] = lat["to_affine_one_lane_ms"]
+def tree_floor_ms(name: str, K: int, lat: dict) -> float:
+    """The depth floor of one call of the product tree on K elements: the
+    root's chain and a multiply a level up and down (2 log2 Kp), and
+    to_affine's 3 multiplies (Z one, X zinv, Y zinv); from [latency]'s
+    to_affine on one point, the chain and those 3, whose multiplies give
+    a multiply's latency."""
+    one = lat["to_affine_one_lane_ms"]
+    mul_ms = one / (chain_muls(CURVE) + 3)
+    levels = (K - 1).bit_length()
+    return one + (2 * levels - (0 if name == "to_affine" else 3)) * mul_ms
+
+
+def affine_entry(entry: dict, name: str, full, affine, affine_glv, lat,
+                 profiles) -> dict:
+    """The kernels line's `to_affine` or `batch_inverse`: the user call at
+    K = 2^AFFINE_LOGK - 3 (its launches, counted) and its compare there;
+    its depth floor (`tree_floor_ms`). For `to_affine` also the window
+    sums with the Z edges, without GLV and with it (one launch each)."""
+    r = full[name]
+    entry.update(launches=r["launches"], user_ms=r["user_ms"],
+                 launched=r["launched"], **result_fields(r))
+    entry["depth_floor_ms"] = tree_floor_ms(name, r["K"], lat)
+    at = f"K={r['K']} points made on the card, Z of 0, p, 2p, 3p at edges"
+    if name == "to_affine":
+        for sfx, w in (("_window_sums", affine),
+                       ("_window_sums_glv", affine_glv)):
+            entry.update({f"launches{sfx}": w["launches"],
+                          f"user_ms{sfx}": w["user_ms"],
+                          **result_fields(w, sfx)})
+        entry["depth_floor_ms_window_sums"] = tree_floor_ms(
+            name, affine["K"], lat)
+        at += (f"; suffix _window_sums: the (3, L, Wp + 4) window sums of "
+               f"n=2^{min(SIZES)} with 4 lanes of Z = 0, p, 2p, 3p (_glv: "
+               "GLV)")
+    else:
+        at = f"K={r['K']}: the Z plane of those points, 0 and p at edges"
     entry["bit_exact"] = True
-    entry["at"] = (f"the (3, L, Wp + 4) window sums of n=2^{min(SIZES)} "
-                   "with 4 lanes of Z = 0, p, 2p, 3p (suffix _glv: GLV)")
-    entry["profiles"] = {c: profile_entry("to_affine", prof)
+    entry["at"] = at
+    entry["profiles"] = {c: profile_entry(name, prof)
                          for c, prof in profiles.items()}
     return entry
 
@@ -3219,6 +3398,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     lanes_ms = lane_sweep(CURVE, card)
     affine = affine_check(CURVE, min(SIZES), card, glv=False)
     affine_glv = affine_check(CURVE, min(SIZES), card, glv=True)
+    affine_big = affine_full(CURVE, AFFINE_LOGK, card)
     rests = {logn: rest_split(logn) for logn in SIZES}
     profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
     shard_run = sharded_phase(card)
@@ -3244,9 +3424,9 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             entries.append(glv_entry(entry, checks, runs, runs_glv, twin,
                                      host, profiles))
             continue
-        if name == "to_affine":
-            entries.append(affine_entry(entry, affine, affine_glv, lat,
-                                        profiles))
+        if name in ("to_affine", "batch_inverse"):
+            entries.append(affine_entry(entry, name, affine_big, affine,
+                                        affine_glv, lat, profiles))
             continue
         for logn in sorted(SIZES, reverse=True):
             # the first compared call of the kernel (padd_batch: i16 -> i32;
@@ -3412,7 +3592,11 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         "apply_glv_ms": {f"2^{k}": v["apply_glv_ms"]
                          for k, v in checks.items()},
         "to_affine_ms": {f"2^{min(SIZES)}": affine["user_ms"],
-                         f"2^{min(SIZES)} glv": affine_glv["user_ms"]},
+                         f"2^{min(SIZES)} glv": affine_glv["user_ms"],
+                         f"K={affine_big['to_affine']['K']}":
+                             affine_big["to_affine"]["user_ms"]},
+        "batch_inverse_ms": {f"K={affine_big['batch_inverse']['K']}":
+                             affine_big["batch_inverse"]["user_ms"]},
         "schedule": {**SCHEDULE, "msm_ms": sched_ms,
                      "launches": sched_launches},
         "latency_32_lanes": lat, "scan_by_lanes": lanes_ms,
@@ -3431,6 +3615,10 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             msm_glv_ms=prof["glv"][1] if "glv" in prof else None,
             to_affine_ms=prof["affine"]["user_ms"] if "affine" in prof
             else None,
+            to_affine_full_ms=prof["affine_full"]["to_affine"]["user_ms"]
+            if "affine_full" in prof else None,
+            batch_inverse_full_ms=prof["affine_full"]["batch_inverse"][
+                "user_ms"] if "affine_full" in prof else None,
             scan_by_lanes=prof.get("scan_by_lanes"),
             bucket_reduce_ms={f"2^{k}": v["reduce_ms"]
                               for k, v in prof["nine"].items()},

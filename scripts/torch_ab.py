@@ -23,9 +23,15 @@ default schedule:
     kernel under 1 ms again queued behind a busy call (`chip_smoke.py`
     `queued_ms`), which leaves out the wrapper's host cost;
   - `apply_glv` on the inputs the 2^20 GLV device program gives it, and
-    `to_affine` on the window sums of the 2^16 MSM (one warm call on
-    the host clock between synchronizes: the plain torch version takes
-    seconds);
+    `to_affine` on the window sums of the 2^16 MSM (the median of 5 warm
+    calls on the host clock between synchronizes, and of the time each
+    call takes to return, its host cost; and timed as the kernels
+    above);
+  - `to_affine` on K = 2^20 - 3 projective points and
+    `tpu_msm_torch.batch_inverse` on their Z plane, lazy limbs below p
+    from a fixed seed, as the checkout runs them: timed like the kernels
+    above where the checkout has a kernel, else (its `batch_inverse` the
+    plain torch version on the card) one warm call on the host clock;
   - what ptxas said of every kernel at L = 22 and of any kernel with a
     stack frame or spills;
   - the MSM end to end at 2^16 and 2^20, without GLV and with it, as
@@ -44,6 +50,41 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+# to_affine and batch_inverse at full width: K points (not a power of two)
+AFFINE_K = (1 << 20) - 3
+
+
+def host_ms(fn, runs: int, wait: bool = True) -> float:
+    """Median host-clock ms of `runs` calls of fn, each after a
+    synchronize and, with `wait`, up to the next one (without it, up to
+    fn's return: the call's host cost), after one warm-up call."""
+    import statistics
+    import torch
+    times = []
+    for i in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if wait:
+            torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def affine_inputs(curve, K: int):
+    """(3, L, K) int32 lazy limbs of projective points from a fixed seed:
+    each coordinate below p, a unit of the next limb borrowed into a
+    random half of the limbs below the top."""
+    import numpy as np
+    L, w = curve.num_limbs, curve.log_limb_size
+    rng = np.random.default_rng(7)
+    t = rng.integers(0, 1 << w, (3, L, K)).astype(np.int32)
+    t[:, -1] = rng.integers(0, curve.p >> (w * (L - 1)), (3, K))
+    move = (rng.random((3, L - 1, K)) < 0.5).astype(np.int32)
+    t[:, :-1] += move << w
+    t[:, 1:] -= move
+    return t
 
 
 def one(root: str) -> None:
@@ -54,6 +95,7 @@ def one(root: str) -> None:
     import torch
 
     import chip_smoke as cs
+    import tpu_msm_torch
     from tpu_msm_torch import _build, to_affine
     from tpu_msm_torch.constants import BN254_S12 as C
     from tpu_msm_torch.cuzk import glv as glv_dev
@@ -100,14 +142,25 @@ def one(root: str) -> None:
                      lambda: glv_dev.apply_glv(*args, **kw)))
     del args, kw
     g = cs.capture_inputs(C, 16, False)["pbpr_full"][3][0]
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        to_affine(g, C)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-    out.append(f"to_affine n=2^16 window sums {tuple(g.shape)} {ms:.4f} ms "
-               "(one warm call, host clock)")
+    out.append(f"to_affine n=2^16 window sums {tuple(g.shape)} "
+               f"{host_ms(lambda: to_affine(g, C), 5):.4f} ms (median of 5 "
+               "warm calls, host clock), of which the call's host cost "
+               f"{host_ms(lambda: to_affine(g, C), 5, wait=False):.4f} ms")
+    out.append(timed(f"to_affine n=2^16 window sums {tuple(g.shape)}",
+                     lambda: to_affine(g, C)))
+    del g
+    K = AFFINE_K
+    pts = torch.from_numpy(affine_inputs(C, K)).cuda()
+    z = pts[2].contiguous()
+    out.append(timed(f"to_affine K={K}", lambda: to_affine(pts, C)))
+    if hasattr(kernels, "batch_inverse"):
+        out.append(timed(f"batch_inverse K={K}",
+                         lambda: tpu_msm_torch.batch_inverse(z, C)))
+    else:
+        ms = host_ms(lambda: tpu_msm_torch.batch_inverse(z, C), 1)
+        out.append(f"batch_inverse K={K} {ms:.1f} ms (no kernel: the plain "
+                   "version, one warm call, host clock)")
+    del pts, z
     for stem in ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
                  "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full",
                  "bucket_sort", "extract_buckets"):

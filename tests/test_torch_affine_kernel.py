@@ -10,12 +10,15 @@ added, at BN254_S12 and BLS12_377_S12; int16 limbs and the batch shapes
 fault of the JAX function that the port repairs, ROADMAP C) is held
 against python-int arithmetic only.
 
-The kernel runs one Fermat chain a point where the plain version runs a
-product tree; `chain_affine` replays the kernel's steps on `ops/rows.py`
-(z = Z one, the zero test, z^(p - 2) from the Montgomery one, X zinv and
-Y zinv reduced once, zeroed at infinity) and must give the plain
-version's bits on lazy limbs across the ledger. No tolerance."""
+The kernel walks the plain version's product tree (csrc/batch_inv.cuh);
+`_torch_tree.tree_affine` replays its launches on `ops/rows.py` (the
+leaves z = Z one and the zero test on them, the tree split into blocks
+of 2, 4 and 8 leaves as well as the kernel's 1,024, the root's chain, X
+zinv and Y zinv reduced once, zeroed at infinity) and must give the
+plain version's bits on lazy limbs across the ledger, with Z of value 0,
+p, 2p and 3p. No tolerance."""
 
+import functools
 import random
 
 import numpy as np
@@ -23,6 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import _torch_tree as tree
 import tpu_msm_torch
 from tpu_msm import constants as jc
 from tpu_msm.ops import inverse as jinverse
@@ -150,26 +154,24 @@ def test_to_affine_lazy_zero_z_against_ints(curve):
     check_affine(curve, ax, ay, inf, want)
 
 
-def chain_affine(stacked, curve):
-    """The kernel's steps, one Fermat chain a point, on ops/rows.py."""
-    px, py, pz = (c.to(torch.int32) for c in stacked)
-    z = rows.mont_mul_rows(pz, rows.mont_one_rows(curve, pz), curve)
-    inf = inverse.is_zero_val(z, curve)
-    zinv = inverse.fermat_inv(z, curve)
-    out = []
-    for c in (px, py):
-        v = inverse.reduce_once(rows.mont_mul_rows(c, zinv, curve), curve)
-        out.append(torch.where(inf, torch.zeros_like(v), v))
-    return out[0], out[1], inf
+# (threads_log, reg_log) of the replayed plan, as in
+# tests/test_torch_batch_inverse_kernel.py
+SPLITS = {"b1": (0, 1), "b2": (1, 1), "b2_shared": (2, 0), "b3": (1, 2),
+          "kernel": (kernels.TREE_THREADS_LOG, kernels.TREE_REG_LOG)}
 
 
-@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
-def test_kernel_chain_matches_plain(curve):
-    """Lazy limbs whose values run up the ledger (X, Y below 4p), Z of
-    value 0, p, 2p and 3p: the chain a point gives the product tree's
-    bits."""
+CURVES_BY_NAME = {c.name: c for c in CURVES}
+
+
+@functools.lru_cache(maxsize=None)
+def ledger_points(name: str, n: int):
+    """n random points scaled by a random Z, a lane at infinity and lanes
+    of Z = 0, p, 2p, 3p, then X and Y replaced by values up the ledger
+    (below 4p, one lane at 4p - 1 and 0) as lazy limbs; and the plain
+    version's result on them."""
+    curve = CURVES_BY_NAME[name]
     p = curve.p
-    stacked, _ = points(curve, 9, 54, z_extra=(0, p, 2 * p, 3 * p))
+    stacked, _ = points(curve, n, 54, z_extra=(0, p, 2 * p, 3 * p))
     rng = random.Random(55)
     K = stacked.shape[2]
     X = [rng.randrange(4 * p) for _ in range(K)]
@@ -179,10 +181,24 @@ def test_kernel_chain_matches_plain(curve):
     v[0], v[1] = torch.from_numpy(enc(X, curve)), torch.from_numpy(
         enc(Y, curve))
     v = lazy(v, curve, 56)
-    want = inverse.to_affine_plain(v, curve)
-    got = chain_affine(v, curve)
+    return v, inverse.to_affine_plain(v, curve)
+
+
+@pytest.mark.parametrize("n", (9, 95))
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("name", sorted(CURVES_BY_NAME))
+def test_kernel_tree_matches_plain(name, split, n):
+    """The kernel's launches, replayed with its ends (z = Z one and the
+    flag at the leaves, X zinv and Y zinv reduced once at the end), give
+    the plain version's bits: K = 14 and 100 lanes, Z of value 0, p, 2p
+    and 3p at the last four."""
+    curve = CURVES_BY_NAME[name]
+    v, want = ledger_points(name, n)
+    geo = kernels.batch_inverse_geometry(v.shape[2], *SPLITS[split])
+    got = tree.tree_affine(v, curve, geo)
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+    assert got[2][-4:].all()
 
 
 def test_to_affine_cpu_path_and_refusals(monkeypatch):
@@ -204,7 +220,7 @@ def test_to_affine_cpu_path_and_refusals(monkeypatch):
 @pytest.mark.parametrize("curve", CURVES + (BN254_S13,),
                          ids=lambda c: c.name)
 def test_affine_consts_layout(curve):
-    """Words of AffineConsts<L, W> (csrc/to_affine.cu): WideConsts (NF
+    """Words of TreeConsts<L, W> (csrc/batch_inv.cuh): WideConsts (NF
     words of p, n0, N of R^2), R mod p and p - 2 in N words, the bit
     length."""
     bits = curve.num_limbs * curve.log_limb_size

@@ -147,5 +147,6 @@ def test_to_affine_lazy_zero_z():
 def test_public_exports():
     assert tpu_msm_torch.to_affine is kernels.to_affine
     assert kernels.to_affine_plain is inverse.to_affine_plain
-    assert tpu_msm_torch.batch_inverse is inverse.batch_inverse
+    assert tpu_msm_torch.batch_inverse is kernels.batch_inverse
+    assert kernels.batch_inverse_plain is inverse.batch_inverse
     assert {"to_affine", "batch_inverse"} <= set(tpu_msm_torch.__all__)

@@ -16,8 +16,7 @@ from .config import MSMConfig, default_config
 from .constants import (BLS12_377_S12, BLS12_377_S13, BN254_S12, BN254_S13,
                         CurveParams)
 from .cuzk.pipeline import MSMPipeline, get_pipeline, tpu_variable_base_msm
-from .cuzk.kernels import to_affine
-from .ops.inverse import batch_inverse
+from .cuzk.kernels import batch_inverse, to_affine
 
 __all__ = ["MSMConfig", "default_config", "BN254_S12", "BN254_S13",
            "BLS12_377_S12", "BLS12_377_S13", "CurveParams",

@@ -57,7 +57,10 @@ SIGNATURES = {
                       _P, _P, _P],
     "msm_glv_apply": [_I, _I, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _P, _P,
                       _I, _P],
-    "msm_to_affine": [_I, _I, _P, _I64, _P, _P, _P, _P, _I, _P],
+    "msm_to_affine": [_I, _I, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I,
+                      _I, _I, _I, _I64, _P, _I, _P],
+    "msm_batch_inverse": [_I, _I, _P, _I64, _P, _P, _P, _I64, _I, _I, _I,
+                          _I, _I64, _P, _I, _P],
     "msm_bucket_sort": [_P, _I, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "msm_extract_buckets": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P],

@@ -26,17 +26,20 @@ what its design does about that.
 (`cuzk/pbpr.py`), and `globalize` is the full-stream form of the G = T + S
 step that the main path takes only at the bucket-region ends.
 
-Two more kernels replace functions that the JAX package leaves to XLA,
-no pallas_call:
+Three more kernels replace functions that the JAX package leaves to
+XLA, no pallas_call:
 
   wrapper            replaces                              source
   glv_apply          tpu_msm/cuzk/glv.py apply_glv         csrc/glv_apply.cu
                      (the split and the doubled stream)
   to_affine          tpu_msm/ops/inverse.py to_affine      csrc/to_affine.cu
+  batch_inverse      tpu_msm/ops/inverse.py batch_inverse  csrc/batch_inverse.cu
 
 `glv_apply` serves every path under `glv=True` (`cuzk/glv.apply_glv`);
-`to_affine` is the public `tpu_msm_torch.to_affine`, and its plain
-version is the product tree of `ops/inverse.py`.
+`to_affine` and `batch_inverse` are the public `tpu_msm_torch.to_affine`
+and `tpu_msm_torch.batch_inverse`, both the product tree of
+csrc/batch_inv.cuh, and their plain versions the same tree in
+`ops/inverse.py`.
 
 Two more replace what XLA compiles around the Pallas kernels of the
 JAX package's device program (tpu_msm/cuzk/pipeline_pallas.py):
@@ -70,6 +73,7 @@ from ..constants import CurveParams, int_to_limbs
 from ..glv import M_SHIFT, GLVParams
 from ..ops import limbs, rows
 from ..ops.barrett import mul_wide
+from ..ops.inverse import batch_inverse as batch_inverse_plain
 from ..ops.inverse import to_affine_plain
 
 I16 = torch.int16
@@ -87,14 +91,16 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "prefix_scan", "col_prefix", "padd_batch",
                                  "pbpr_full", "pdbl_batch", "pbpr_stage1",
                                  "globalize", "glv_apply", "to_affine",
-                                 "bucket_sort", "extract_buckets")}
+                                 "batch_inverse", "bucket_sort",
+                                 "extract_buckets")}
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
 """The geometry that the last launch of `prefix_scan`, `col_prefix`,
 `padd_batch`, `pbpr_full`, `pdbl_batch`, `pbpr_stage1`, `globalize`,
-`bucket_sort` and `extract_buckets` passed to its kernel, written where
-the kernel launches."""
+`bucket_sort` and `extract_buckets` passed to its kernel, and the plan of
+the last call of `to_affine` and `batch_inverse`, written where the
+kernels launch."""
 
 
 def reset_launches() -> None:
@@ -1264,12 +1270,71 @@ def glv_apply(xm: torch.Tensor, ym: torch.Tensor, halfwords: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# 11. projective -> affine: a Fermat chain a point
+# 11. projective -> affine and batched inversion: one product tree
 # ---------------------------------------------------------------------------
+
+# What a launch of the tree does (csrc/batch_inv.cuh kTreeUp, kTreeRoot,
+# kTreeDown).
+TREE_UP, TREE_ROOT, TREE_DOWN = 1, 2, 4
+TREE_THREADS_LOG = 8
+"""Threads a block of the tree kernels, log2 (kTreeThreadsLog)."""
+TREE_REG_LOG = 2
+"""Leaves of a thread's register subtree at most, log2 (kTreeRegLog)."""
+
+
+class TreeLaunch(NamedTuple):
+    roles: int     # TREE_UP | TREE_ROOT | TREE_DOWN
+    lo: int        # level of the launch's leaves
+    n: int         # levels a block covers: 2^n leaves a block
+    d: int         # levels a thread covers in registers: 2^d leaves
+    blocks: int
+
+
+class TreeGeometry(NamedTuple):
+    K: int
+    Kp: int                   # K padded to a power of two
+    levels: int               # log2 Kp
+    block_log: int            # leaves a block of an up or down launch, log2
+    launches: Tuple[TreeLaunch, ...]
+    scratch_nodes: int        # 2 Kp nodes of N words a plane
+
+
+def batch_inverse_geometry(K: int, threads_log: int = TREE_THREADS_LOG,
+                           reg_log: int = TREE_REG_LOG) -> TreeGeometry:
+    """The launches of one product-tree call on K elements
+    (csrc/batch_inv.cuh): a pure function, so the CPU tests can hold it.
+
+    The tree is `ops/inverse.batch_inverse`'s on Kp leaves, Kp the next
+    power of two. A block of an up or a down launch owns 2^b leaves, b =
+    threads_log + reg_log, 2^reg_log a thread. While more than b levels
+    are left above a launch's leaves, an up launch of Kp / 2^(lo + b)
+    blocks takes b of them; the top levels, n <= b, go to one launch of
+    one block that runs up, the root's chain and down, its threads at
+    2^d = 2^max(0, n - threads_log) leaves each; then the down launches
+    of the up launches, in reverse order. So Kp <= 2^b is one launch
+    and Kp <= 2^(2b) (2^20) three."""
+    if K < 1 or threads_log < 0 or not 0 <= reg_log <= TREE_REG_LOG:
+        raise ValueError("batch_inverse_geometry: K >= 1, threads_log >= 0 "
+                         f"and 0 <= reg_log <= {TREE_REG_LOG}")
+    Kp = 1 << (K - 1).bit_length()
+    levels = Kp.bit_length() - 1
+    b = threads_log + reg_log
+    if b < 1:
+        raise ValueError("batch_inverse_geometry: a block needs 2 leaves")
+    ups, lo = [], 0
+    while levels - lo > b:
+        ups.append(TreeLaunch(TREE_UP, lo, b, reg_log, Kp >> (lo + b)))
+        lo += b
+    n = levels - lo
+    top = TreeLaunch(TREE_UP | TREE_ROOT | TREE_DOWN, lo, n,
+                     max(0, n - threads_log), 1)
+    downs = [u._replace(roles=TREE_DOWN) for u in reversed(ups)]
+    return TreeGeometry(K, Kp, levels, b, tuple(ups + [top] + downs),
+                        2 * Kp)
 
 
 def _affine_consts_host(curve: CurveParams) -> list:
-    """The words of `AffineConsts<L, W>` (csrc/to_affine.cu): the
+    """The words of `TreeConsts<L, W>` (csrc/batch_inv.cuh): the
     `WideConsts` of the multiply, R mod p and the exponent p - 2 in
     ceil(L w / 32) words each, and the exponent's bit length."""
     n = -(-curve.num_limbs * curve.log_limb_size // 32)
@@ -1284,16 +1349,59 @@ def _affine_consts(curve: CurveParams) -> ctypes.Array:
     return (ctypes.c_uint32 * len(words))(*words)
 
 
+def _tree(name: str, curve: CurveParams, K: int, device: torch.device,
+          launch) -> None:
+    """Every launch of the tree for K elements: launch(lib, scratch,
+    Kp, TreeLaunch, consts) returns its cudaError_t. The scratch: the
+    tree's 2 Kp nodes in N word planes."""
+    geo = batch_inverse_geometry(K)
+    N = -(-curve.num_limbs * curve.log_limb_size // 32)
+    scratch = torch.empty((N, geo.scratch_nodes), dtype=I32, device=device)
+    consts = _affine_consts(curve)
+    lib = _build.library()
+    for ln in geo.launches:
+        _check(name, launch(lib, scratch.data_ptr(), geo.Kp, ln, consts))
+    LAUNCHED[name] = dict(K=K, Kp=geo.Kp, launches=len(geo.launches),
+                          plan=[tuple(ln) for ln in geo.launches])
+
+
+def batch_inverse(a: torch.Tensor, curve: CurveParams) -> torch.Tensor:
+    """Elementwise Montgomery-domain inverse of (L, *batch) int16 or
+    int32 limbs, zeros to zero: canonical limbs, value < 2p, int32.
+
+    On CPU tensors `ops/inverse.batch_inverse` (`batch_inverse_plain`);
+    on CUDA tensors the launches of csrc/batch_inverse.cu, the same
+    product tree (`batch_inverse_geometry`), which give its bits."""
+    if not _on_cuda("batch_inverse", a):
+        return batch_inverse_plain(a, curve)
+    L, w = _profile("batch_inverse", curve)
+    if a.dim() < 1 or a.shape[0] != L:
+        raise ValueError(f"batch_inverse: limbs of shape {tuple(a.shape)} "
+                         f"for L = {L}")
+    flat = a.to(I32).reshape(L, -1).contiguous()
+    K = flat.shape[1]
+    out = torch.empty((L, K), dtype=I32, device=flat.device)
+    if K:
+        zero = torch.empty(K, dtype=torch.uint8, device=flat.device)
+        stream = _stream(flat)
+        _tree("batch_inverse", curve, K, flat.device,
+              lambda lib, scratch, Kp, ln, consts: lib.msm_batch_inverse(
+                  L, w, flat.data_ptr(), K, out.data_ptr(), zero.data_ptr(),
+                  scratch, Kp, ln.lo, ln.n, ln.d, ln.roles, ln.blocks,
+                  ctypes.addressof(consts), len(consts), stream))
+    return out.reshape(a.shape)
+
+
 def to_affine(p, curve: CurveParams
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projective (X : Y : Z), a `rows.ProjRows` or a stacked (3, L, ...)
     tensor (int16 or int32 lazy limbs), -> affine (X/Z, Y/Z), fully
     reduced (< p) in the Montgomery domain, and the infinity mask.
 
-    On CPU tensors `to_affine_plain` (`ops/inverse.py`, a product tree);
-    on CUDA tensors the kernel of csrc/to_affine.cu, a Fermat chain a
-    point, which gives the same bits: the outputs are fully reduced, so
-    unique."""
+    On CPU tensors `to_affine_plain` (`ops/inverse.py`); on CUDA tensors
+    the launches of csrc/to_affine.cu, the same product tree
+    (`batch_inverse_geometry`) with Z one at the leaves and X zinv, Y
+    zinv reduced at the ends, which give its bits."""
     px, py, pz = p
     if not _on_cuda("to_affine", px, py, pz):
         return to_affine_plain(p, curve)
@@ -1303,20 +1411,20 @@ def to_affine(p, curve: CurveParams
         raise ValueError(f"to_affine: coordinates of shapes "
                          f"{tuple(px.shape)}, {tuple(py.shape)}, "
                          f"{tuple(pz.shape)} for L = {L}")
-    pts = (p if isinstance(p, torch.Tensor) else torch.stack([px, py, pz]))
-    pts = pts.to(torch.int32).reshape(3, L, -1).contiguous()
-    K = pts.shape[2]
-    x = torch.empty((L, K), dtype=torch.int32, device=pts.device)
-    y = torch.empty_like(x)
-    inf = torch.empty(K, dtype=torch.bool, device=pts.device)
+    x, y, z = (c.to(I32).reshape(L, -1).contiguous() for c in (px, py, pz))
+    K = x.shape[1]
+    ax = torch.empty((L, K), dtype=I32, device=x.device)
+    ay = torch.empty_like(ax)
+    inf = torch.empty(K, dtype=torch.bool, device=x.device)
     if K:
-        consts = _affine_consts(curve)
-        rc = _build.library().msm_to_affine(
-            L, w, pts.data_ptr(), K, x.data_ptr(), y.data_ptr(),
-            inf.data_ptr(), ctypes.addressof(consts), len(consts),
-            _stream(pts))
-        _check("to_affine", rc)
-    return (x.reshape((L,) + batch), y.reshape((L,) + batch),
+        stream = _stream(x)
+        _tree("to_affine", curve, K, x.device,
+              lambda lib, scratch, Kp, ln, consts: lib.msm_to_affine(
+                  L, w, x.data_ptr(), y.data_ptr(), z.data_ptr(), K,
+                  ax.data_ptr(), ay.data_ptr(), inf.data_ptr(), scratch, Kp,
+                  ln.lo, ln.n, ln.d, ln.roles, ln.blocks,
+                  ctypes.addressof(consts), len(consts), stream))
+    return (ax.reshape((L,) + batch), ay.reshape((L,) + batch),
             inf.reshape(batch))
 
 

@@ -11,11 +11,14 @@ The functions run where their tensors are (CPU or CUDA).
     Montgomery multiplies per element at log2(K) vector depth and one
     `fermat_inv` at the root. Zeros are replaced by one on the way up and
     zeroed again in the result, so it agrees with `fermat_inv` element
-    by element.
+    by element. The plain version of the kernel csrc/batch_inverse.cu,
+    whose wrapper is `cuzk/kernels.batch_inverse`, the public
+    `tpu_msm_torch.batch_inverse`.
   * `to_affine_plain`: (X : Y : Z) -> (X/Z, Y/Z) and the infinity mask,
     on the product tree above; the plain version of the kernel
-    csrc/to_affine.cu (a Fermat chain a point), whose wrapper is
-    `cuzk/kernels.to_affine`, the public `tpu_msm_torch.to_affine`.
+    csrc/to_affine.cu, whose wrapper is `cuzk/kernels.to_affine`, the
+    public `tpu_msm_torch.to_affine`.
+Both kernels walk this tree (csrc/batch_inv.cuh), operand for operand.
 """
 
 from __future__ import annotations
