@@ -71,7 +71,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      after every timed phase, so that they share the host with no timing);
   4. the two-stage reduction path: `pbpr.bucket_reduce` on the same
      buckets, equal in the group to `pbpr_full` window by window, its
-     launch counts reset before and read after;
+     launch counts reset before and read after: two `pbpr_stage1`
+     (stage 1, and stage 2 as one launch), log2 T + 1 `padd_batch`;
   5. the globalisation check: `globalize(T, S)` at the bucket-region ends
      of the first window group (from `bucket_sort`'s counts),
      bit-identical to the stage-3 chain's G, and the buckets made from it
@@ -161,23 +162,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      card: no multi-GPU scaling); a rank that fails or misses its
      deadline fails the run;
  11. `[twin]`, the XLA path (`MSMConfig(backend="xla")`, the port of the
-     JAX package's `_windows_device`: decompose, sort, the row walk of
-     torch mixed adds, the stitch, `bucket_reduce`) through
+     JAX package's `_windows_device`: decompose, `bucket_sort`, the row
+     walk of `smvp_rows`, the stitch, `bucket_reduce`) through
      `tpu_variable_base_msm` on the card, with inputs from
      gen_planar_inputs(seed=99, k_base=64), at the default schedule:
      BN254_S12 at 2^16 without GLV and with it, BLS12_377_S12 at 2^14
-     (TWIN_RUNS): each EXACT against the oracle with every launch count
-     reset before and read after (the five kernels of the path launched,
-     the other four idle), its window sums equal window by window after
-     decoding to the CUDA path's on the same inputs; every call of
-     `encode_mont`, `decompose_digits`, `padd_batch` (the stitch, the
-     inject, the reduction's tree and stage 2), `pbpr_stage1` and
-     `pdbl_batch`, once per shape, against its plain version, timed; one
-     timed run (the row walk takes seconds on the host, and the script
-     keeps to its time limit) and its split into the kernels' time (each
-     shape's time by its calls) and the rest (`[twin-where]`);
-     then BN254_S12 at 2^20 once, EXACT and counted, if 16 times the 2^16
-     run stays under TWIN_FULL_BUDGET_S;
+     and BN254_S12 at 2^20 (TWIN_RUNS): each EXACT against the oracle
+     with every launch count reset before and read after (the seven
+     kernels of the path launched, every other idle), its window sums
+     equal window by window after decoding to the CUDA path's on the
+     same inputs; every call of `encode_mont`, `decompose_digits`,
+     `bucket_sort`, `smvp_rows` (the first group's), `padd_batch` (the
+     stitch, the inject, the reduction's tree and last add),
+     `pbpr_stage1` (stage 1) and `pdbl_batch`, once per shape, against
+     its plain version, timed; the stage-2 launch of `pbpr_stage1`
+     (threads = 1) against the 2 (T - 1) `padd_batch` launches it
+     replaced, bit for bit, both timed, and against its plain version
+     in the first run (T = 256, the twin's smallest); the median of 3
+     timed runs and its split into the kernels' time (each shape's time
+     by its calls) and the rest (`[twin-where]`);
  12. the `pbpr_full` edges whose plain versions ran on the CPU;
  13. `[autotune]`: `utils/window.autotune` on BN254_S12 at 2^16 (the
      model's 36 candidates and the static default) and 2^20 (its 24,
@@ -213,7 +216,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      off-curve request that must get the error frame; wall times and
      the server's compute_ms;
  18. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
-    with all fourteen kernels (to_affine and batch_inverse with their
+    with all fifteen kernels (to_affine and batch_inverse with their
     user calls at K = 2^20 - 3, to_affine also on the window sums;
     pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; `bucket_sort` with torch.sort's time
@@ -222,8 +225,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     time, bound, launches and error at each profile of PROFILES; the seven
     of the main path with their launches on the sharded path and their
     largest error against the plain version there, padd_batch its main
-    path's launches (0 since PR 15) and its halving tree's; the five of the twin its launches, time
-    and error at each of TWIN_RUNS) and the `[sharded]` and `[twin]`
+    path's launches (0 since PR 15) and its halving tree's; the seven of
+    the twin its launches, time and error at each of TWIN_RUNS;
+    `smvp_rows` from the twin's 2^20 and 2^16 runs, with its depth
+    floor) and the `[sharded]` and `[twin]`
     numbers under "sharded" and "twin", those of phases 13 to 17 under
     their names, and each main-path kernel's launches on their paths;
  19. last line {"ok": true, "device": {...}}.
@@ -290,7 +295,7 @@ DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
         "bucket_sort", "extract_buckets", "pbpr_full")
 KERNELS = MAIN + ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
-                  "glv_apply", "to_affine", "batch_inverse")
+                  "glv_apply", "to_affine", "batch_inverse", "smvp_rows")
 # (Wg, C, R) of the scan's lane sweep. On 132 SMs a block of G = 6 (20
 # lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
 # second block of G = 2 (64 lanes) above 8,448; the launcher's rule
@@ -338,9 +343,13 @@ SOURCES = {
     # JAX package's device program: the stage-2 sort and boundary counts,
     # the stage-3 gathers, adds and select
     "bucket_sort": ("tpu_msm_torch/csrc/bucket_sort.cu",
-                    "tpu_msm/cuzk/pipeline_pallas.py:208", "main, glv"),
+                    "tpu_msm/cuzk/pipeline_pallas.py:208", "main, glv, twin"),
     "extract_buckets": ("tpu_msm_torch/csrc/extract_buckets.cu",
                         "tpu_msm/cuzk/pipeline_pallas.py:292", "main, glv"),
+    # the device loop XLA compiles for the JAX package's XLA path: the
+    # lax.fori_loop of bucket_accumulate's row walk
+    "smvp_rows": ("tpu_msm_torch/csrc/smvp_rows.cu",
+                  "tpu_msm/cuzk/smvp.py:94", "twin"),
 }
 
 # Bound model (H100 SXM, published peaks at 700 W): HBM at 3.35 TB/s;
@@ -375,7 +384,7 @@ def mul_wide_mads(L: int, w: int) -> int:
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
 WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
         "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full", "glv_apply",
-        "to_affine", "batch_inverse", "extract_buckets")
+        "to_affine", "batch_inverse", "extract_buckets", "smvp_rows")
 # 32 x 32-bit word products of the GLV split (csrc/glv_split.cuh): two
 # Babai products of 8 x 5 words and four truncated products of 5 x 6
 # words mod 2^192 (20 each); a .lo and a .hi half each.
@@ -442,6 +451,11 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         ops = out.numel() * 8          # shifts, masks, compare, select
     elif name == "prefix_scan":
         ops = args[1].numel() * MULS["pmadd"] * mm
+    elif name == "smvp_rows":
+        # a mixed add at every element but a run's first in its column
+        # (where the lane restarts): what this run's keys need
+        ops = (args[1].numel() - run_starts(args[2], args[4])
+               ) * MULS["pmadd"] * mm
     elif name == "col_prefix":
         _, _, Wg, C = args[0].shape
         ops = Wg * C * max(C.bit_length() - 1, 1) * MULS["padd"] * mm
@@ -482,6 +496,15 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
     else:
         raise KeyError(name)
     return nbytes, ops
+
+
+def run_starts(skeys: torch.Tensor, C: int) -> int:
+    """Positions of the (Wg, n) sorted keys at which a lane of the row
+    walk restarts: each column's first row, and every row whose key
+    differs from the row above it."""
+    Wg, n = skeys.shape
+    k = skeys.reshape(Wg, C, n // C)
+    return Wg * C + int((k[..., 1:] != k[..., :-1]).sum())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -728,7 +751,7 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
     if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
                 "bucket_sort", "extract_buckets", "to_affine",
-                "batch_inverse"):
+                "batch_inverse", "smvp_rows"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
@@ -1457,6 +1480,14 @@ def reduction_path(curve, seen: dict, logn: int, card: str,
             if launches[k] == 0]
     if idle:
         raise AssertionError(f"2^{logn}: reduction path did not launch {idle}")
+    # stage 1, then stage 2 as one more launch; the halving tree and the
+    # last add on padd_batch
+    T = min(cfg.pbpr_threads, cfg.half_columns)
+    want = dict(pbpr_stage1=2 if T > 1 else 1,
+                padd_batch=T.bit_length() - 1 + 1)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"2^{logn}: reduction path launched "
+                             f"{launches}, expected {want}")
     times = [timed_once(lambda: pbpr.bucket_reduce(buckets, cfg))[1]
              for _ in range(3)]
     ms = statistics.median(times)
@@ -1466,7 +1497,9 @@ def reduction_path(curve, seen: dict, logn: int, card: str,
           f"{buckets.shape[3]}) T={cfg.pbpr_threads}: equal in the group to "
           f"pbpr_full in all {len(want)} windows; median {ms:.2f} ms of "
           f"{[round(t, 2) for t in times]} against pbpr_full {full_ms:.2f} ms;"
-          f" launches={used} [{card}]", flush=True)
+          f" launches={used} (stage 2 one pbpr_stage1 launch of {T - 1} "
+          f"steps, in place of {2 * (T - 1)} padd_batch launches) [{card}]",
+          flush=True)
     return launches, ms, dbl["pdbl_batch"][1][0]
 
 
@@ -2438,21 +2471,20 @@ def sharded_phase(card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # [twin]: the XLA path (MSMConfig(backend="xla"), cuzk/pipeline.py
-# _windows_device: sort, row walk of torch mixed adds, stitch, bucket_reduce)
+# _windows_device: bucket_sort, the row walk of smvp_rows, the stitch,
+# bucket_reduce)
 # ---------------------------------------------------------------------------
 
-# (profile, log2 n, glv) of the twin's checked runs, at the default schedule
+# (profile, log2 n, glv) of the twin's checked runs, at the default
+# schedule; the first run's T (256) is the twin's smallest, where the
+# stage-2 launch is also held against its plain version
 TWIN_RUNS = ((BN254_S12, 16, False), (BN254_S12, 16, True),
-             (BLS12_377_S12, 14, False))
+             (BLS12_377_S12, 14, False), (BN254_S12, 20, False))
 # the kernels the twin launches, with glv_apply under GLV; the others
 # must stay idle
-TWIN_KERNELS = ("encode_mont", "decompose_digits", "padd_batch",
-                "pbpr_stage1", "pdbl_batch")
-# The first profile of TWIN_RUNS at 2^TWIN_FULL_LOGN once, without GLV,
-# when its median scaled by the points (2^4 x at 2^16) stays under
-# TWIN_FULL_BUDGET_S
-TWIN_FULL_LOGN = 20
-TWIN_FULL_BUDGET_S = 90.0
+TWIN_KERNELS = ("encode_mont", "decompose_digits", "bucket_sort",
+                "smvp_rows", "padd_batch", "pbpr_stage1", "pdbl_batch")
+TWIN_TIMED_RUNS = 3
 
 
 def twin_config(curve, logn: int, glv: bool) -> MSMConfig:
@@ -2472,7 +2504,7 @@ def twin_user_call(curve, logn: int, glv: bool, card: str,
                    capture: bool) -> dict:
     """The twin's user call, `tpu_variable_base_msm` under backend="xla",
     EXACT against the oracle, every launch count set to 0 just before it
-    and read just after. With `capture`, every call of the five kernels'
+    and read just after. With `capture`, every call of the seven kernels'
     wrappers (once per shape, and how often) and of `bucket_reduce`, whose
     output is the window sums."""
     cfg = twin_config(curve, logn, glv)
@@ -2502,22 +2534,73 @@ def twin_user_call(curve, logn: int, glv: bool, card: str,
     used = {k: v for k, v in launches.items() if v}
     print(f"[twin] {label} s={cfg.window_size} W={cfg.num_windows} "
           f"C={cfg.columns} T={cfg.pbpr_threads} Wg={cfg.subtask_group} "
-          f"tpu_variable_base_msm(backend='xla') EXACT in {t_user:.2f} s "
-          f"(host pack included) launches={used} [{card}]", flush=True)
+          f"groups={cfg.num_groups} tpu_variable_base_msm(backend='xla') "
+          f"EXACT in {t_user:.2f} s (host pack included) launches={used} "
+          f"[{card}]", flush=True)
     return dict(cfg=cfg, launches=launches, seen=seen, counts=counts,
                 user_s=t_user)
 
 
-def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
+def reduce_stage2_chain(curve, m1: torch.Tensor):
+    """Stage 2 of `bucket_reduce` as it ran before its one `pbpr_stage1`
+    launch: for k = T-1 .. 1, macc += m_k and msum += macc, from
+    infinity, 2 (T-1) dependent `padd_batch` launches on Wp lanes; m1 is
+    m_1 .. m_{T-1}, (3, L, Wp, T-1). Returns (macc, msum)."""
+    macc = msum = kernels.inf_stacked(curve, (m1.shape[2],), m1.device)
+    for k in range(m1.shape[-1] - 1, -1, -1):
+        macc = kernels.padd_batch(macc, m1[..., k].contiguous(), curve)
+        msum = kernels.padd_batch(msum, macc, curve)
+    return macc, msum
+
+
+def reduce_stage2_check(curve, key: str, args, tag: str, card: str,
+                 with_plain: bool) -> dict:
+    """The stage-2 launch of `bucket_reduce` (`pbpr_stage1` with threads =
+    1 on m_1 .. m_{T-1}) against the 2 (T-1) `padd_batch` launches it
+    replaced (`reduce_stage2_chain`, each launch a kernel held against
+    its plain version elsewhere), bit for bit, both timed back to back;
+    with `with_plain`, first against its own plain version (`compare`)."""
+    m1 = args[0]
+    if with_plain:
+        r = compare(curve, key, "pbpr_stage1", args, {}, tag, card, 3)
+    else:
+        got = kernels.pbpr_stage1(*args)
+        t = cuda_ms(lambda: kernels.pbpr_stage1(*args), 3)
+        b_ms, b_by = bound_ms(*work(curve, "pbpr_stage1", args, got))
+        r = dict(name="pbpr_stage1", ms=t, ms_cuda=t, plain_ms=None,
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0,
+                 launched=dict(kernels.LAUNCHED["pbpr_stage1"]))
+    macc, msum = kernels.pbpr_stage1(*args)
+    want = reduce_stage2_chain(curve, m1)
+    torch.cuda.synchronize()
+    if not (torch.equal(macc[..., 0], want[0])
+            and torch.equal(msum[..., 0], want[1])):
+        raise AssertionError(f"{key} at {tag}: the stage-2 launch differs "
+                             f"from the {2 * m1.shape[-1]} padd_batch "
+                             "launches it replaced")
+    chain_ms = cuda_ms(lambda: reduce_stage2_chain(curve, m1), 3)
+    r.update(chain_ms=chain_ms, chain_launches=2 * m1.shape[-1])
+    print(f"[stage2] {curve.name} {tag} {key}: one pbpr_stage1 launch on "
+          f"{m1.shape[2]} lanes of {m1.shape[-1]} steps {r['ms']:.4f} ms, "
+          f"bit-identical to the {2 * m1.shape[-1]} padd_batch launches it "
+          f"replaced, {chain_ms:.4f} ms back to back"
+          + (f"; and to its plain version ({r['plain_ms']:.1f} ms)"
+             if with_plain else "") + f" [{card}]", flush=True)
+    return r
+
+
+def twin_check(curve, logn: int, glv: bool, card: str,
+               plain_stage2: bool) -> dict:
     """One checked run of the twin: the user call; its window sums
     against the CUDA path's on the same inputs, window by window after
     decoding; each captured kernel call against its plain version, timed
-    (3 reps); one timed run (the row walk on the host takes seconds, so
-    the script's time limit takes no more); the kernels' time (each
-    shape's time by its calls) and the rest."""
+    (3 reps; `smvp_rows` on the first group), the stage-2 launch against
+    the chain it replaced (and, with `plain_stage2`, its plain version);
+    TWIN_TIMED_RUNS timed runs; the kernels' time (each shape's time by
+    its calls) and the rest."""
     label = twin_label(curve, logn, glv)
     run = twin_user_call(curve, logn, glv, card, capture=True)
-    cfg, seen, counts = run["cfg"], run["seen"], run["counts"]
+    cfg, seen, counts = run["cfg"], run.pop("seen"), run["counts"]
     n = 1 << logn
     xs, ys, hw, _, _ = inputs(curve, logn)
     hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
@@ -2537,57 +2620,49 @@ def twin_check(curve, logn: int, glv: bool, card: str) -> dict:
 
     tag = f"n=2^{logn}{' glv' if glv else ''} twin"
     kset = twin_kernels(glv)
-    results = {key: compare(curve, key, name, args, kw, tag, card, 3)
-               for key, (name, args, kw, _) in seen.items()
-               if name in kset}
+    results = {}
+    for key, (name, args, kw, _) in seen.items():
+        if name not in kset:
+            continue
+        if name == "pbpr_stage1" and args[2] == 1:
+            results[key] = reduce_stage2_check(curve, key, args, tag, card,
+                                               plain_stage2)
+        else:
+            results[key] = compare(curve, key, name, args, kw, tag, card, 3)
     kern_ms = dict.fromkeys(kset, 0.0)
     for key, r in results.items():
         kern_ms[r["name"]] += counts[key] * r["ms"]
-    ms, h2d = timed_runs(cfg, logn, "twin", card, runs=1)
+    del seen
+    ms, h2d = timed_runs(cfg, logn, "twin", card, runs=TWIN_TIMED_RUNS)
     total = sum(kern_ms.values())
-    print(f"[twin-where] {label}: one run {ms:.2f} ms end to end; kernels "
+    print(f"[twin-where] {label}: median {ms:.2f} ms end to end; kernels "
           f"{total:.2f} ms (" + ", ".join(f"{k} {v:.2f}" for k, v in
                                          kern_ms.items())
           + f"; each shape's time by its calls), outside the kernels "
-          f"{ms - total:.2f} ms (the row walk's torch mixed adds, sort, "
-          f"gathers, scatters, decode, Horner); launches "
+          f"{ms - total:.2f} ms (the stitch's torch glue, the keys' "
+          f"gather, launches, decode, Horner); launches "
           f"{ {k: run['launches'][k] for k in kset} } [{card}]",
           flush=True)
-    return dict(label=label, msm_ms=ms, h2d_ms=h2d, user_s=run["user_s"],
-                kernels_ms=total, kernel_ms=kern_ms, outside_ms=ms - total,
+    return dict(label=label, logn=logn, msm_ms=ms, h2d_ms=h2d,
+                user_s=run["user_s"], kernels_ms=total, kernel_ms=kern_ms,
+                outside_ms=ms - total,
                 launches={k: run["launches"][k] for k in kset},
                 results=results, calls=counts)
 
 
 def twin_phase(card: str) -> dict:
-    """The [twin] runs, then the first of them at 2^TWIN_FULL_LOGN once if
-    its timed run says it fits TWIN_FULL_BUDGET_S."""
+    """The [twin] runs of TWIN_RUNS, each checked."""
     t0 = time.perf_counter()
     runs = {}
-    for curve, logn, glv in TWIN_RUNS:
+    for i, (curve, logn, glv) in enumerate(TWIN_RUNS):
         warm_plain(curve)
-        r = twin_check(curve, logn, glv, card)
+        r = twin_check(curve, logn, glv, card, plain_stage2=i == 0)
         runs[r["label"]] = r
         torch.cuda.empty_cache()
-    curve, logn, glv = TWIN_RUNS[0]
-    est = runs[twin_label(curve, logn, glv)]["msm_ms"] / 1e3 * (
-        1 << (TWIN_FULL_LOGN - logn))
-    full = dict(logn=TWIN_FULL_LOGN, estimate_s=est)
-    if est < TWIN_FULL_BUDGET_S:
-        run = twin_user_call(curve, TWIN_FULL_LOGN, False, card,
-                             capture=False)
-        full.update(user_s=run["user_s"], launches={
-            k: run["launches"][k] for k in TWIN_KERNELS})
-    else:
-        print(f"[twin] {twin_label(curve, TWIN_FULL_LOGN, False)} not "
-              f"run: 2^{TWIN_FULL_LOGN - logn} x the 2^{logn} run is "
-              f"{est:.1f} s, over {TWIN_FULL_BUDGET_S:.0f} s [{card}]",
-              flush=True)
-    torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
     print(f"[twin] every phase passed in {seconds:.1f} s [{card}]",
           flush=True)
-    return dict(runs=runs, full=full, seconds=seconds)
+    return dict(runs=runs, seconds=seconds)
 
 
 # The limb counts whose kernels the [ptxas] and [sass] lines report:
@@ -3261,7 +3336,7 @@ def main_on_card(t_start: float) -> int:
     for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
                  "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
                  "glv_apply", "to_affine", "batch_inverse",
-                 "extract_buckets", "bucket_sort"):
+                 "extract_buckets", "bucket_sort", "smvp_rows"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name (bucket_sort's are no profile's)
@@ -3386,6 +3461,39 @@ def affine_entry(entry: dict, name: str, full, affine, affine_glv, lat,
     return entry
 
 
+def smvp_entry(entry: dict, twin: dict, lat: dict) -> dict:
+    """The kernels line's `smvp_rows`, from the twin's runs: its launches
+    in the user call of the BN254_S12 2^20 run and its compare there (the
+    first group), with suffix _2p16 the 2^16 run's; its depth floor, R
+    steps of the scan's lane at the G it launched with (`[latency]`);
+    its launches, time and error in every twin run."""
+    tr = twin["runs"]
+    for logn in sorted(SIZES, reverse=True):
+        sfx = "" if logn == max(SIZES) else f"_2p{logn}"
+        run = tr[twin_label(CURVE, logn, False)]
+        r = next(v for v in run["results"].values()
+                 if v["name"] == "smvp_rows")
+        entry.update({f"launches{sfx}": run["launches"]["smvp_rows"],
+                      f"launched{sfx}": r["launched"],
+                      f"bound_ms_mont_mul_ops{sfx}": r[
+                          "bound_ms_mont_mul_ops"],
+                      **result_fields(r, sfx)})
+        cfg = twin_config(CURVE, logn, False)
+        R = (1 << logn) // cfg.columns
+        G = r["launched"]["threads_per_lane"]
+        entry[f"depth_floor_ms{sfx}"] = R * lat["scan_step_ms"][G]
+    entry["launches_twin"] = {k: r["launches"]["smvp_rows"]
+                              for k, r in tr.items()}
+    entry["ms_twin"] = {k: r["kernel_ms"]["smvp_rows"] for k, r in tr.items()}
+    entry["max_abs_err_twin"] = max(
+        v["max_abs_err"] for r in tr.values() for v in r["results"].values()
+        if v["name"] == "smvp_rows")
+    entry["bit_exact"] = True
+    entry["at"] = (f"the XLA path's first window group at n=2^{max(SIZES)} "
+                   f"(suffix _2p16: n=2^16), BN254_S12")
+    return entry
+
+
 def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     """Phases 3 to 19."""
     warm_plain(CURVE)
@@ -3427,6 +3535,9 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         if name in ("to_affine", "batch_inverse"):
             entries.append(affine_entry(entry, name, affine_big, affine,
                                         affine_glv, lat, profiles))
+            continue
+        if name == "smvp_rows":
+            entries.append(smvp_entry(entry, twin, lat))
             continue
         for logn in sorted(SIZES, reverse=True):
             # the first compared call of the kernel (padd_batch: i16 -> i32;
@@ -3572,9 +3683,9 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             entry["max_abs_err_twin"] = max(
                 v["max_abs_err"] for r in tr for v in r["results"].values()
                 if v["name"] == name)
-            if "launches" in twin["full"]:
-                entry[f"launches_twin_2p{TWIN_FULL_LOGN}"] = twin["full"][
-                    "launches"][name]
+            entry["ms_twin_by_shape"] = {
+                r["label"]: {k: v["ms"] for k, v in r["results"].items()
+                             if v["name"] == name} for r in tr}
         entry["bit_exact"] = True
         entry["at"] = f"n=2^{max(SIZES)} (suffix _2p16: n=2^16)"
         entry["profiles"] = {c: profile_entry(name, prof)
@@ -3607,7 +3718,11 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         "twin": {"runs": {k: {f: v for f, v in r.items()
                               if f not in ("results", "calls")}
                           for k, r in twin["runs"].items()},
-                 "full": twin["full"], "seconds": twin["seconds"]},
+                 "stage2": {label: {k: {f: v[f] for f in (
+                     "ms", "chain_ms", "chain_launches", "plain_ms")}
+                     for k, v in r["results"].items() if "chain_ms" in v}
+                     for label, r in twin["runs"].items()},
+                 "seconds": twin["seconds"]},
         **host,
         "profiles": {c: dict(
             msm_ms={f"2^{k}": v[1] for k, v in prof["runs"].items()},

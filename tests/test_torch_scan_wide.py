@@ -62,8 +62,9 @@ JAX_CURVES = {name: jc.CURVES[name] for name in NAMES}
 
 
 class ScanStep:
-    """csrc/prefix_scan.cu `pmadd_shared`, with the unpack of the row
-    before it, on (words, lanes) int32 memory laid out as `LaneMem`.
+    """csrc/scan_lane.cuh `pmadd_shared` (prefix_scan.cu's lane step),
+    with the unpack of the row before it, on (words, lanes) int32 memory
+    laid out as `LaneMem`.
     `run` takes the step's five warp barriers in order (after the
     unpack, after each of the four phases); those in `drop` are left out,
     to plant a race."""

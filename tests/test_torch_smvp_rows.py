@@ -1,0 +1,490 @@
+"""The row walk of the port's XLA path, `kernels.smvp_rows`, on CPU
+tensors (its plain version), against the loop of torch ops that
+`cuzk/smvp.bucket_accumulate` ran before the kernel, copied here as it
+was (`old_row_walk`, on `sort.sort_by_bucket`'s permutation): the
+buckets (slots 0 .. B, digit 0's included; the spare slot B + 1 is
+infinity) and the lanes' trailing sums, bit for bit.
+
+Cases at TINY62 and BN254_S12: random digits; every digit equal (one run
+across every column of a window); every digit 0; every position its own
+run; R = 1; C = 1; Wg > 1 with different keys in each window; digits at
++-2^(s-1), the top slot; the GLV digits of `cuzk/glv.apply_glv`. On the
+same cases the schedule of csrc/smvp_rows.cu replayed on every lane at
+once (`kernel_replay`: the key of step r + 1 read with its payload, the
+mixed add skipped at a run start, a run's sum written by the step after
+it, the last row against the next column's first key), so the kernel's
+writes are checked before the card checks its bits. Then
+`bucket_accumulate` whole on those cases against the function it was
+(`old_bucket_accumulate`), `bucket_sort`'s payload against the stable
+sort it replaced, `smvp_rows_geometry`, the wrapper's launch against a
+fake library and its refusals, and the launch counts of
+`_windows_device` by group. No JAX: tests/test_torch_twin*.py hold
+`bucket_accumulate` and `_windows_device` against the JAX functions."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_msm_torch import _build
+from tpu_msm_torch import constants as tc
+from tpu_msm_torch.config import MSMConfig
+from tpu_msm_torch.cuzk import decompose, kernels, pipeline, smvp, sort
+from tpu_msm_torch.cuzk import glv as glv_dev
+from tpu_msm_torch.cuzk.pipeline import get_pipeline
+from tpu_msm_torch.ops import complete, lazy, rows
+from tpu_msm_torch.reference import curve as ref
+
+# The tensors here are tiny: more intra-op threads only make parallel
+# test workers fight for the cores, many times slower than one thread.
+torch.set_num_threads(1)
+
+I16, I32 = torch.int16, torch.int32
+
+
+def old_row_walk(xs_m, ys_m, digits, cfg):
+    """The row walk of `bucket_accumulate` before `kernels.smvp_rows`
+    (its sort, gathers and loop, as they were): (bucket with its spare
+    slot, the carry)."""
+    curve = cfg.curve
+    dev = xs_m.device
+    Wg, n = digits.shape
+    C = min(cfg.columns, n)
+    R = n // C
+    B = cfg.half_columns
+
+    keys, neg_mask = sort.bucket_keys(digits)
+    skeys, perm = sort.sort_by_bucket(keys)
+    ssign = torch.gather(neg_mask, -1, perm)
+
+    sy_all = ys_m[:, perm]                                       # (L,Wg,n)
+    sy_all = torch.where(ssign, lazy.neg(sy_all, curve, 2), sy_all)
+
+    def rows_first(a):                          # (..., Wg, n) -> (R, ...)
+        return a.reshape(a.shape[:-1] + (C, R)).movedim(-1, 0).contiguous()
+
+    sx = rows_first(xs_m[:, perm])                               # (R,L,Wg,C)
+    sy = rows_first(sy_all)
+    kt = rows_first(skeys.long())                                # (R,Wg,C)
+
+    first_next = torch.cat([kt[0, :, 1:], kt.new_full((Wg, 1), -1)], dim=-1)
+    next_keys = torch.cat([kt[1:], first_next[None]])
+    ends = kt != next_keys
+    brk = torch.cat([torch.ones((1, Wg, C), dtype=torch.bool, device=dev),
+                     kt[1:] != kt[:-1]])                         # run starts
+
+    one_m = lazy.mont_one(curve, 2, dev)
+    w_idx = torch.arange(Wg, device=dev)[:, None]
+    spare = B + 1
+
+    carry = complete.proj_infinity(curve, (Wg, C), dev)
+    bucket = kernels.inf_stacked(curve, (Wg, B + 2), dev)    # + spare slot
+    for r in range(R):
+        summed = complete.pmadd(carry, sx[r], sy[r], curve)
+        carry = complete.select(
+            brk[r], complete.ProjPoint(sx[r], sy[r], one_m), summed)
+        idx = torch.where(ends[r], kt[r], spare)
+        bucket[:, :, w_idx, idx] = torch.stack(
+            torch.broadcast_tensors(*carry))
+    return bucket, carry, kt
+
+
+def old_bucket_accumulate(xs_m, ys_m, digits, cfg):
+    """`bucket_accumulate` as it was before `kernels.smvp_rows`."""
+    curve = cfg.curve
+    dev = xs_m.device
+    Wg, _ = digits.shape
+    B = cfg.half_columns
+    bucket, carry, kt = old_row_walk(xs_m, ys_m, digits, cfg)
+    brk = torch.cat([torch.ones((1,) + kt.shape[1:], dtype=torch.bool),
+                     kt[1:] != kt[:-1]])
+    allsame = ~torch.any(brk[1:], dim=0)
+    w_idx = torch.arange(Wg, device=dev)[:, None]
+    spare = B + 1
+
+    key_first, key_last = kt[0], kt[-1]
+    no = torch.zeros((Wg, 1), dtype=torch.bool, device=dev)
+    cont = torch.cat([no, key_last[:, :-1] == key_first[:, 1:]], dim=-1)
+
+    def comb(a, b):
+        s = kernels.padd_batch(a[0], b[0], curve)
+        return torch.where(b[1], b[0], s), a[1] | b[1]
+
+    trailing = torch.stack(carry)
+    scanned, _ = smvp.associative_scan(comb,
+                                       (trailing, (~allsame) | (~cont)))
+    P = torch.cat([kernels.inf_stacked(curve, (Wg, 1), dev),
+                   scanned[..., :-1]], dim=-1)
+    cont_next = torch.cat([cont[:, 1:], no], dim=-1)
+    inject = cont & ((~allsame) | (~cont_next))
+    cur = bucket[:, :, w_idx, key_first]
+    fixed = kernels.padd_batch(cur, P, curve)
+    bucket[:, :, w_idx, torch.where(inject, key_first, spare)] = \
+        torch.where(inject, fixed, cur)
+    return bucket[..., 1:B + 1]
+
+
+def kernel_replay(pts_rows, pay, skeys, curve, C, B):
+    """csrc/smvp_rows.cu's schedule on every lane at once: lane (w, c)
+    holds `key` (row r's) and `prev` (row r - 1's); at row r a start
+    (r = 0 or key != prev) first writes the sum of the run that ended at
+    r - 1 into bucket[prev], then restarts at the row; other rows add it;
+    after the last row the sum goes to bucket[prev] unless the next
+    column's first key (-1 after the last column) goes on with it. Keys
+    outside [0, B + 1) are written nowhere."""
+    L = curve.num_limbs
+    Wg, n = pay.shape
+    R = n // C
+    B2 = B + 2
+    col0 = torch.arange(C) * R
+    bucket = kernels.inf_stacked(curve, (Wg, B2))
+    one = rows.mont_one_rows(curve, torch.zeros((L, Wg, C), dtype=I32))
+
+    def store(mask, at, pt):
+        w, c = mask.nonzero(as_tuple=True)
+        k = at[w, c].long()
+        ok = (k >= 0) & (k < B2 - 1)
+        w, c, k = w[ok], c[ok], k[ok]
+        assert len(set(zip(w.tolist(), k.tolist()))) == len(k)
+        bucket[:, :, w, k] = torch.stack(list(pt))[:, :, w, c]
+
+    key, prev, state = skeys[:, col0], None, None
+    for r in range(R):
+        start = (torch.ones_like(key, dtype=torch.bool) if r == 0
+                 else key != prev)
+        if r:
+            store(start, prev, state)
+        v = pay[:, col0 + r]
+        row = pts_rows[(v >> 1).long()].to(I32).movedim(-1, 0)  # (2L, Wg, C)
+        x, y = row[:L], row[L:]
+        y = torch.where((v & 1) != 0, rows.neg_rows(y, curve, 2), y)
+        restart = rows.ProjRows(x, y, one)
+        if r == 0:
+            state = restart
+        else:
+            summed = rows.pmadd_rows(state, x, y, curve)
+            state = rows.ProjRows(*(torch.where(start, a, b)
+                                    for a, b in zip(restart, summed)))
+        prev = key
+        if r + 1 < R:
+            key = skeys[:, col0 + r + 1]
+    after = torch.cat([skeys[:, col0[1:]],
+                       torch.full((Wg, 1), -1, dtype=skeys.dtype)], dim=-1)
+    store(prev != after, prev, state)
+    return bucket, torch.stack(list(state))
+
+
+# ---------------------------------------------------------------------------
+# the cases
+# ---------------------------------------------------------------------------
+
+
+def points(curve, n, seed):
+    """(xm, ym) (L, n) int32 Montgomery limbs of n curve points."""
+    pts, _ = ref.gen_points_scalars(curve, n, seed=seed)
+    cfg = MSMConfig(curve=curve, window_size=4, columns=1, pbpr_threads=1,
+                    subtask_group=1)
+    xs, ys, _ = get_pipeline(cfg, "cpu").pack(pts, [0] * n)
+    return decompose.points_to_mont(torch.from_numpy(xs),
+                                    torch.from_numpy(ys), curve)
+
+
+def case_digits(kind, Wg, n, B, rng):
+    """(Wg, n) int32 digits of one case, |d| <= B."""
+    if kind == "random":
+        return rng.integers(-B, B, (Wg, n))
+    if kind == "all_equal":                 # one run across every column
+        d = np.full((Wg, n), B // 2 + 1)
+        d[1::2] *= -1
+        return d
+    if kind == "all_zero":
+        return np.zeros((Wg, n), np.int64)
+    if kind == "own_runs":                  # n distinct keys a window
+        d = np.stack([rng.permutation(np.arange(1, n + 1))
+                      for _ in range(Wg)])
+        return d * rng.choice([-1, 1], (Wg, n))
+    if kind == "per_window":                # each window its own key range
+        lo = np.arange(Wg)[:, None] * (B // Wg)
+        return (lo + rng.integers(0, B // Wg + 1, (Wg, n))) * rng.choice(
+            [-1, 1], (Wg, n))
+    if kind == "top":                       # +-2^(s-1) and a few others
+        d = rng.choice([-B, B, 0, 1, B - 1], (Wg, n))
+        d[:, : n // 2] = -B
+        return d
+    raise KeyError(kind)
+
+
+# (name, kind, Wg, n, C, window size)
+CASES = [
+    ("tiny62", "random", 4, 64, 8, 4),
+    ("tiny62", "all_equal", 3, 64, 8, 4),
+    ("tiny62", "all_zero", 2, 32, 4, 4),
+    ("tiny62", "own_runs", 2, 64, 8, 8),
+    ("tiny62", "random", 3, 16, 16, 4),          # R = 1
+    ("tiny62", "random", 2, 24, 1, 4),           # C = 1
+    ("tiny62", "per_window", 4, 48, 16, 5),
+    ("tiny62", "top", 2, 40, 8, 4),
+    ("bn254_s12", "random", 2, 48, 4, 3),
+    ("bn254_s12", "all_equal", 2, 32, 4, 3),
+    ("bn254_s12", "own_runs", 1, 24, 8, 6),
+    ("bn254_s12", "random", 2, 8, 8, 4),         # R = 1
+    ("bn254_s12", "top", 2, 12, 1, 4),           # C = 1
+]
+IDS = [f"{c[0]}-{c[1]}-R{c[3] // c[4]}-C{c[4]}" for c in CASES]
+
+
+def make_case(name, kind, Wg, n, C, s):
+    curve = tc.CURVES[name]
+    cfg = MSMConfig(curve=curve, window_size=s, columns=C, pbpr_threads=1,
+                    subtask_group=Wg)
+    B = cfg.half_columns
+    rng = np.random.default_rng([Wg, n, C, s, len(name), len(kind)])
+    xm, ym = points(curve, n, seed=n + Wg + C)
+    digits = torch.from_numpy(case_digits(kind, Wg, n, B, rng).astype(
+        np.int32))
+    assert int(digits.abs().max()) <= B
+    return cfg, xm, ym, digits
+
+
+def walk_inputs(xm, ym, digits, B):
+    """The kernel's inputs as bucket_accumulate makes them."""
+    pts_rows = torch.cat([xm, ym]).to(I16).T.contiguous()
+    pay, _ = kernels.bucket_sort(digits.to(I16), B)
+    skeys = torch.gather(digits.abs(), 1, (pay >> 1).long())
+    return pts_rows, pay, skeys
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_rows_match_the_old_loop_and_replay(case):
+    cfg, xm, ym, digits = make_case(*case)
+    curve, B = cfg.curve, cfg.half_columns
+    C = min(cfg.columns, digits.shape[1])
+    pts_rows, pay, skeys = walk_inputs(xm, ym, digits, B)
+    kernels.reset_launches()
+    bucket, trailing = kernels.smvp_rows(pts_rows, pay, skeys, curve, C, B)
+    assert set(kernels.LAUNCHES.values()) == {0}      # plain on the CPU
+    Wg, L = digits.shape[0], curve.num_limbs
+    assert bucket.shape == (3, L, Wg, B + 2) and bucket.dtype == I32
+    assert trailing.shape == (3, L, Wg, C) and trailing.dtype == I32
+
+    want, carry, _ = old_row_walk(xm, ym, digits, cfg)
+    assert torch.equal(bucket[..., :B + 1], want[..., :B + 1])
+    assert torch.equal(trailing, torch.stack(torch.broadcast_tensors(*carry)))
+    assert torch.equal(bucket[..., B + 1],
+                       kernels.inf_stacked(curve, (Wg,)))
+
+    rb, rt = kernel_replay(pts_rows, pay, skeys, curve, C, B)
+    assert torch.equal(rb, bucket) and torch.equal(rt, trailing)
+
+
+@pytest.mark.parametrize("case", CASES[:8] + CASES[9:10], ids=IDS[:8]
+                         + IDS[9:10])
+def test_bucket_accumulate_matches_the_old_function(case):
+    cfg, xm, ym, digits = make_case(*case)
+    got = smvp.bucket_accumulate(xm, ym, digits, cfg)
+    assert torch.equal(got, old_bucket_accumulate(xm, ym, digits, cfg))
+    pts_rows = torch.cat([xm, ym]).to(I16).T.contiguous()
+    assert torch.equal(
+        smvp.bucket_accumulate(xm, ym, digits, cfg, pts_rows), got)
+
+
+def test_glv_digits():
+    """The first group of the GLV stream of `apply_glv` at BN254_S12 (the
+    doubled stream P ++ phi(P), digits of |k1| ++ |k2|)."""
+    c = tc.BN254_S12
+    cfg = MSMConfig(curve=c, window_size=4, columns=8, pbpr_threads=2,
+                    subtask_group=4, glv=True)
+    pts, scalars = ref.gen_points_scalars(c, 16, seed=41)
+    scalars[:3] = [0, 1, c.scalar_modulus - 1]
+    xs, ys, hw = get_pipeline(cfg, "cpu").pack(pts, scalars)
+    xm, ym = decompose.points_to_mont(torch.from_numpy(xs),
+                                      torch.from_numpy(ys), c)
+    xm, ym, digits = glv_dev.apply_glv(xm, ym, torch.from_numpy(hw).to(I32),
+                                       cfg)
+    digits = digits[:cfg.subtask_group].to(I32)
+    B, C = cfg.half_columns, cfg.columns
+    pts_rows, pay, skeys = walk_inputs(xm, ym, digits, B)
+    bucket, trailing = kernels.smvp_rows(pts_rows, pay, skeys, c, C, B)
+    want, carry, _ = old_row_walk(xm, ym, digits, cfg)
+    assert torch.equal(bucket[..., :B + 1], want[..., :B + 1])
+    assert torch.equal(trailing, torch.stack(torch.broadcast_tensors(*carry)))
+    rb, rt = kernel_replay(pts_rows, pay, skeys, c, C, B)
+    assert torch.equal(rb, bucket) and torch.equal(rt, trailing)
+    assert torch.equal(smvp.bucket_accumulate(xm, ym, digits, cfg),
+                       old_bucket_accumulate(xm, ym, digits, cfg))
+
+
+# ---------------------------------------------------------------------------
+# the sort, the geometry, the wrapper
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_bucket_sort_payload_is_the_stable_sort(seed):
+    """`bucket_sort`'s payload is `sort.sort_by_bucket`'s permutation with
+    the sign of its digit: perm << 1 | neg_mask[perm], ties in index
+    order."""
+    rng = np.random.default_rng(seed)
+    B = 8
+    d = rng.integers(-B, B + 1, (5, 300)).astype(np.int16)
+    d[1] = -3                                  # one run the whole window
+    d[2, ::3] = 0
+    digits = torch.from_numpy(d)
+    pay, _ = kernels.bucket_sort(digits, B)
+    keys, neg = sort.bucket_keys(digits)
+    _, perm = sort.sort_by_bucket(keys)
+    want = (perm.to(I32) << 1) | torch.gather(neg, 1, perm).to(I32)
+    assert pay.dtype == I32 and torch.equal(pay, want)
+
+
+@pytest.mark.parametrize("lanes,sms,L", [(8192, 132, 22), (8192, 132, 32),
+                                         (8192, 132, 21), (2048, 132, 22),
+                                         (131072, 132, 22), (1, 1, 6),
+                                         (333, 7, 6)])
+def test_geometry(lanes, sms, L):
+    """prefix_scan's rule and shared bytes: G = 2 at 8,192 lanes on 132
+    SMs up to L = 22 (128 blocks of 64 lanes), G = 6 otherwise."""
+    geo = kernels.smvp_rows_geometry(lanes, sms, L)
+    G, blocks, per_block = kernels.prefix_scan_geometry(lanes, sms, None, L)
+    assert geo == (G, blocks, per_block,
+                   kernels.prefix_scan_smem(L, G).shared_bytes)
+    assert blocks * per_block >= lanes > (blocks - 1) * per_block
+    if (lanes, sms) == (8192, 132):
+        assert geo.threads_per_lane == (2 if L <= 22 else 6)
+    assert geo.lanes_per_block == 4 * (32 // geo.threads_per_lane)
+    with pytest.raises(ValueError):
+        kernels.smvp_rows_geometry(0, sms, L)
+
+
+class FakeLib:
+    """Records each launch of the row walk; returns `rc`."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def msm_smvp_rows(self, L, w, rows_, pay, keys, bucket, trailing, Wg, C,
+                      R, n, B2, G, shared, consts, wide, stream):
+        self.calls.append((L, w, Wg, C, R, n, B2, G, shared))
+        return self.rc
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrapper's kernel path on CPU tensors, against a fake library."""
+    lib = FakeLib()
+    monkeypatch.setattr(kernels, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(kernels, "_stream", lambda t: 0)
+    monkeypatch.setattr(kernels, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    kernels.reset_launches()
+    return lib
+
+
+def test_wrapper_launches_once(fake_card):
+    c = tc.BN254_S12
+    L = c.num_limbs
+    Wg, C, R, B = 2, 4096, 2, 4096
+    n = C * R
+    pts_rows = torch.zeros((n, 2 * L), dtype=I16)
+    pay = torch.zeros((Wg, n), dtype=I32)
+    bucket, trailing = kernels.smvp_rows(pts_rows, pay, pay.clone(), c, C, B)
+    geo = kernels.smvp_rows_geometry(Wg * C, 132, L)
+    assert fake_card.calls == [(L, c.log_limb_size, Wg, C, R, n, B + 2,
+                                geo.threads_per_lane, geo.shared_bytes)]
+    assert geo.threads_per_lane == 2
+    assert kernels.LAUNCHES["smvp_rows"] == 1
+    assert kernels.LAUNCHED["smvp_rows"] == geo._asdict()
+    assert len(_build.SIGNATURES["msm_smvp_rows"]) == 17
+    # the wrapper fills the buckets with infinity; the kernel writes them
+    assert torch.equal(bucket, kernels.inf_stacked(c, (Wg, B + 2)))
+    assert trailing.shape == (3, L, Wg, C)
+    fake_card.rc = 1
+    with pytest.raises(RuntimeError, match="smvp_rows"):
+        kernels.smvp_rows(pts_rows, pay, pay.clone(), c, C, B)
+
+
+def test_wrapper_refusals(fake_card):
+    c = tc.TINY62
+    pts_rows = torch.zeros((16, 12), dtype=I16)
+    pay = torch.zeros((2, 16), dtype=I32)
+    for args in ((pts_rows, pay, pay[:1], c, 4, 8),       # keys' shape
+                 (pts_rows, pay, pay, c, 5, 8),            # C does not divide
+                 (pts_rows, pay, pay, c, 4, 0),            # no bucket
+                 (pts_rows, pay.long(), pay, c, 4, 8),     # dtype
+                 (pts_rows.to(I32), pay, pay, c, 4, 8),
+                 (pts_rows, pay, pay, tc.BN254, 4, 8)):    # 16-bit limbs
+        with pytest.raises(ValueError):
+            kernels.smvp_rows(*args)
+    assert fake_card.calls == [] and set(kernels.LAUNCHES.values()) == {0}
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    calls = []
+    monkeypatch.setattr(kernels, "smvp_rows_plain",
+                        lambda *a: calls.append(a) or "plain")
+    pay = torch.zeros((1, 4), dtype=I32)
+    assert kernels.smvp_rows(torch.zeros((4, 12), dtype=I16), pay, pay,
+                             tc.TINY62, 2, 4) == "plain"
+    assert len(calls) == 1
+
+
+# ---------------------------------------------------------------------------
+# the launches of the XLA path's device program
+# ---------------------------------------------------------------------------
+
+
+def stitch_combines(C: int) -> int:
+    """Combines (padd_batch launches) of `smvp.associative_scan` over C
+    columns."""
+    count = [0]
+
+    def comb(a, b):
+        count[0] += 1
+        return a[0] + b[0], a[1] | b[1]
+
+    smvp.associative_scan(comb, (torch.zeros(C, dtype=torch.int64),
+                                 torch.zeros(C, dtype=torch.bool)))
+    return count[0]
+
+
+def test_stitch_combines():
+    """21 combines at C = 2048 and 25 at 8192: with the inject, 22 and 26
+    padd_batch launches a group (BN254_S12 at 2^16 and 2^20)."""
+    assert stitch_combines(2048) == 21 and stitch_combines(8192) == 25
+    assert [stitch_combines(m) for m in (1, 2, 3, 4, 8)] == [0, 1, 2, 3, 5]
+
+
+def test_windows_device_launches(monkeypatch):
+    """The wrappers `_windows_device` calls, counted on CPU tensors: per
+    group one bucket_sort, one smvp_rows and the stitch's combines and
+    inject on padd_batch; then two pbpr_stage1 (stage 1, stage 2), the
+    halving tree and the last add on padd_batch, log2 Bt doublings. At
+    BN254_S12 2^16 (5 groups, C = 2048, T = 256, Bt = 16) that is 119
+    padd_batch calls, and at 2^20 (16 groups, C = 8192, T = 512, Bt = 64)
+    426."""
+    counts = {}
+    for name in ("padd_batch", "bucket_sort", "smvp_rows", "pbpr_stage1",
+                 "pdbl_batch", "encode_mont", "decompose_digits"):
+        fn = getattr(kernels, name)
+
+        def wrap(*a, _fn=fn, _name=name, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(kernels, name, wrap)
+    c = tc.TINY62
+    cfg = MSMConfig(curve=c, window_size=4, columns=8, pbpr_threads=2,
+                    subtask_group=4, backend="xla")
+    pts, scalars = ref.gen_points_scalars(c, 64, seed=5)
+    xs, ys, hw = get_pipeline(cfg, "cpu").pack(pts, scalars)
+    pipeline._windows_device(*(torch.from_numpy(a) for a in (xs, ys, hw)),
+                             cfg=cfg)
+    G, T = cfg.num_groups, cfg.pbpr_threads
+    Bt = cfg.half_columns // T
+    tree = T.bit_length() - 1
+    assert counts == {
+        "encode_mont": 2, "decompose_digits": 1, "bucket_sort": G,
+        "smvp_rows": G, "pbpr_stage1": 2, "pdbl_batch": Bt.bit_length() - 1,
+        "padd_batch": G * (stitch_combines(cfg.columns) + 1) + tree + 1}
+    for groups, C, T, want in ((5, 2048, 256, 119), (16, 8192, 512, 426)):
+        assert groups * (stitch_combines(C) + 1) + (T.bit_length() - 1) \
+            + 1 == want

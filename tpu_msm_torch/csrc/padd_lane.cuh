@@ -1,8 +1,9 @@
 // A complete projective add shared by kAddG threads of one warp, on
 // points and scratch in shared memory, with the word-wide multiply: the
-// add of every kernel in this directory but prefix_scan.cu (whose mixed
-// add is its own). Beside it, the complete doubling of pdbl_batch.cu and
-// of pbpr_full.cu's tail in the same manner (`DblPhases`, below the add).
+// add of every kernel in this directory but prefix_scan.cu and
+// smvp_rows.cu (whose mixed add is scan_lane.cuh's). Beside it, the
+// complete doubling of pdbl_batch.cu and of pbpr_full.cu's tail in the
+// same manner (`DblPhases`, below the add).
 //
 // The add (RCB Algorithm 7, ops/rows.py padd_rows) runs in four phases,
 // and the caller puts a warp barrier after each: the six independent

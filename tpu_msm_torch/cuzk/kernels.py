@@ -52,7 +52,19 @@ JAX package's device program (tpu_msm/cuzk/pipeline_pallas.py):
 Both are on the main path, stages 2 and 3, so `padd_batch` and
 `psub_batch` are not: they serve the reduction path, the XLA twin and
 the sharded halving tree. `bucket_sort` sorts by |d| alone, stably, the
-sign in the payload; its plain version is torch's stable sort.
+sign in the payload; its plain version is torch's stable sort. The XLA
+path (`cuzk/pipeline._windows_device`) sorts with it too.
+
+One more replaces the device loop that XLA compiles for the JAX
+package's XLA path:
+
+  wrapper            replaces                              source
+  smvp_rows          tpu_msm/cuzk/smvp.py:94-110, the      csrc/smvp_rows.cu
+                     lax.fori_loop of bucket_accumulate
+
+It walks the rows of `cuzk/smvp.bucket_accumulate` on prefix_scan's lane
+(csrc/scan_lane.cuh); its plain version is the loop of torch ops on
+`ops/complete.pmadd` that the port ran before.
 
 `psub_batch` is `padd_batch` of `pneg_stacked(q)`; on a CUDA tensor the
 padd kernel negates q itself as it loads it. `pneg_stacked` and
@@ -71,7 +83,7 @@ import torch
 from .. import _build
 from ..constants import CurveParams, int_to_limbs
 from ..glv import M_SHIFT, GLVParams
-from ..ops import limbs, rows
+from ..ops import complete, lazy, limbs, rows
 from ..ops.barrett import mul_wide
 from ..ops.inverse import batch_inverse as batch_inverse_plain
 from ..ops.inverse import to_affine_plain
@@ -92,15 +104,15 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "pbpr_full", "pdbl_batch", "pbpr_stage1",
                                  "globalize", "glv_apply", "to_affine",
                                  "batch_inverse", "bucket_sort",
-                                 "extract_buckets")}
+                                 "extract_buckets", "smvp_rows")}
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
 """The geometry that the last launch of `prefix_scan`, `col_prefix`,
 `padd_batch`, `pbpr_full`, `pdbl_batch`, `pbpr_stage1`, `globalize`,
-`bucket_sort` and `extract_buckets` passed to its kernel, and the plan of
-the last call of `to_affine` and `batch_inverse`, written where the
-kernels launch."""
+`bucket_sort`, `extract_buckets` and `smvp_rows` passed to its kernel,
+and the plan of the last call of `to_affine` and `batch_inverse`, written
+where the kernels launch."""
 
 
 def reset_launches() -> None:
@@ -201,14 +213,24 @@ def _need(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _one_limbs(curve: CurveParams, device: torch.device) -> torch.Tensor:
+    """The L canonical limbs of 1 in Montgomery form (R mod p) on
+    `device`, made once: a CUDA tensor made from host values waits for
+    its stream."""
+    return torch.tensor(int_to_limbs(curve.r_mod_p, curve.num_limbs,
+                                     curve.log_limb_size),
+                        dtype=I32, device=device)
+
+
 def inf_stacked(curve: CurveParams, batch_shape, device="cpu") -> torch.Tensor:
     """(3, L, *batch) stacked infinity (0 : 1m : 0), canonical limbs."""
     L = curve.num_limbs
-    shape = (L,) + tuple(batch_shape)
-    out = torch.zeros((3,) + shape, dtype=I32, device=device)
-    one = torch.tensor(int_to_limbs(curve.r_mod_p, L, curve.log_limb_size),
-                       dtype=I32, device=device)
-    out[1] = one.reshape((L,) + (1,) * len(batch_shape))
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = torch.zeros((3, L) + tuple(batch_shape), dtype=I32, device=dev)
+    out[1] = _one_limbs(curve, dev).reshape((L,) + (1,) * len(batch_shape))
     return out
 
 
@@ -326,7 +348,7 @@ def prefix_scan_plain(pts_rows: torch.Tensor, pay: torch.Tensor,
 
 
 SCAN_THREADS = 128
-"""Threads a block of the scan kernel (csrc/prefix_scan.cu kThreads)."""
+"""Threads a block of the scan kernel (csrc/scan_lane.cuh kThreads)."""
 SCAN_THREADS_PER_LANE = (2, 6)
 """The values of G the scan kernel is built for."""
 
@@ -339,14 +361,14 @@ class ScanSmem(NamedTuple):
 def prefix_scan_smem(num_limbs: int, threads_per_lane: int) -> ScanSmem:
     """The row piece and the dynamic shared bytes of a scan block: a pure
     function, so the CPU tests can hold it; the launch refuses a count
-    other than its kernel's own (csrc/prefix_scan.cu `scan_smem_bytes`).
+    other than its kernel's own (csrc/scan_lane.cuh `scan_smem_bytes`).
 
     A row of the table is 2 L int16, 4 L bytes, copied by cp.async in
     8-byte pieces where L is even and in 4-byte pieces where it is odd
     (BN254_S13's L = 21); the table must be aligned to the piece. A block
     of SCAN_THREADS // 32 warps holds 32 // G lanes a warp, each with a
     double buffer of rows and of payloads and its state, 19 segments of
-    L | 1 int32 words (an odd count, csrc/prefix_scan.cu LaneMem) padded
+    L | 1 int32 words (an odd count, csrc/scan_lane.cuh LaneMem) padded
     to an odd count."""
     L, G = num_limbs, threads_per_lane
     if L < 1 or G not in SCAN_THREADS_PER_LANE:
@@ -1731,3 +1753,124 @@ def extract_buckets(tbuf: torch.Tensor, s: torch.Tensor, cnt: torch.Tensor,
     _check("extract_buckets", rc)
     LAUNCHED["extract_buckets"] = geo._asdict()
     return buckets
+
+
+# ---------------------------------------------------------------------------
+# 14. The XLA path's row walk
+# ---------------------------------------------------------------------------
+
+
+def smvp_rows_plain(pts_rows: torch.Tensor, pay: torch.Tensor,
+                    skeys: torch.Tensor, curve: CurveParams, C: int, B: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    L = curve.num_limbs
+    dev = pay.device
+    Wg, n = pay.shape
+    R = n // C
+    perm = (pay >> 1).long()
+    ssign = (pay & 1) != 0
+    pts = pts_rows[perm].to(I32).movedim(-1, 0)                  # (2L,Wg,n)
+    sy_all = torch.where(ssign, lazy.neg(pts[L:], curve, 2), pts[L:])
+
+    # column-major: global position g = c R + r
+    def rows_first(a):                          # (..., Wg, n) -> (R, ...)
+        return a.reshape(a.shape[:-1] + (C, R)).movedim(-1, 0).contiguous()
+
+    sx = rows_first(pts[:L])                                     # (R,L,Wg,C)
+    sy = rows_first(sy_all)
+    kt = rows_first(skeys.long())                                # (R,Wg,C)
+
+    # run boundaries in global order: down each column, then the next
+    first_next = torch.cat([kt[0, :, 1:], kt.new_full((Wg, 1), -1)], dim=-1)
+    next_keys = torch.cat([kt[1:], first_next[None]])
+    ends = kt != next_keys
+    brk = torch.cat([torch.ones((1, Wg, C), dtype=torch.bool, device=dev),
+                     kt[1:] != kt[:-1]])                         # run starts
+
+    one_m = lazy.mont_one(curve, 2, dev)
+    w_idx = torch.arange(Wg, device=dev)[:, None]
+    spare = B + 1
+
+    carry = complete.proj_infinity(curve, (Wg, C), dev)
+    bucket = inf_stacked(curve, (Wg, B + 2), dev)            # + spare slot
+    for r in range(R):
+        summed = complete.pmadd(carry, sx[r], sy[r], curve)
+        carry = complete.select(
+            brk[r], complete.ProjPoint(sx[r], sy[r], one_m), summed)
+        idx = torch.where(ends[r], kt[r], spare)
+        bucket[:, :, w_idx, idx] = torch.stack(
+            torch.broadcast_tensors(*carry))
+
+    # the kernel writes no spare slot: infinity, as the wrapper fills it
+    bucket[..., spare] = inf_stacked(curve, (Wg,), dev)
+    return bucket, torch.stack(torch.broadcast_tensors(*carry))
+
+
+class SmvpGeometry(NamedTuple):
+    threads_per_lane: int
+    blocks: int
+    lanes_per_block: int
+    shared_bytes: int
+
+
+def smvp_rows_geometry(lanes: int, sms: int, num_limbs: int = 22
+                       ) -> SmvpGeometry:
+    """One smvp_rows launch over `lanes` lanes of `num_limbs` limbs on a
+    card of `sms` SMs: a pure function, so the CPU tests can hold it. The
+    kernel runs prefix_scan's lane (csrc/scan_lane.cuh) on the same
+    shapes (Wg C lanes of R rows), so it takes `prefix_scan_geometry`'s
+    threads per lane and blocks and `prefix_scan_smem`'s shared bytes."""
+    G, blocks, per_block = prefix_scan_geometry(lanes, sms, None, num_limbs)
+    return SmvpGeometry(G, blocks, per_block,
+                        prefix_scan_smem(num_limbs, G).shared_bytes)
+
+
+def smvp_rows(pts_rows: torch.Tensor, pay: torch.Tensor, skeys: torch.Tensor,
+              curve: CurveParams, C: int, B: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row walk of `cuzk/smvp.bucket_accumulate` (the lax.fori_loop of
+    tpu_msm/cuzk/smvp.py:94-110) on one window group.
+
+    pts_rows: (n, 2L) int16 points-major table, row i = Montgomery
+        (x limbs, y limbs) of point i.
+    pay: (Wg, n) int32 payload idx << 1 | sign in each window's stable
+        order by |d| (`bucket_sort`); skeys: (Wg, n) int32, the sorted
+        keys |d| <= B beside it.
+    Lane f = wl * C + c walks sorted positions c*R .. c*R + R-1 of window
+    wl (R = n / C) with a complete mixed add a row, restarted with the
+    point itself at each run of equal keys. Returns (bucket, trailing):
+    bucket (3, L, Wg, B + 2) int32, slot k the sum of window wl's run of
+    key k that ends in the walk's global order (infinity where none ends,
+    and in the spare slot B + 1, which the caller's stitch writes into);
+    trailing (3, L, Wg, C) int32, each lane's sum after its last row.
+    `smvp_rows_geometry` picks the launch."""
+    if curve.log_limb_size > 13:
+        raise ValueError("smvp_rows: int16 rows need w <= 13")
+    if (pay.dim() != 2 or skeys.shape != pay.shape or C < 1
+            or pay.shape[1] % C or B < 1):
+        raise ValueError(f"smvp_rows: pay {tuple(pay.shape)}, keys "
+                         f"{tuple(skeys.shape)} for C={C}, B={B}")
+    if not _on_cuda("smvp_rows", pts_rows, pay, skeys):
+        return smvp_rows_plain(pts_rows, pay, skeys, curve, C, B)
+    L, w = _profile("smvp_rows", curve)
+    _need("smvp_rows", pts_rows, I16, 2)
+    _need("smvp_rows", pay, I32, 2)
+    _need("smvp_rows", skeys, I32, 2)
+    Wg, n = pay.shape
+    R = n // C
+    geo = smvp_rows_geometry(Wg * C, _sm_count(pay.device), L)
+    if pts_rows.data_ptr() % prefix_scan_smem(L, geo.threads_per_lane
+                                              ).piece_bytes:
+        raise ValueError("smvp_rows: the row table is not aligned to the "
+                         "kernel's copy piece")
+    bucket = inf_stacked(curve, (Wg, B + 2), pay.device)
+    trailing = torch.empty((3, L, Wg, C), dtype=I32, device=pay.device)
+    rc = _build.library().msm_smvp_rows(
+        L, w, pts_rows.data_ptr(), pay.data_ptr(), skeys.data_ptr(),
+        bucket.data_ptr(), trailing.data_ptr(), Wg, C, R, n, B + 2,
+        geo.threads_per_lane, geo.shared_bytes,
+        _consts(curve, pay.device).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(pay))
+    _check("smvp_rows", rc)
+    LAUNCHED["smvp_rows"] = geo._asdict()
+    return bucket, trailing

@@ -10,12 +10,16 @@ calling): the same buckets in, the same window sums out. With bucket b
 where g_t = sum_j (j+1) * S_{t,j}, m_t = sum_j S_{t,j} and
 M_k = sum_{t>=k} m_t. Stage 1 (m and g of every slice) is
 `kernels.pbpr_stage1`; the halving tree over the T slices for sum_t g_t
-and the T-1 sequential steps of stage 2 are `kernels.padd_batch`; the
-log2(Bt) doublings are `kernels.pdbl_batch`. The operations run in the
-JAX function's order, so the result is bit-identical to it.
+and the last add are `kernels.padd_batch`; the log2(Bt) doublings are
+`kernels.pdbl_batch`. The operations run in the JAX function's order, so
+the result is bit-identical to it.
 
-Stage 2 is sequential by the algorithm: 2 (T-1) launches of `padd_batch`
-on Wp lanes each.
+Stage 2 is sequential by the algorithm: for k = T-1 .. 1,
+macc += m_k; msum += macc, from infinity. That is stage 1's recurrence
+(m += bucket; g += m, walked from the top down) on one slice of the T-1
+buckets m_1 .. m_{T-1}, so it is one more `pbpr_stage1` launch with
+threads = 1: Wp lanes, each a chain of T-1 steps, in place of 2 (T-1)
+`padd_batch` launches.
 """
 
 from __future__ import annotations
@@ -45,12 +49,13 @@ def bucket_reduce(buckets: torch.Tensor, cfg: MSMConfig) -> torch.Tensor:
         t //= 2
     g_total = g[..., 0]
 
-    # offset part: Bt * sum_{k=1}^{T-1} M_k, M_k the suffix sums of m
-    mt = m.permute(3, 0, 1, 2).contiguous()              # (T, 3, L, Wp)
-    macc = msum = kernels.inf_stacked(curve, (Wp,), buckets.device)
-    for k in range(T - 1, 0, -1):
-        macc = kernels.padd_batch(macc, mt[k], curve)
-        msum = kernels.padd_batch(msum, macc, curve)
+    # offset part: Bt * sum_{k=1}^{T-1} M_k, M_k the suffix sums of m:
+    # (macc, msum) is stage 1 of the one slice m_1 .. m_{T-1}
+    if T > 1:
+        _, msum = kernels.pbpr_stage1(m[..., 1:].contiguous(), curve, 1)
+        msum = msum[..., 0].contiguous()                 # (3, L, Wp)
+    else:
+        msum = kernels.inf_stacked(curve, (Wp,), buckets.device)
 
     for _ in range(Bt.bit_length() - 1):                 # log2(Bt) doublings
         msum = kernels.pdbl_batch(msum, curve)

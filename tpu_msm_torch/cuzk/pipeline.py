@@ -48,17 +48,22 @@ def _windows_device(xs: torch.Tensor, ys: torch.Tensor,
     the sort and the row walk of `smvp.bucket_accumulate`, then the
     two-stage bucket reduction `pbpr.bucket_reduce`. Takes the planar
     inputs of `windows_device` and returns the same (3, L, Wp) int32
-    window sums, so `MSMPipeline._decode_windows` reads both.
+    window sums, so `MSMPipeline._decode_windows` reads both. The
+    points' (n, 2L) int16 row table is made once, for every group.
 
     w_shards > 1 keeps the shard's contiguous block of Wp / w_shards
     windows, w_index the shard's index (a plain slice of the digits),
     and returns (3, L, Wp / w_shards); w_shards must divide num_groups.
 
-    On CUDA tensors it launches `encode_mont`, `decompose_digits` (not
-    under GLV, whose `apply_glv` launches it itself), `padd_batch` (the
-    stitch, the inject, the reduction's tree and stage 2),
-    `pbpr_stage1` and `pdbl_batch`; the row walk's mixed adds are torch
-    ops."""
+    On CUDA tensors it launches `encode_mont` (twice), `decompose_digits`
+    (once; under GLV `glv_apply` and the `decompose_digits` of
+    `apply_glv`), per window group `bucket_sort` (its launches inside
+    one call), `smvp_rows` (the row walk) and `padd_batch` (the stitch's
+    levels and the inject), then `pbpr_stage1` (stage 1, and stage 2 as
+    one more launch), `padd_batch` (the halving tree and the last add)
+    and `pdbl_batch` (log2 Bt doublings). At BN254_S12 2^16 (5 groups)
+    that is 119 `padd_batch` launches, 5 each of `bucket_sort` and
+    `smvp_rows`, 2 of `pbpr_stage1` and 4 of `pdbl_batch`."""
     curve = cfg.curve
     L = curve.num_limbs
     W, Wg, G = cfg.num_windows, cfg.subtask_group, cfg.num_groups
@@ -80,10 +85,12 @@ def _windows_device(xs: torch.Tensor, ys: torch.Tensor,
     Wp, G = Wp // w_shards, G // w_shards
     digits = digits[w_index * Wp:(w_index + 1) * Wp]
 
+    pts_rows = torch.cat([xm, ym]).to(torch.int16).T.contiguous()
     buckets = torch.empty((3, L, Wp, B), dtype=I32, device=xm.device)
     for g in range(G):
         sl = slice(g * Wg, (g + 1) * Wg)
-        buckets[:, :, sl] = smvp.bucket_accumulate(xm, ym, digits[sl], cfg)
+        buckets[:, :, sl] = smvp.bucket_accumulate(xm, ym, digits[sl], cfg,
+                                                   pts_rows)
     return pbpr.bucket_reduce(buckets, cfg)
 
 

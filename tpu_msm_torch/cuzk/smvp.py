@@ -4,11 +4,14 @@ The port of `tpu_msm/cuzk/smvp.py` `bucket_accumulate`, the JAX
 package's second device algorithm for the bucket sums, beside the
 prefix scans of `pipeline_cuda.windows_device`:
 
-  1. sort each window's points by bucket key (`cuzk/sort.py`);
+  1. sort each window's points stably by bucket key |d|
+     (`kernels.bucket_sort`, the main path's sort: the permutation of
+     `cuzk/sort.py`'s stable sort, the sign in the payload);
   2. lay the sorted stream out column-major as R rows by C columns and
-     walk the rows once: each step is one complete mixed add
-     (`ops/complete.pmadd`, torch ops) on Wg x C lanes, restarted with
-     the point itself at a run start;
+     walk the rows once (`kernels.smvp_rows`, one launch a group, the
+     counterpart of the JAX function's lax.fori_loop): each step is one
+     complete mixed add on Wg x C lanes, restarted with the point itself
+     at a run start;
   3. a lane that ends a bucket run (its key differs from the next key in
      global order) writes its running sum into the bucket array; each
      run ends at exactly one position, so no bucket is written twice;
@@ -20,8 +23,9 @@ prefix scans of `pipeline_cuda.windows_device`:
 
 The JAX scatters drop their writes at the sentinel index B + 1 (an
 out-of-range index under mode="drop"). Here the bucket array has one
-spare slot, B + 1, which takes every such write and is never read: the
-writes to it repeat and land in no set order on CUDA, and the real
+spare slot, B + 1, which the row walk leaves at infinity and which takes
+every write of the inject's lanes that inject nothing; it is never read:
+those writes repeat and land in no set order on CUDA, and the real
 indices of one scatter never repeat. The stitch combines in the same
 order as XLA, so the buckets are bit-identical to the JAX function's.
 """
@@ -33,8 +37,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..config import MSMConfig
-from ..ops import complete, lazy
-from . import kernels, sort
+from . import kernels
 
 Flagged = Tuple[torch.Tensor, torch.Tensor]
 
@@ -75,12 +78,15 @@ def associative_scan(combine: Callable[[Flagged, Flagged], Flagged],
 
 
 def bucket_accumulate(xs_m: torch.Tensor, ys_m: torch.Tensor,
-                      digits: torch.Tensor, cfg: MSMConfig) -> torch.Tensor:
+                      digits: torch.Tensor, cfg: MSMConfig,
+                      pts_rows: torch.Tensor | None = None) -> torch.Tensor:
     """The bucket sums of one window group.
 
     xs_m, ys_m: (L, n) int32 Montgomery affine coordinates (canonical
         limbs, value < 2p), shared by the windows.
     digits: (Wg, n) signed digits of the group's windows.
+    pts_rows: the (n, 2L) int16 row table of xs_m and ys_m
+        (`pipeline_cuda.windows_device`'s), made here if not given.
     Returns (3, L, Wg, B) int32 stacked points, slot b holding bucket b+1
     (multiplier b+1)."""
     curve = cfg.curve
@@ -90,49 +96,23 @@ def bucket_accumulate(xs_m: torch.Tensor, ys_m: torch.Tensor,
     if n % C:
         raise ValueError(f"n={n} must be a multiple of columns={C}")
     R = n // C
-    L = curve.num_limbs
     B = cfg.half_columns
 
-    keys, neg_mask = sort.bucket_keys(digits)
-    skeys, perm = sort.sort_by_bucket(keys)
-    ssign = torch.gather(neg_mask, -1, perm)
+    if pts_rows is None:
+        pts_rows = torch.cat([xs_m, ys_m]).to(torch.int16).T.contiguous()
+    pay, _ = kernels.bucket_sort(digits.to(torch.int16).contiguous(), B)
+    skeys = torch.gather(digits.to(torch.int32).abs(), 1, (pay >> 1).long())
+    bucket, trailing = kernels.smvp_rows(pts_rows, pay, skeys, curve, C, B)
 
-    # negate y where the digit was negative (2p - y keeps values positive)
-    sy_all = ys_m[:, perm]                                       # (L,Wg,n)
-    sy_all = torch.where(ssign, lazy.neg(sy_all, curve, 2), sy_all)
-
-    # column-major: global position g = c R + r
-    def rows_first(a):                          # (..., Wg, n) -> (R, ...)
-        return a.reshape(a.shape[:-1] + (C, R)).movedim(-1, 0).contiguous()
-
-    sx = rows_first(xs_m[:, perm])                               # (R,L,Wg,C)
-    sy = rows_first(sy_all)
-    kt = rows_first(skeys.long())                                # (R,Wg,C)
-
-    # run boundaries in global order: down each column, then the next
-    first_next = torch.cat([kt[0, :, 1:], kt.new_full((Wg, 1), -1)], dim=-1)
-    next_keys = torch.cat([kt[1:], first_next[None]])
-    ends = kt != next_keys
-    brk = torch.cat([torch.ones((1, Wg, C), dtype=torch.bool, device=dev),
-                     kt[1:] != kt[:-1]])                         # run starts
-    allsame = ~torch.any(brk[1:], dim=0)                         # (Wg, C)
-
-    one_m = lazy.mont_one(curve, 2, dev)
+    # each column's first and last key; keys are sorted, so a column
+    # holds one run throughout where the two are equal
+    kc = skeys.reshape(Wg, C, R).long()
+    key_first, key_last = kc[..., 0], kc[..., -1]
+    allsame = key_first == key_last                              # (Wg, C)
     w_idx = torch.arange(Wg, device=dev)[:, None]
     spare = B + 1
 
-    carry = complete.proj_infinity(curve, (Wg, C), dev)
-    bucket = kernels.inf_stacked(curve, (Wg, B + 2), dev)    # + spare slot
-    for r in range(R):
-        summed = complete.pmadd(carry, sx[r], sy[r], curve)
-        carry = complete.select(
-            brk[r], complete.ProjPoint(sx[r], sy[r], one_m), summed)
-        idx = torch.where(ends[r], kt[r], spare)
-        bucket[:, :, w_idx, idx] = torch.stack(
-            torch.broadcast_tensors(*carry))
-
     # ---- cross-column stitch ----
-    key_first, key_last = kt[0], kt[-1]
     no = torch.zeros((Wg, 1), dtype=torch.bool, device=dev)
     cont = torch.cat([no, key_last[:, :-1] == key_first[:, 1:]], dim=-1)
 
@@ -140,7 +120,6 @@ def bucket_accumulate(xs_m: torch.Tensor, ys_m: torch.Tensor,
         s = kernels.padd_batch(a[0], b[0], curve)
         return torch.where(b[1], b[0], s), a[1] | b[1]
 
-    trailing = torch.stack(carry)                                # (3,L,Wg,C)
     scanned, _ = associative_scan(comb, (trailing, (~allsame) | (~cont)))
     # exclusive prefix: the trailing-chain sum arriving at column c
     P = torch.cat([kernels.inf_stacked(curve, (Wg, 1), dev),
