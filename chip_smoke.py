@@ -104,7 +104,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      with a multiply a tree level give the depth floors of `to_affine`
      and `batch_inverse`); and one
      `extract_buckets` run (39 buckets of one window on one block), its
-     two dependent adds, the depth floor of a launch;
+     two dependent adds, the depth floor of a launch; and one
+     `smvp_stitch` level, from one window of 2 and of 256 columns;
      and (`[scan-lanes]`) `prefix_scan` alone at 2,048 to 131,072 lanes
      (LANE_SHAPES), for every number of threads per lane, at BN254_S12
      here and at PROFILE_FULL in phase 9: what the launcher's rule of
@@ -160,7 +161,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      files: every rank EXACT and counted, its window_sums and, on its
      own after a barrier, its exchange + tree timed (ranks sharing one
      card: no multi-GPU scaling); a rank that fails or misses its
-     deadline fails the run;
+     deadline fails the run; (4) the XLA path (backend="xla") at 2^16
+     over x = 2 gloo ranks spawned on the card: every rank EXACT, one
+     `smvp_rows` and one `smvp_stitch` launch a window group of its span,
+     its window sums equal (decoded) to the unsharded twin's and its
+     span's sums before the exchange bit-identical to this process's;
  11. `[twin]`, the XLA path (`MSMConfig(backend="xla")`, the port of the
      JAX package's `_windows_device`: decompose, `bucket_sort`, the row
      walk of `smvp_rows`, the stitch, `bucket_reduce`) through
@@ -168,19 +173,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      gen_planar_inputs(seed=99, k_base=64), at the default schedule:
      BN254_S12 at 2^16 without GLV and with it, BLS12_377_S12 at 2^14
      and BN254_S12 at 2^20 (TWIN_RUNS): each EXACT against the oracle
-     with every launch count reset before and read after (the seven
-     kernels of the path launched, every other idle), its window sums
+     with every launch count reset before and read after (the eight
+     kernels of the path launched, every other idle; one `smvp_stitch`
+     a window group, and log2 T + 1 `padd_batch`), its window sums
      equal window by window after decoding to the CUDA path's on the
      same inputs; every call of `encode_mont`, `decompose_digits`,
-     `bucket_sort`, `smvp_rows` (the first group's), `padd_batch` (the
-     stitch, the inject, the reduction's tree and last add),
-     `pbpr_stage1` (stage 1) and `pdbl_batch`, once per shape, against
-     its plain version, timed; the stage-2 launch of `pbpr_stage1`
+     `bucket_sort`, `smvp_rows` and `smvp_stitch` (the first group's),
+     `padd_batch` (the reduction's tree and last add), `pbpr_stage1`
+     (stage 1) and `pdbl_batch`, once per shape, against its plain
+     version, timed (`[stitch]`: the stitch's time a group, its levels,
+     launches and depth floor); the stage-2 launch of `pbpr_stage1`
      (threads = 1) against the 2 (T - 1) `padd_batch` launches it
      replaced, bit for bit, both timed, and against its plain version
      in the first run (T = 256, the twin's smallest); the median of 3
      timed runs and its split into the kernels' time (each shape's time
-     by its calls) and the rest (`[twin-where]`);
+     by its calls) and the rest (`[twin-where]`); then `[edge]
+     smvp_stitch` at STITCH_EDGES (C = 1001, odd, with n below the
+     columns; C = 2 and 1), with random digits, every key equal, every
+     column its own run and every digit 0, against its plain version;
  12. the `pbpr_full` edges whose plain versions ran on the CPU;
  13. `[autotune]`: `utils/window.autotune` on BN254_S12 at 2^16 (the
      model's 36 candidates and the static default) and 2^20 (its 24,
@@ -216,7 +226,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      off-curve request that must get the error frame; wall times and
      the server's compute_ms;
  18. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
-    with all fifteen kernels (to_affine and batch_inverse with their
+    with all sixteen kernels (to_affine and batch_inverse with their
     user calls at K = 2^20 - 3, to_affine also on the window sums;
     pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; `bucket_sort` with torch.sort's time
@@ -227,8 +237,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     largest error against the plain version there, padd_batch its main
     path's launches (0 since PR 15) and its halving tree's; the seven of
     the twin its launches, time and error at each of TWIN_RUNS;
-    `smvp_rows` from the twin's 2^20 and 2^16 runs, with its depth
-    floor) and the `[sharded]` and `[twin]`
+    `smvp_rows` and `smvp_stitch` from the twin's 2^20 and 2^16 runs,
+    with their depth floors) and the `[sharded]` and `[twin]`
     numbers under "sharded" and "twin", those of phases 13 to 17 under
     their names, and each main-path kernel's launches on their paths;
  19. last line {"ok": true, "device": {...}}.
@@ -272,6 +282,7 @@ from tpu_msm_torch.constants import (BLS12_377_S12,  # noqa: E402
 from tpu_msm_torch.cuzk import glv as glv_dev  # noqa: E402
 from tpu_msm_torch.cuzk import kernels  # noqa: E402
 from tpu_msm_torch.cuzk import pbpr  # noqa: E402
+from tpu_msm_torch.cuzk import pipeline  # noqa: E402
 from tpu_msm_torch.cuzk import pipeline_cuda  # noqa: E402
 from tpu_msm_torch.cuzk.pipeline import (get_pipeline,  # noqa: E402
                                          tpu_variable_base_msm)
@@ -295,7 +306,8 @@ DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
 MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
         "bucket_sort", "extract_buckets", "pbpr_full")
 KERNELS = MAIN + ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
-                  "glv_apply", "to_affine", "batch_inverse", "smvp_rows")
+                  "glv_apply", "to_affine", "batch_inverse", "smvp_rows",
+                  "smvp_stitch")
 # (Wg, C, R) of the scan's lane sweep. On 132 SMs a block of G = 6 (20
 # lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
 # second block of G = 2 (64 lanes) above 8,448; the launcher's rule
@@ -350,6 +362,10 @@ SOURCES = {
     # lax.fori_loop of bucket_accumulate's row walk
     "smvp_rows": ("tpu_msm_torch/csrc/smvp_rows.cu",
                   "tpu_msm/cuzk/smvp.py:94", "twin"),
+    # and the stitch after it: the associative_scan across columns and
+    # the inject
+    "smvp_stitch": ("tpu_msm_torch/csrc/smvp_stitch.cu",
+                    "tpu_msm/cuzk/smvp.py:112", "twin, sharded twin"),
 }
 
 # Bound model (H100 SXM, published peaks at 700 W): HBM at 3.35 TB/s;
@@ -384,7 +400,8 @@ def mul_wide_mads(L: int, w: int) -> int:
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
 WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
         "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full", "glv_apply",
-        "to_affine", "batch_inverse", "extract_buckets", "smvp_rows")
+        "to_affine", "batch_inverse", "extract_buckets", "smvp_rows",
+        "smvp_stitch")
 # 32 x 32-bit word products of the GLV split (csrc/glv_split.cuh): two
 # Babai products of 8 x 5 words and four truncated products of 5 x 6
 # words mod 2^192 (20 each); a .lo and a .hi half each.
@@ -438,6 +455,13 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         ins = args[:2] + (args[2][:hs],) + args[3:]
     nbytes = sum(a.numel() * a.element_size() for a in ins + as_tuple(out)
                  if isinstance(a, torch.Tensor))
+    if name == "smvp_stitch":
+        # what the function needs: the trailing sums, each column's first
+        # and last key, the injected buckets read and written
+        bucket, trailing, skeys, _, C = args
+        adds, injects, _ = stitch_adds(skeys, C)
+        nbytes = (trailing.numel() * 4 + 2 * skeys.shape[0] * C * 4
+                  + 2 * injects * 3 * L * 4)
     if name == "extract_buckets":
         # what the function needs: T and S at the (B + 1) Wg region ends,
         # their counts, and the group's buckets written
@@ -456,6 +480,10 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         # (where the lane restarts): what this run's keys need
         ops = (args[1].numel() - run_starts(args[2], args[4])
                ) * MULS["pmadd"] * mm
+    elif name == "smvp_stitch":
+        # the scan's adds where b is not flagged, and the injects: what
+        # this run's keys need
+        ops = (adds + injects) * MULS["padd"] * mm
     elif name == "col_prefix":
         _, _, Wg, C = args[0].shape
         ops = Wg * C * max(C.bit_length() - 1, 1) * MULS["padd"] * mm
@@ -505,6 +533,38 @@ def run_starts(skeys: torch.Tensor, C: int) -> int:
     Wg, n = skeys.shape
     k = skeys.reshape(Wg, C, n // C)
     return Wg * C + int((k[..., 1:] != k[..., :-1]).sum())
+
+
+def stitch_adds(skeys: torch.Tensor, C: int) -> tuple:
+    """(the scan's adds, the injects, the depth) of one smvp_stitch call
+    on the (Wg, n) sorted keys: a level's pair adds where its b is not
+    flagged (the flags carried as csrc/smvp_stitch.cu carries them), a
+    column injects where it goes on with the run before it and holds
+    more than one run or the next column does not go on; the depth is
+    the longest chain of dependent adds that these keys need in XLA's
+    tree, the inject's add included."""
+    Wg, n = skeys.shape
+    k = skeys.cpu().long().reshape(Wg, C, n // C)
+    first, last = k[..., 0], k[..., -1]
+    no = torch.full((Wg, 1), -1)
+    cont = torch.cat([no, last[:, :-1]], dim=1) == first
+    goes_on = torch.cat([first[:, 1:], no], dim=1) == last
+    flags = (first != last) | ~cont
+    pairs, starts = kernels._stitch_schedule(C, torch.device("cpu"))
+    adds = 0
+    depth = torch.zeros((Wg, C), dtype=torch.int64)
+    for lv in range(len(starts) - 1):
+        a, b = pairs[starts[lv]:starts[lv + 1]].long().T
+        go = ~flags[:, b]
+        adds += int(go.sum())
+        flags[:, b] = torch.where(go, flags[:, a], flags[:, b])
+        depth[:, b] = torch.where(
+            go, torch.maximum(depth[:, a], depth[:, b]) + 1, depth[:, b])
+    inject = cont & ((first != last) | ~goes_on)
+    before = torch.cat([depth.new_zeros((Wg, 1)), depth[:, :-1]], dim=1)
+    chain = max(int(depth.max()), int(torch.where(inject, before + 1,
+                                                  0).max()))
+    return adds, int(inject.sum()), chain
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -581,7 +641,8 @@ def timed_once(fn):
 @contextlib.contextmanager
 def spy(seen: dict, targets, counts: dict | None = None):
     """While active, keep (name, args, kwargs, output) of the first call of
-    every (module, name) in `targets`, tensors cloned; padd_batch and
+    every (module, name) in `targets`, tensors cloned (the arguments
+    before the call, the output after it); padd_batch and
     psub_batch are kept once per dtype form. With `counts`, every call is
     kept once per shape of its first argument instead, and counts[key]
     counts the calls of each key."""
@@ -597,11 +658,14 @@ def spy(seen: dict, targets, counts: dict | None = None):
                 od = kw.get("out_dtype", args[3] if len(args) > 3 else
                             torch.int32)
                 key = f"{name}[{args[0].dtype}->{od}]"
+            # the arguments as the call found them (a wrapper may write
+            # into one), the outputs as it left them
+            keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+            first = key not in seen
+            kept = tuple(map(keep, args)) if first else None
             out = fn(*args, **kw)
-            if key not in seen:
-                keep = lambda a: a.clone() if isinstance(a, torch.Tensor) \
-                    else a
-                seen[key] = (name, tuple(map(keep, args)), dict(kw),
+            if first:
+                seen[key] = (name, kept, dict(kw),
                              tuple(map(keep, as_tuple(out))))
             return out
         return call
@@ -702,7 +766,7 @@ def capture_inputs(curve, logn: int, glv: bool) -> dict:
 KERNEL_OF = {"psub_batch": "padd_batch"}
 # A wrapper that writes its output into an argument: that argument's
 # index. Its kernel and plain version each get their own copy of it.
-IN_PLACE = {"extract_buckets": 3}
+IN_PLACE = {"extract_buckets": 3, "smvp_stitch": 0}
 
 
 def fresh(fn: str, args: tuple) -> tuple:
@@ -751,7 +815,7 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
     if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
                 "bucket_sort", "extract_buckets", "to_affine",
-                "batch_inverse", "smvp_rows"):
+                "batch_inverse", "smvp_rows", "smvp_stitch"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
@@ -1336,6 +1400,10 @@ PBPR_LEVEL_T = (8, 64)
 # Column counts of the two col_prefix calls on one warp (one window,
 # log2 C levels) whose difference gives the time of one level.
 COL_LEVEL_C = (2, 32)
+# smvp_stitch on one window of C columns of one row, every key equal (so
+# every pair of the scan adds, and the last column injects): 1 and 15
+# scan levels
+STITCH_LEVEL_C = (2, 256)
 
 
 def latency(curve, card: str, scan_G: int) -> dict:
@@ -1345,7 +1413,7 @@ def latency(curve, card: str, scan_G: int) -> dict:
     twelve threads each, two a warp, one pbpr_full stage-1 step, one
     doubling of its tail and one pbpr_stage1 step; one pbpr_full scan
     level on one window of 8 and of 64 lanes; one to_affine chain on one
-    point."""
+    point; one smvp_stitch level on one window."""
     L, R = curve.num_limbs, 128
     rng = np.random.default_rng(11)
     lazy = lambda shape: torch.from_numpy(rng.integers(
@@ -1413,6 +1481,18 @@ def latency(curve, card: str, scan_G: int) -> dict:
         32, 1, curve)
     ext_ms = queued_ms(lambda: kernels.extract_buckets(*ext_args), 50,
                        blocker)
+    # smvp_stitch on one window: the calls differ by their scan levels
+    # (the copy-in and the inject are in both)
+    stitch = {}
+    for C in STITCH_LEVEL_C:
+        st_args = (lazy((1, 6)).to(torch.int32), lazy((1, C)).to(torch.int32),
+                   torch.ones((1, C), dtype=torch.int32, device=DEVICE),
+                   curve, C)
+        stitch[C] = queued_ms(lambda: kernels.smvp_stitch(*st_args), 50,
+                              blocker)
+    st_lv = [len(kernels.smvp_stitch_levels(C)) for C in STITCH_LEVEL_C]
+    stitch_level = ((stitch[STITCH_LEVEL_C[1]] - stitch[STITCH_LEVEL_C[0]])
+                    / (st_lv[1] - st_lv[0]))
     print(f"[latency] {curve.name}: padd_batch on 32 lanes {padd_ms:.4f} "
           f"ms a launch "
           f"(launched {padd_geo}); pdbl_batch on 16 lanes {dbl_ms[16]:.4f} "
@@ -1435,8 +1515,11 @@ def latency(curve, card: str, scan_G: int) -> dict:
           f"to_affine on one point (a chain of {chain_muls(curve) + 3} "
           f"multiplies) {aff_ms:.4f} ms; extract_buckets on one run "
           f"({J} buckets of one window on one block, two dependent adds) "
-          f"{ext_ms:.4f} ms"
-          f" [{card}]", flush=True)
+          f"{ext_ms:.4f} ms; smvp_stitch {stitch_level:.5f} ms a level, "
+          f"from one window of C columns, every key equal (C = "
+          + ", ".join(f"{C}, {n} levels, {t:.4f} ms" for (C, t), n in
+                      zip(stitch.items(), st_lv))
+          + f") [{card}]", flush=True)
     return dict(padd_ms=padd_ms, padd_launched=padd_geo,
                 pdbl_16_lanes_ms=dbl_ms[16], pdbl_one_warp_ms=dbl_ms[1],
                 pdbl_one_warp_launched=dbl_geo,
@@ -1446,7 +1529,8 @@ def latency(curve, card: str, scan_G: int) -> dict:
                 pbpr_one_warp_ms=pb, pbpr_one_window_bt1_ms=lv_ms,
                 pbpr_stage1_step_ms=stage1_step,
                 pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo,
-                to_affine_one_lane_ms=aff_ms, extract_one_block_ms=ext_ms)
+                to_affine_one_lane_ms=aff_ms, extract_one_block_ms=ext_ms,
+                stitch_level_ms=stitch_level, stitch_one_window_ms=stitch)
 
 
 def first_group(curve, seen: dict):
@@ -2113,6 +2197,8 @@ SHARDED_LOGN = 20
 SHARDED_W = (2, 4)
 # (x, w) meshes of the ranks that share the card over gloo
 SHARDED_MESHES = ({"x": 2}, {"x": 2, "w": 2})
+# the XLA path (backend="xla") sharded over x = 2 gloo ranks on the card
+SHARDED_XLA_LOGN = 16
 # A rank's collectives fail after RANK_GROUP_TIMEOUT_S; a world whose
 # ranks have not all reported by RANK_DEADLINE_S fails the phase.
 RANK_GROUP_TIMEOUT_S = 120
@@ -2442,6 +2528,98 @@ def sharded_gloo(card: str) -> dict:
     return out
 
 
+def sharded_xla_rank(rank: int, world: int, logn: int, workdir: str, want,
+                     device: str) -> dict:
+    """One rank of the gloo world of the sharded XLA path (spawned; the
+    library is already built): `window_sums` of its pipeline under
+    backend="xla" on mesh x = world, counted and EXACT; then its own
+    span's window sums, as the pipeline's device program computes them
+    before the exchange."""
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{workdir}/rendezvous-xla", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(device, (world,), mesh_dim_names=("x",))
+        dev_in = [torch.from_numpy(np.load(os.path.join(
+            workdir, f"{k}.npy")).astype(np.int32)).to(device)
+            for k in ("xs", "ys", "hw")]
+        n = dev_in[0].shape[1]
+        cfg = twin_config(CURVE, logn, False)
+        pipe = sharded.get_sharded_pipeline(cfg, mesh, device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        windows = pipe.window_sums(*dev_in)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        exact = ref.jac_eq(CURVE, pipe.horner(windows), want)
+        span = n // world
+        lo = mesh.get_local_rank("x") * span
+        g = pipeline._windows_device(*(a[:, lo:lo + span] for a in dev_in),
+                                     cfg)
+        return dict(rank=dist.get_rank(), exact=exact, launches=launches,
+                    windows=windows, span_sums=g.cpu().numpy(),
+                    window_sums_ms=ms)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_xla(card: str) -> dict:
+    """Phase [sharded] 4: the XLA path over x = 2 gloo ranks spawned on
+    this one card, BN254_S12 at 2^SHARDED_XLA_LOGN: every rank EXACT, one
+    `smvp_stitch` and one `smvp_rows` launch a window group of its span,
+    its window sums, decoded, equal to the unsharded twin's (this
+    process's `_windows_device` on all the points), and its span's sums
+    before the exchange bit for bit this process's on the same span.
+    (After the exchange the sums are the tree's adds of the two spans'
+    limbs, not the unsharded sums' limbs, which are not unique: they are
+    equal as points, here as decoded affine integers.)"""
+    logn, world = SHARDED_XLA_LOGN, 2
+    n = 1 << logn
+    xs, ys, hw, _, want = inputs(CURVE, logn)
+    cfg = twin_config(CURVE, logn, False)
+    dev_in = sharded_inputs(logn)
+    unsharded = get_pipeline(cfg, DEVICE)._decode_windows(
+        pipeline._windows_device(*dev_in, cfg))
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, a in (("xs", xs), ("ys", ys), ("hw", dev_in[2].cpu().numpy())):
+            np.save(os.path.join(tmp, f"{k}.npy"), a)
+        t0 = time.perf_counter()
+        ranks = spawn.run_ranks(sharded_xla_rank, world,
+                                (logn, tmp, want, DEVICE), RANK_DEADLINE_S)
+        seconds = time.perf_counter() - t0
+    span = n // world
+    for res in ranks:
+        lo = res["rank"] * span
+        mine = pipeline._windows_device(*(a[:, lo:lo + span]
+                                          for a in dev_in), cfg)
+        L = res["launches"]
+        bad = [k for k in ("smvp_rows", "smvp_stitch", "bucket_sort")
+               if L.get(k) != cfg.num_groups]
+        if (not res["exact"] or bad or res["windows"] != unsharded
+                or not np.array_equal(res["span_sums"], mine.cpu().numpy())):
+            raise AssertionError(
+                f"[sharded] xla rank {res['rank']}: exact={res['exact']}, "
+                f"launch counts off {bad} ({L}), windows equal to the "
+                f"unsharded twin's: {res['windows'] == unsharded}, span sums "
+                f"bit-identical: "
+                f"{np.array_equal(res['span_sums'], mine.cpu().numpy())}")
+    print(f"[sharded] {CURVE.name} n=2^{logn} backend='xla' mesh x={world}, "
+          f"{world} gloo {SHARED}: every rank EXACT, its {len(unsharded)} "
+          f"window sums equal to the unsharded twin's (decoded), its span's "
+          f"sums bit-identical to this process's; "
+          + "; ".join(f"rank {r['rank']} window_sums {r['window_sums_ms']:.2f}"
+                      f" ms (first call), launches={r['launches']}"
+                      for r in ranks)
+          + f"; {seconds:.1f} s from spawn to exit [{card}]", flush=True)
+    return dict(seconds=seconds, ranks=[
+        {k: v for k, v in r.items() if k not in ("windows", "span_sums")}
+        for r in ranks])
+
+
 def sharded_compares(run: dict) -> list:
     """Every `compare` result of the [sharded] phases."""
     return (list(run["window_shards"]["kernels"].values())
@@ -2461,7 +2639,8 @@ def sharded_phase(card: str) -> dict:
                window_shards=window_shards(card),
                rank_spans=rank_spans(card),
                reduce_tree=reduce_tree_check(card),
-               nccl=sharded_nccl(card), gloo=sharded_gloo(card))
+               nccl=sharded_nccl(card), gloo=sharded_gloo(card),
+               xla=sharded_xla(card))
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     print(f"[sharded] every phase passed in {out['seconds']:.1f} s "
@@ -2483,7 +2662,11 @@ TWIN_RUNS = ((BN254_S12, 16, False), (BN254_S12, 16, True),
 # the kernels the twin launches, with glv_apply under GLV; the others
 # must stay idle
 TWIN_KERNELS = ("encode_mont", "decompose_digits", "bucket_sort",
-                "smvp_rows", "padd_batch", "pbpr_stage1", "pdbl_batch")
+                "smvp_rows", "smvp_stitch", "padd_batch", "pbpr_stage1",
+                "pdbl_batch")
+# (Wg, n, columns) of the [edge] smvp_stitch shapes: C = min(columns, n)
+# odd and above 2 (n below the columns, one row), 2 and 1
+STITCH_EDGES = ((3, 1001, 2048), (2, 64, 2), (4, 96, 1))
 TWIN_TIMED_RUNS = 3
 
 
@@ -2504,9 +2687,11 @@ def twin_user_call(curve, logn: int, glv: bool, card: str,
                    capture: bool) -> dict:
     """The twin's user call, `tpu_variable_base_msm` under backend="xla",
     EXACT against the oracle, every launch count set to 0 just before it
-    and read just after. With `capture`, every call of the seven kernels'
-    wrappers (once per shape, and how often) and of `bucket_reduce`, whose
-    output is the window sums."""
+    and read just after: one `smvp_stitch` a window group, and
+    `padd_batch` only for the reduction's tree and last add (log2 T + 1).
+    With `capture`, every call of the eight kernels' wrappers (once per
+    shape, and how often) and of `bucket_reduce`, whose output is the
+    window sums."""
     cfg = twin_config(curve, logn, glv)
     n = 1 << logn
     _, _, hw, base, want = inputs(curve, logn)
@@ -2531,6 +2716,13 @@ def twin_user_call(curve, logn: int, glv: bool, card: str,
     if idle or stray:
         raise AssertionError(f"[twin] {label}: kernels not launched {idle}, "
                              f"launched off the path {stray}")
+    if (launches["smvp_stitch"] != cfg.num_groups
+            or launches["padd_batch"] != cfg.pbpr_threads.bit_length()):
+        raise AssertionError(f"[twin] {label}: {launches['smvp_stitch']} "
+                             f"smvp_stitch launches for {cfg.num_groups} "
+                             f"window groups, {launches['padd_batch']} "
+                             "padd_batch for the reduction's "
+                             f"{cfg.pbpr_threads.bit_length()}")
     used = {k: v for k, v in launches.items() if v}
     print(f"[twin] {label} s={cfg.window_size} W={cfg.num_windows} "
           f"C={cfg.columns} T={cfg.pbpr_threads} Wg={cfg.subtask_group} "
@@ -2589,15 +2781,81 @@ def reduce_stage2_check(curve, key: str, args, tag: str, card: str,
     return r
 
 
+def stitch_line(label: str, cfg: MSMConfig, run: dict, r: dict, args,
+                lat: dict | None, card: str) -> float | None:
+    """The [stitch] line of one twin run: smvp_stitch's launches in the
+    user call, its time a group (the first group's call, compared, on
+    `args`), its scan levels, the adds and the chain of dependent adds
+    its keys need and, with `lat`, its depth floor (that chain, each add
+    a [latency] level); returns the floor."""
+    C = cfg.columns
+    levels = len(kernels.smvp_stitch_levels(C))
+    pairs = cfg.subtask_group * sum(map(len, kernels.smvp_stitch_levels(C)))
+    adds, injects, chain = stitch_adds(args[2], C)
+    floor = chain * lat["stitch_level_ms"] if lat else None
+    print(f"[stitch] {label}: {run['launches']['smvp_stitch']} smvp_stitch "
+          f"launches, one a window group ({cfg.num_groups} groups of "
+          f"{cfg.subtask_group} windows, C = {C}); {r['ms']:.4f} ms a group "
+          f"({r['ms_cuda']:.4f} back to back), {levels} scan levels and "
+          f"the inject; the first group's keys need {adds} scan adds of "
+          f"its {pairs} pairs and {injects} injects, a chain of {chain} "
+          f"dependent adds"
+          + (f", depth floor {floor:.4f} ms ({r['ms'] / floor:.2f}x)"
+             if floor else "")
+          + f"; padd_batch {run['launches']['padd_batch']} launches (the "
+          f"reduction's tree and last add) [{card}]", flush=True)
+    return floor
+
+
+def stitch_edges(card: str) -> None:
+    """`smvp_stitch` against its plain version at STITCH_EDGES on
+    BN254_S12, its inputs made as `bucket_accumulate` makes them on the
+    card (`bucket_sort`, `smvp_rows`) from the first points of the 2^16
+    inputs: random digits with runs across columns, every key equal,
+    every column its own run, every digit 0."""
+    curve = CURVE
+    xs, ys, _, _, _ = inputs(curve, 16)
+    B = 4096
+    rng = np.random.default_rng(19)
+    done = []
+    for Wg, n, columns in STITCH_EDGES:
+        C, R = min(columns, n), n // min(columns, n)
+        xm, ym = (kernels.encode_mont(torch.from_numpy(a[:, :n].astype(
+            np.int32)).to(DEVICE), curve) for a in (xs, ys))
+        pts_rows = torch.cat([xm, ym]).to(torch.int16).T.contiguous()
+        d = rng.integers(-B, B + 1, (Wg, n))
+        d[:, n // 5:n // 5 + n // 2] = 7
+        keys = np.repeat(np.arange(1, C + 1), R)
+        own = np.stack([rng.permutation(keys) for _ in range(Wg)])
+        kinds = {"random with runs": d, "every key equal": np.full(
+            (Wg, n), -9), "every column its own run": own,
+            "every digit 0": np.zeros((Wg, n))}
+        for kind, digits in kinds.items():
+            dg = torch.from_numpy(digits.astype(np.int32)).to(DEVICE)
+            pay, _ = kernels.bucket_sort(dg.to(torch.int16), B)
+            skeys = torch.gather(dg.abs(), 1, (pay >> 1).long())
+            bucket, trailing = kernels.smvp_rows(pts_rows, pay, skeys, curve,
+                                                 C, B)
+            same_as_plain(f"smvp_stitch (Wg, n, C) = ({Wg}, {n}, {C}) "
+                          f"{kind}", "smvp_stitch",
+                          (bucket, trailing, skeys, curve, C))
+        done.append(f"({Wg}, {n}, {C})")
+    print(f"[edge] smvp_stitch bit-identical to its plain version, the "
+          f"whole (3, L, Wg, B + 2) bucket tensor, at (Wg, n, C) = "
+          f"{', '.join(done)} (C = min(columns, n); B = {B}), each with "
+          f"random digits with runs, every key equal, every column its own "
+          f"run and every digit 0 [{card}]", flush=True)
+
+
 def twin_check(curve, logn: int, glv: bool, card: str,
-               plain_stage2: bool) -> dict:
+               plain_stage2: bool, lat: dict | None = None) -> dict:
     """One checked run of the twin: the user call; its window sums
     against the CUDA path's on the same inputs, window by window after
     decoding; each captured kernel call against its plain version, timed
     (3 reps; `smvp_rows` on the first group), the stage-2 launch against
     the chain it replaced (and, with `plain_stage2`, its plain version);
     TWIN_TIMED_RUNS timed runs; the kernels' time (each shape's time by
-    its calls) and the rest."""
+    its calls) and the rest; the [stitch] line."""
     label = twin_label(curve, logn, glv)
     run = twin_user_call(curve, logn, glv, card, capture=True)
     cfg, seen, counts = run["cfg"], run.pop("seen"), run["counts"]
@@ -2632,6 +2890,9 @@ def twin_check(curve, logn: int, glv: bool, card: str,
     kern_ms = dict.fromkeys(kset, 0.0)
     for key, r in results.items():
         kern_ms[r["name"]] += counts[key] * r["ms"]
+    key = next(k for k, r in results.items() if r["name"] == "smvp_stitch")
+    stitch_floor = stitch_line(label, cfg, run, results[key], seen[key][1],
+                               lat, card)
     del seen
     ms, h2d = timed_runs(cfg, logn, "twin", card, runs=TWIN_TIMED_RUNS)
     total = sum(kern_ms.values())
@@ -2639,26 +2900,30 @@ def twin_check(curve, logn: int, glv: bool, card: str,
           f"{total:.2f} ms (" + ", ".join(f"{k} {v:.2f}" for k, v in
                                          kern_ms.items())
           + f"; each shape's time by its calls), outside the kernels "
-          f"{ms - total:.2f} ms (the stitch's torch glue, the keys' "
-          f"gather, launches, decode, Horner); launches "
+          f"{ms - total:.2f} ms (the keys' gather, the reduction's torch "
+          f"ops, launches, decode, Horner); launches "
           f"{ {k: run['launches'][k] for k in kset} } [{card}]",
           flush=True)
     return dict(label=label, logn=logn, msm_ms=ms, h2d_ms=h2d,
                 user_s=run["user_s"], kernels_ms=total, kernel_ms=kern_ms,
                 outside_ms=ms - total,
                 launches={k: run["launches"][k] for k in kset},
-                results=results, calls=counts)
+                stitch_floor_ms=stitch_floor, results=results, calls=counts)
 
 
-def twin_phase(card: str) -> dict:
-    """The [twin] runs of TWIN_RUNS, each checked."""
+def twin_phase(card: str, lat: dict | None = None) -> dict:
+    """The [twin] runs of TWIN_RUNS, each checked, then the [edge]
+    smvp_stitch shapes; with `lat` ([latency]'s), the stitch's depth
+    floors."""
     t0 = time.perf_counter()
     runs = {}
     for i, (curve, logn, glv) in enumerate(TWIN_RUNS):
         warm_plain(curve)
-        r = twin_check(curve, logn, glv, card, plain_stage2=i == 0)
+        r = twin_check(curve, logn, glv, card, plain_stage2=i == 0,
+                       lat=lat)
         runs[r["label"]] = r
         torch.cuda.empty_cache()
+    stitch_edges(card)
     seconds = time.perf_counter() - t0
     print(f"[twin] every phase passed in {seconds:.1f} s [{card}]",
           flush=True)
@@ -3336,7 +3601,8 @@ def main_on_card(t_start: float) -> int:
     for stem in ("col_prefix", "prefix_scan", "pbpr_full", "encode_mont",
                  "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
                  "glv_apply", "to_affine", "batch_inverse",
-                 "extract_buckets", "bucket_sort", "smvp_rows"):
+                 "extract_buckets", "bucket_sort", "smvp_rows",
+                 "smvp_stitch"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
             # the mangled name (bucket_sort's are no profile's)
@@ -3461,33 +3727,36 @@ def affine_entry(entry: dict, name: str, full, affine, affine_glv, lat,
     return entry
 
 
-def smvp_entry(entry: dict, twin: dict, lat: dict) -> dict:
-    """The kernels line's `smvp_rows`, from the twin's runs: its launches
-    in the user call of the BN254_S12 2^20 run and its compare there (the
-    first group), with suffix _2p16 the 2^16 run's; its depth floor, R
-    steps of the scan's lane at the G it launched with (`[latency]`);
-    its launches, time and error in every twin run."""
+def smvp_entry(entry: dict, name: str, twin: dict, lat: dict) -> dict:
+    """The kernels line's `smvp_rows` or `smvp_stitch`, from the twin's
+    runs: its launches in the user call of the BN254_S12 2^20 run and its
+    compare there (the first group), with suffix _2p16 the 2^16 run's;
+    its depth floor (`smvp_rows`: R steps of the scan's lane at the G it
+    launched with; `smvp_stitch`: the chain of dependent adds that the
+    group's keys need, each a stitch level; both from `[latency]`); its
+    launches, time and error in every twin run."""
     tr = twin["runs"]
     for logn in sorted(SIZES, reverse=True):
         sfx = "" if logn == max(SIZES) else f"_2p{logn}"
         run = tr[twin_label(CURVE, logn, False)]
-        r = next(v for v in run["results"].values()
-                 if v["name"] == "smvp_rows")
-        entry.update({f"launches{sfx}": run["launches"]["smvp_rows"],
+        r = next(v for v in run["results"].values() if v["name"] == name)
+        entry.update({f"launches{sfx}": run["launches"][name],
                       f"launched{sfx}": r["launched"],
                       f"bound_ms_mont_mul_ops{sfx}": r[
                           "bound_ms_mont_mul_ops"],
                       **result_fields(r, sfx)})
         cfg = twin_config(CURVE, logn, False)
-        R = (1 << logn) // cfg.columns
-        G = r["launched"]["threads_per_lane"]
-        entry[f"depth_floor_ms{sfx}"] = R * lat["scan_step_ms"][G]
-    entry["launches_twin"] = {k: r["launches"]["smvp_rows"]
-                              for k, r in tr.items()}
-    entry["ms_twin"] = {k: r["kernel_ms"]["smvp_rows"] for k, r in tr.items()}
+        if name == "smvp_rows":
+            R = (1 << logn) // cfg.columns
+            G = r["launched"]["threads_per_lane"]
+            entry[f"depth_floor_ms{sfx}"] = R * lat["scan_step_ms"][G]
+        else:
+            entry[f"depth_floor_ms{sfx}"] = run["stitch_floor_ms"]
+    entry["launches_twin"] = {k: r["launches"][name] for k, r in tr.items()}
+    entry["ms_twin"] = {k: r["kernel_ms"][name] for k, r in tr.items()}
     entry["max_abs_err_twin"] = max(
         v["max_abs_err"] for r in tr.values() for v in r["results"].values()
-        if v["name"] == "smvp_rows")
+        if v["name"] == name)
     entry["bit_exact"] = True
     entry["at"] = (f"the XLA path's first window group at n=2^{max(SIZES)} "
                    f"(suffix _2p16: n=2^16), BN254_S12")
@@ -3510,7 +3779,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     rests = {logn: rest_split(logn) for logn in SIZES}
     profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
     shard_run = sharded_phase(card)
-    twin = twin_phase(card)
+    twin = twin_phase(card, lat)
     cpu_checks(checks[max(SIZES)]["pbpr_edges"], card)
     host = host_phases(card)
 
@@ -3536,8 +3805,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             entries.append(affine_entry(entry, name, affine_big, affine,
                                         affine_glv, lat, profiles))
             continue
-        if name == "smvp_rows":
-            entries.append(smvp_entry(entry, twin, lat))
+        if name in ("smvp_rows", "smvp_stitch"):
+            entries.append(smvp_entry(entry, name, twin, lat))
             continue
         for logn in sorted(SIZES, reverse=True):
             # the first compared call of the kernel (padd_batch: i16 -> i32;

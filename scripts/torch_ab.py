@@ -35,7 +35,9 @@ default schedule:
   - what ptxas said of every kernel at L = 22 and of any kernel with a
     stack frame or spills;
   - the MSM end to end at 2^16 and 2^20, without GLV and with it, as
-    `chip_smoke.py` times it.
+    `chip_smoke.py` times it, and the same for the XLA path
+    (`backend="xla"`, the twin of `chip_smoke.py`'s `[twin]`) where the
+    checkout's `chip_smoke.py` has it.
 Then, once each checkout has run, the multiply's instructions by kind in
 each checkout's own build (`cuobjdump -sass`, counted by this
 checkout's `chip_smoke.py`): the `encode_mont` kernel, which inlines it,
@@ -176,6 +178,11 @@ def one(root: str) -> None:
             label = "msm-glv" if glv else "msm"
             ms, _ = cs.timed_runs(cs.config(C, logn, glv), logn, label, "")
             out.append(f"{label} 2^{logn} {ms:.2f} ms")
+    if hasattr(cs, "twin_config"):
+        for logn in (16, 20):
+            ms, _ = cs.timed_runs(cs.twin_config(C, logn, False), logn,
+                                  "twin", "")
+            out.append(f"twin 2^{logn} {ms:.2f} ms")
     for line in out:
         print(f"[ab] {root} {line}", flush=True)
 

@@ -110,8 +110,8 @@ def old_bucket_accumulate(xs_m, ys_m, digits, cfg):
         return torch.where(b[1], b[0], s), a[1] | b[1]
 
     trailing = torch.stack(carry)
-    scanned, _ = smvp.associative_scan(comb,
-                                       (trailing, (~allsame) | (~cont)))
+    scanned, _ = kernels.associative_scan(
+        comb, (trailing, (~allsame) | (~cont)))
     P = torch.cat([kernels.inf_stacked(curve, (Wg, 1), dev),
                    scanned[..., :-1]], dim=-1)
     cont_next = torch.cat([cont[:, 1:], no], dim=-1)
@@ -433,37 +433,41 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 
 
 def stitch_combines(C: int) -> int:
-    """Combines (padd_batch launches) of `smvp.associative_scan` over C
-    columns."""
+    """Combines of `kernels.associative_scan` over C columns (the
+    padd_batch launches of the stitch before `kernels.smvp_stitch`)."""
     count = [0]
 
     def comb(a, b):
         count[0] += 1
         return a[0] + b[0], a[1] | b[1]
 
-    smvp.associative_scan(comb, (torch.zeros(C, dtype=torch.int64),
-                                 torch.zeros(C, dtype=torch.bool)))
+    kernels.associative_scan(comb, (torch.zeros(C, dtype=torch.int64),
+                                    torch.zeros(C, dtype=torch.bool)))
     return count[0]
 
 
 def test_stitch_combines():
-    """21 combines at C = 2048 and 25 at 8192: with the inject, 22 and 26
-    padd_batch launches a group (BN254_S12 at 2^16 and 2^20)."""
+    """21 combines at C = 2048 and 25 at 8192: with the inject, the 22
+    and 26 padd_batch launches a group (BN254_S12 at 2^16 and 2^20) that
+    one smvp_stitch launch took over; the scan's levels of
+    `kernels.smvp_stitch_levels`, as many."""
     assert stitch_combines(2048) == 21 and stitch_combines(8192) == 25
     assert [stitch_combines(m) for m in (1, 2, 3, 4, 8)] == [0, 1, 2, 3, 5]
+    for C in (1, 2, 3, 4, 8, 2048, 8192):
+        assert len(kernels.smvp_stitch_levels(C)) == stitch_combines(C)
 
 
 def test_windows_device_launches(monkeypatch):
     """The wrappers `_windows_device` calls, counted on CPU tensors: per
-    group one bucket_sort, one smvp_rows and the stitch's combines and
-    inject on padd_batch; then two pbpr_stage1 (stage 1, stage 2), the
-    halving tree and the last add on padd_batch, log2 Bt doublings. At
-    BN254_S12 2^16 (5 groups, C = 2048, T = 256, Bt = 16) that is 119
-    padd_batch calls, and at 2^20 (16 groups, C = 8192, T = 512, Bt = 64)
-    426."""
+    group one bucket_sort, one smvp_rows and one smvp_stitch; then two
+    pbpr_stage1 (stage 1, stage 2), the halving tree and the last add on
+    padd_batch, log2 Bt doublings. At BN254_S12 2^16 (5 groups, T = 256,
+    Bt = 16) that is 9 padd_batch calls, and at 2^20 (16 groups, T = 512,
+    Bt = 64) 10."""
     counts = {}
-    for name in ("padd_batch", "bucket_sort", "smvp_rows", "pbpr_stage1",
-                 "pdbl_batch", "encode_mont", "decompose_digits"):
+    for name in ("padd_batch", "bucket_sort", "smvp_rows", "smvp_stitch",
+                 "pbpr_stage1", "pdbl_batch", "encode_mont",
+                 "decompose_digits"):
         fn = getattr(kernels, name)
 
         def wrap(*a, _fn=fn, _name=name, **kw):
@@ -483,8 +487,7 @@ def test_windows_device_launches(monkeypatch):
     tree = T.bit_length() - 1
     assert counts == {
         "encode_mont": 2, "decompose_digits": 1, "bucket_sort": G,
-        "smvp_rows": G, "pbpr_stage1": 2, "pdbl_batch": Bt.bit_length() - 1,
-        "padd_batch": G * (stitch_combines(cfg.columns) + 1) + tree + 1}
-    for groups, C, T, want in ((5, 2048, 256, 119), (16, 8192, 512, 426)):
-        assert groups * (stitch_combines(C) + 1) + (T.bit_length() - 1) \
-            + 1 == want
+        "smvp_rows": G, "smvp_stitch": G, "pbpr_stage1": 2,
+        "pdbl_batch": Bt.bit_length() - 1, "padd_batch": tree + 1}
+    for T, want in ((256, 9), (512, 10)):
+        assert (T.bit_length() - 1) + 1 == want

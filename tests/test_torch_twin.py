@@ -133,8 +133,8 @@ def test_associative_scan_order_matches_jax(m):
         assert a[0].numel() and a[0].shape == b[0].shape
         return _mix(a, b)
 
-    got = smvp.associative_scan(nonempty_mix, (torch.from_numpy(v),
-                                               torch.from_numpy(f)))
+    got = kernels.associative_scan(nonempty_mix, (torch.from_numpy(v),
+                                                  torch.from_numpy(f)))
     assert np.array_equal(np.asarray(want[0]), got[0].numpy())
     assert np.array_equal(np.asarray(want[1]), got[1].numpy())
 

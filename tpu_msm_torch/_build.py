@@ -67,6 +67,9 @@ SIGNATURES = {
     "msm_extract_buckets_limits": [_I, _I, _P, _P, _P, _P],
     "msm_smvp_rows": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _I,
                       _I64, _P, _P, _P],
+    "msm_smvp_stitch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _P, _P, _P],
+    "msm_smvp_stitch_limits": [_I, _I, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

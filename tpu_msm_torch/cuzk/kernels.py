@@ -64,7 +64,18 @@ package's XLA path:
 
 It walks the rows of `cuzk/smvp.bucket_accumulate` on prefix_scan's lane
 (csrc/scan_lane.cuh); its plain version is the loop of torch ops on
-`ops/complete.pmadd` that the port ran before.
+`ops/complete.pmadd` that the port ran before. One more takes the step
+after it:
+
+  wrapper            replaces                              source
+  smvp_stitch        tpu_msm/cuzk/smvp.py:112-155, the     csrc/smvp_stitch.cu
+                     associative_scan across columns and
+                     the inject
+
+It runs XLA's scan tree in place, level by level, on the shared add of
+csrc/padd_lane.cuh in one cooperative launch; its plain version is the
+recursion `associative_scan` on `padd_batch_plain`, which the port ran as
+a `padd_batch` launch a level before.
 
 `psub_batch` is `padd_batch` of `pneg_stacked(q)`; on a CUDA tensor the
 padd kernel negates q itself as it loads it. `pneg_stacked` and
@@ -76,7 +87,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -104,15 +115,16 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
                                  "pbpr_full", "pdbl_batch", "pbpr_stage1",
                                  "globalize", "glv_apply", "to_affine",
                                  "batch_inverse", "bucket_sort",
-                                 "extract_buckets", "smvp_rows")}
+                                 "extract_buckets", "smvp_rows",
+                                 "smvp_stitch")}
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
 """The geometry that the last launch of `prefix_scan`, `col_prefix`,
 `padd_batch`, `pbpr_full`, `pdbl_batch`, `pbpr_stage1`, `globalize`,
-`bucket_sort`, `extract_buckets` and `smvp_rows` passed to its kernel,
-and the plan of the last call of `to_affine` and `batch_inverse`, written
-where the kernels launch."""
+`bucket_sort`, `extract_buckets`, `smvp_rows` and `smvp_stitch` passed
+to its kernel, and the plan of the last call of `to_affine` and
+`batch_inverse`, written where the kernels launch."""
 
 
 def reset_launches() -> None:
@@ -1874,3 +1886,246 @@ def smvp_rows(pts_rows: torch.Tensor, pay: torch.Tensor, skeys: torch.Tensor,
     _check("smvp_rows", rc)
     LAUNCHED["smvp_rows"] = geo._asdict()
     return bucket, trailing
+
+
+# ---------------------------------------------------------------------------
+# 15. The XLA path's cross-column stitch
+# ---------------------------------------------------------------------------
+
+Flagged = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[a0, b0, a1, b1, ...] along the last axis (len(a) - len(b) in
+    {0, 1})."""
+    out = a.new_empty(a.shape[:-1] + (a.shape[-1] + b.shape[-1],))
+    out[..., 0::2] = a
+    out[..., 1::2] = b
+    return out
+
+
+def associative_scan(combine: Callable[[Flagged, Flagged], Flagged],
+                     elems: Flagged) -> Flagged:
+    """Inclusive scan along the last axis of (points, flags) with the
+    recursion of `jax.lax.associative_scan`: pairs are combined, the
+    halved sequence is scanned, then the even positions are combined
+    with the odd results. A non-commutative `combine` (a point sum under
+    segment flags) then sees its operands in XLA's order, level by
+    level."""
+    pts, flags = elems
+    m = pts.shape[-1]
+    if m < 2:
+        return elems
+    odd = associative_scan(combine, combine(
+        (pts[..., 0:-1:2], flags[..., 0:-1:2]),
+        (pts[..., 1::2], flags[..., 1::2])))
+    # at m == 2 XLA combines two empty slices; no combine runs here, and
+    # the even part is the first element alone
+    even = (pts[..., :1], flags[..., :1])
+    if m > 2:
+        left = odd if m % 2 else (odd[0][..., :-1], odd[1][..., :-1])
+        rest = combine(left, (pts[..., 2::2], flags[..., 2::2]))
+        even = (torch.cat([even[0], rest[0]], dim=-1),
+                torch.cat([even[1], rest[1]], dim=-1))
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def smvp_stitch_plain(bucket: torch.Tensor, trailing: torch.Tensor,
+                      skeys: torch.Tensor, curve: CurveParams, C: int
+                      ) -> torch.Tensor:
+    dev = bucket.device
+    Wg, n = skeys.shape
+    R = n // C
+    B = bucket.shape[-1] - 2
+
+    # each column's first and last key; keys are sorted, so a column
+    # holds one run throughout where the two are equal
+    kc = skeys.reshape(Wg, C, R).long()
+    key_first, key_last = kc[..., 0], kc[..., -1]
+    allsame = key_first == key_last                              # (Wg, C)
+    w_idx = torch.arange(Wg, device=dev)[:, None]
+    spare = B + 1
+
+    no = torch.zeros((Wg, 1), dtype=torch.bool, device=dev)
+    cont = torch.cat([no, key_last[:, :-1] == key_first[:, 1:]], dim=-1)
+
+    def comb(a: Flagged, b: Flagged) -> Flagged:
+        s = padd_batch_plain(a[0], b[0], curve)
+        return torch.where(b[1], b[0], s), a[1] | b[1]
+
+    scanned, _ = associative_scan(comb, (trailing, (~allsame) | (~cont)))
+    # exclusive prefix: the trailing-chain sum arriving at column c
+    P = torch.cat([inf_stacked(curve, (Wg, 1), dev),
+                   scanned[..., :-1]], dim=-1)
+
+    cont_next = torch.cat([cont[:, 1:], no], dim=-1)
+    inject = cont & ((~allsame) | (~cont_next))
+    cur = bucket[:, :, w_idx, key_first]
+    fixed = padd_batch_plain(cur, P, curve)
+    bucket[:, :, w_idx, torch.where(inject, key_first, spare)] = \
+        torch.where(inject, fixed, cur)
+    # the kernel writes no spare slot: infinity, as the row walk left it
+    bucket[..., spare] = inf_stacked(curve, (Wg,), dev)
+    return bucket
+
+
+@functools.lru_cache(maxsize=None)
+def smvp_stitch_levels(C: int) -> tuple:
+    """`associative_scan` over C elements as in-place levels, in the
+    order the kernel runs them: a tuple of levels, each a tuple of (a, b)
+    positions, the level setting v[b] = combine(v[a], v[b]) at all its
+    pairs at once (a < b; no level reads a position it writes).
+
+    The recursion at depth j holds C >> j elements; element e lives at
+    position (e + 1) 2^j - 1, where its right operand of depth j - 1
+    lived. Going down (j = 0, 1, ... while C >> j >= 2) the pairs of
+    depth j combine into depth j + 1: a = (2e + 1) 2^j - 1, b = (2e + 2)
+    2^j - 1. Coming back up (j from the deepest, while C >> j >= 3) the
+    even element 2e >= 2 of depth j takes the scanned depth-(j + 1)
+    element e - 1 before it: a = e 2^(j+1) - 1, b = (2e + 1) 2^j - 1,
+    whose value there is still depth j's; the odd elements are the
+    depth-(j + 1) results already in place, element 0 stays as it is
+    (and at C >> j == 2 there is nothing else)."""
+    up, down = [], []
+    j = 0
+    while C >> j >= 2:
+        m = C >> j
+        up.append(tuple((((2 * e + 1) << j) - 1, ((2 * e + 2) << j) - 1)
+                        for e in range(m // 2)))
+        if m >= 3:
+            down.append(tuple(((e << (j + 1)) - 1, ((2 * e + 1) << j) - 1)
+                              for e in range(1, (m - 1) // 2 + 1)))
+        j += 1
+    return tuple(up + down[::-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _stitch_schedule(C: int, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`smvp_stitch_levels(C)` on the device, as the kernel reads it: the
+    (pairs, 2) int32 (a, b) of every level in order, and each level's
+    first pair, one more entry at the end (levels + 1 int32)."""
+    levels = smvp_stitch_levels(C)
+    starts = [0]
+    for lv in levels:
+        starts.append(starts[-1] + len(lv))
+    pairs = torch.tensor([p for lv in levels for p in lv], dtype=I32
+                         ).reshape(-1, 2)
+    return pairs.to(device), torch.tensor(starts, dtype=I32, device=device)
+
+
+class StitchGeometry(NamedTuple):
+    threads_per_lane: int
+    lanes_per_block: int
+    blocks: int
+    items_per_lane: int
+    levels: int
+    threads: int
+    shared_bytes: int
+
+
+def smvp_stitch_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
+                         threads: int,
+                         threads_per_lane: int = PADD_THREADS_PER_LANE,
+                         num_limbs: int = 22, limb_bits: int = 12
+                         ) -> StitchGeometry:
+    """One smvp_stitch launch on Wg windows of C columns on a card of
+    `sms` SMs that holds `blocks_per_sm` blocks of `threads` threads each
+    (`msm_smvp_stitch_limits`): a pure function, so the CPU tests can
+    hold it.
+
+    An add is a lane of `threads_per_lane` threads of one warp (32 //
+    threads_per_lane lanes a warp, its last threads idle), as in
+    col_prefix, with 15 L + 1 int32 words of shared memory and two
+    words of its item's positions. The widest level is the inject's,
+    one item a column: Wg C items (the scan's first level has Wg
+    floor(C / 2)). The kernel synchronises the whole grid between
+    levels, so every block must be resident at once: never more than
+    sms * blocks_per_sm blocks; with more items than lanes, a lane takes
+    every (blocks * lanes_per_block)-th, `items_per_lane` at most.
+    `levels` counts the scan's levels (`smvp_stitch_levels`); the
+    copy-in before them and the inject after them are one barrier
+    each."""
+    G = threads_per_lane
+    if (min(Wg, C, sms, threads, G, num_limbs, limb_bits) < 1
+            or blocks_per_sm < 1 or threads % 32 or G > 32):
+        raise ValueError("smvp_stitch_geometry: no resident block "
+                         f"(Wg={Wg}, C={C}, sms={sms}, "
+                         f"blocks_per_sm={blocks_per_sm}, threads={threads}, "
+                         f"threads_per_lane={G})")
+    lanes = (threads // 32) * (32 // G)
+    total = Wg * C
+    blocks = min(-(-total // lanes), sms * blocks_per_sm)
+    shared = 4 * (lanes * ((15 * num_limbs | 1) + 2)
+                  + _static_shared_words(num_limbs, limb_bits))
+    _fits_block("smvp_stitch_geometry", shared)
+    return StitchGeometry(G, lanes, blocks, -(-total // (blocks * lanes)),
+                          len(smvp_stitch_levels(C)), threads, shared)
+
+
+@functools.lru_cache(maxsize=None)
+def _smvp_stitch_limits(curve: CurveParams, device: torch.device
+                        ) -> Tuple[int, int, int, int]:
+    """(SMs, resident blocks an SM, threads a block, threads an add) of
+    the kernel."""
+    L, w = _profile("smvp_stitch", curve)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        rc = _build.library().msm_smvp_stitch_limits(
+            L, w, *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError("smvp_stitch: occupancy query failed "
+                           f"(cudaError_t {rc})")
+    per_sm, sms, threads, per_lane = (v.value for v in out)
+    return sms, per_sm, threads, per_lane
+
+
+def smvp_stitch(bucket: torch.Tensor, trailing: torch.Tensor,
+                skeys: torch.Tensor, curve: CurveParams, C: int
+                ) -> torch.Tensor:
+    """The cross-column stitch of `cuzk/smvp.bucket_accumulate` (the
+    associative_scan and inject of tpu_msm/cuzk/smvp.py:112-155) on one
+    window group, in place.
+
+    bucket: (3, L, Wg, B + 2) int32, `smvp_rows`' buckets (slot B + 1
+        the spare, at infinity); trailing: (3, L, Wg, C) int32, its
+        lanes' trailing sums; skeys: (Wg, n) int32 sorted keys, n a
+        multiple of C (column c holds positions c R .. c R + R - 1).
+    A column whose first key equals the last key of the column before
+    continues that column's run; the flagged inclusive scan of the
+    trailing sums (a flag where a column does not continue, or holds
+    more than one run), in XLA's tree and operand order, gives each
+    column the sum P arriving at it, and the first run of each column
+    that continues a run and ends in it (or holds more than one) gets
+    bucket[w, first key] = padd(bucket[w, first key], P). Returns
+    `bucket`, written in place; the spare slot stays infinity.
+    `smvp_stitch_geometry` picks the launch."""
+    if (bucket.dim() != 4 or trailing.dim() != 4 or skeys.dim() != 2
+            or C < 1 or skeys.shape[1] % C or bucket.shape[3] < 2
+            or trailing.shape != bucket.shape[:3] + (C,)
+            or bucket.shape[:2] != (3, curve.num_limbs)
+            or skeys.shape[0] != bucket.shape[2]):
+        raise ValueError(f"smvp_stitch: bucket {tuple(bucket.shape)}, "
+                         f"trailing {tuple(trailing.shape)}, keys "
+                         f"{tuple(skeys.shape)} for C={C}")
+    if not _on_cuda("smvp_stitch", bucket, trailing, skeys):
+        return smvp_stitch_plain(bucket, trailing, skeys, curve, C)
+    L, w = _profile("smvp_stitch", curve)
+    _need("smvp_stitch", bucket, I32, 4)
+    _need("smvp_stitch", trailing, I32, 4)
+    _need("smvp_stitch", skeys, I32, 2)
+    dev = bucket.device
+    Wg, n = skeys.shape
+    geo = smvp_stitch_geometry(Wg, C, *_smvp_stitch_limits(curve, dev), L, w)
+    pairs, starts = _stitch_schedule(C, dev)
+    scan = torch.empty_like(trailing)
+    flags = torch.empty((Wg, C), dtype=I32, device=dev)
+    rc = _build.library().msm_smvp_stitch(
+        L, w, bucket.data_ptr(), trailing.data_ptr(), skeys.data_ptr(),
+        scan.data_ptr(), flags.data_ptr(), pairs.data_ptr(),
+        starts.data_ptr(), Wg, C, n // C, bucket.shape[3], geo.levels,
+        geo.threads_per_lane, geo.blocks, _consts(curve, dev).data_ptr(),
+        ctypes.addressof(_wide_consts(curve)), _stream(bucket))
+    _check("smvp_stitch", rc)
+    LAUNCHED["smvp_stitch"] = geo._asdict()
+    return bucket

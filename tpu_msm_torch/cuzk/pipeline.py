@@ -45,7 +45,7 @@ def _windows_device(xs: torch.Tensor, ys: torch.Tensor,
     """The XLA path's device program (JAX `cuzk/pipeline.py`
     `_windows_device`): Montgomery encoding and the signed digits
     (`decompose`; under GLV `glv.apply_glv`), then for each window group
-    the sort and the row walk of `smvp.bucket_accumulate`, then the
+    the sort, row walk and stitch of `smvp.bucket_accumulate`, then the
     two-stage bucket reduction `pbpr.bucket_reduce`. Takes the planar
     inputs of `windows_device` and returns the same (3, L, Wp) int32
     window sums, so `MSMPipeline._decode_windows` reads both. The
@@ -58,12 +58,14 @@ def _windows_device(xs: torch.Tensor, ys: torch.Tensor,
     On CUDA tensors it launches `encode_mont` (twice), `decompose_digits`
     (once; under GLV `glv_apply` and the `decompose_digits` of
     `apply_glv`), per window group `bucket_sort` (its launches inside
-    one call), `smvp_rows` (the row walk) and `padd_batch` (the stitch's
-    levels and the inject), then `pbpr_stage1` (stage 1, and stage 2 as
-    one more launch), `padd_batch` (the halving tree and the last add)
-    and `pdbl_batch` (log2 Bt doublings). At BN254_S12 2^16 (5 groups)
-    that is 119 `padd_batch` launches, 5 each of `bucket_sort` and
-    `smvp_rows`, 2 of `pbpr_stage1` and 4 of `pdbl_batch`."""
+    one call), `smvp_rows` (the row walk) and `smvp_stitch` (the stitch
+    across columns and the inject), then `pbpr_stage1` (stage 1, and
+    stage 2 as one more launch), `padd_batch` (the halving tree and the
+    last add) and `pdbl_batch` (log2 Bt doublings). At BN254_S12 2^16
+    (5 groups, T = 256) that is 5 each of `bucket_sort`, `smvp_rows` and
+    `smvp_stitch`, 2 of `pbpr_stage1`, 9 of `padd_batch` and 4 of
+    `pdbl_batch`; at 2^20 (16 groups, T = 512) 16 of each of the three,
+    10 of `padd_batch` and 6 of `pdbl_batch`."""
     curve = cfg.curve
     L = curve.num_limbs
     W, Wg, G = cfg.num_windows, cfg.subtask_group, cfg.num_groups
