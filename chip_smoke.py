@@ -13,8 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      (`msm::mul_wide` in prefix_scan's object; `encode_mont` inlines it)
      beside the parent's counts before its rows were carry chains;
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
-     and 2^20 (captured from a warm-up run of the device program, without
-     GLV and with it): the CUDA kernel against its plain PyTorch version
+     and 2^20 (captured from a warm-up run of the device program on the
+     wire dtypes, int16 limbs and uint16 halfwords, without GLV and with
+     it; `col_prefix` on the scan output in place, the captured view's
+     strides kept; `encode_mont`, off the path, on the int32
+     x limbs): the CUDA kernel against its plain PyTorch version
      on the same CUDA inputs, bit-identical, with times from CUDA events
      (a kernel under QUEUE_BELOW_MS back to back is timed again queued
      behind a busy call, which leaves out its wrapper's host cost; both
@@ -57,7 +60,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      number of threads per lane and the launcher's pick;
      `padd_batch` and `psub_batch` at F = 1, 37 and 333 with infinity on
      either side, P + P, P + (-P) and int16 limbs at the ends of the
-     ledger, and `encode_mont` on 0, 1 and p - 1; `pbpr_stage1` at
+     ledger, and `encode_mont` on 0, 1 and p - 1; `encode_rows` on 0, 1,
+     p - 1 (int32 and int16), 1, 127, 129 and 1,000 lanes and a slice of
+     the wire's columns, `decompose_digits` on uint16, int32 and sliced
+     halfwords with three zero rows; `pbpr_stage1` at
      (Wp, B, T) = STAGE1_EDGES (T = 1 with an odd lane count, T = B, a
      slice of 3 buckets) with infinity and P + P in the chains, int16 and
      int32 buckets; `globalize` at (R, F) = GLOBALIZE_EDGES (F = 1, R = 1,
@@ -84,9 +90,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      window_sums + host Horner on staged inputs, h2d timed apart;
   7. the GLV path: the same call with the default schedule and glv=True,
      on the same inputs, EXACT against the same oracle, counted and timed
-     the same way (one `glv_apply` and one `decompose_digits` a call);
-     before it, at 2^16 and 2^20 (`[apply_glv]`), `glv_apply` against
-     its plain version on apply_glv's inputs with the edge scalars (0, 1,
+     the same way (stage 1 two launches: `encode_rows` and
+     `decompose_digits`, under GLV `glv_apply` and `decompose_digits`;
+     `encode_mont` none); before it, at 2^16 and 2^20 (`[apply_glv]`),
+     `glv_apply`'s rows form (`glv_rows`, the wire limbs encoded in the
+     kernel) against its plain version on stage 1's inputs with the edge
+     scalars (0, 1,
      r - 1, 2^15, lambda, r - lambda, +-max_abs, k1, k2 or both negative)
      in the first lanes, each edge lane also against the python-int
      split, the digits of the one `decompose_digits` against the plain
@@ -128,8 +137,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      `batch_inverse`, run once, zero at the edges and z^-1 z = 1
      elsewhere, timed; then (`[rest]`) one real window_sums +
      host Horner at 2^16 and 2^20 under torch.profiler: the device time
-     of the PyTorch ops outside the port's kernels, op by op, beside the
-     kernels' own, and the d2h, decode and Horner on the host clock;
+     of the PyTorch ops outside the port's kernels, op by op and by input
+     shape, beside the kernels' own, and the d2h, decode and Horner on the
+     host clock; it fails if a PyTorch op with device time read a tensor
+     with an axis as long as the stream's lanes; then (`[large]`,
+     `large_phase`) BN254_S12 at 2^22 in one pass and 2^24 in four on the
+     static schedule, window_sums + Horner on wire inputs on the card,
+     EXACT, counted, `encode_rows`, `decompose_digits` and `col_prefix`
+     at 2^22 against their plain versions, timed, with the peak device
+     memory;
   9. every profile of PROFILES (`run_profile`: BLS12_377_S12 at 2^16
      and 2^20, BN254_S13 and BLS12_377_S13 at 2^16, each with its own
      inputs from gen_planar_inputs(seed=99, k_base=64)): at each size
@@ -226,7 +242,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      off-curve request that must get the error frame; wall times and
      the server's compute_ms;
  18. `[where]` and `[rest]` lines, then one JSON line {"kernels": [...]}
-    with all sixteen kernels (to_affine and batch_inverse with their
+    with all seventeen kernels (`encode_rows` with its
+    2^22 numbers as `_2p22`; to_affine and batch_inverse with their
     user calls at K = 2^20 - 3, to_affine also on the window sums;
     pbpr_full with the geometry the user call
     launched, from kernels.LAUNCHED; `bucket_sort` with torch.sort's time
@@ -303,11 +320,23 @@ PROFILES = ((BLS12_377_S12, (16, 20)), (BN254_S13, (16,)),
             (BLS12_377_S13, (16,)))
 PROFILE_FULL = BLS12_377_S12
 DEVICE = "cuda"   # a rehearsal without a card sets "cpu" and tiny SIZES
-MAIN = ("encode_mont", "decompose_digits", "prefix_scan", "col_prefix",
+MAIN = ("encode_rows", "decompose_digits", "prefix_scan", "col_prefix",
         "bucket_sort", "extract_buckets", "pbpr_full")
-KERNELS = MAIN + ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
-                  "glv_apply", "to_affine", "batch_inverse", "smvp_rows",
-                  "smvp_stitch")
+KERNELS = MAIN + ("encode_mont", "padd_batch", "pdbl_batch", "pbpr_stage1",
+                  "globalize", "glv_apply", "to_affine", "batch_inverse",
+                  "smvp_rows", "smvp_stitch")
+
+
+def path_kernels(glv: bool) -> tuple:
+    """The kernels of the main path; under GLV `glv_apply` (its rows
+    form, `kernels.glv_rows`) writes the row table in `encode_rows'`
+    place."""
+    return tuple("glv_apply" if glv and k == "encode_rows" else k
+                 for k in MAIN)
+
+
+# The wrapper that launches a kernel under another name.
+WRAPPER = {"glv_apply": "glv_rows"}
 # (Wg, C, R) of the scan's lane sweep. On 132 SMs a block of G = 6 (20
 # lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
 # second block of G = 2 (64 lanes) above 8,448; the launcher's rule
@@ -324,7 +353,8 @@ SCHEDULE = dict(window_size=16, columns=8192, pbpr_threads=512,
 # name: (source, the TPU kernel it replaces, the path that launches it)
 SOURCES = {
     "encode_mont": ("tpu_msm_torch/csrc/encode_mont.cu",
-                    "tpu_msm/cuzk/kernels.py:94", "main, glv, twin"),
+                    "tpu_msm/cuzk/kernels.py:94",
+                    "cuzk/decompose.points_to_mont; off every path"),
     "decompose_digits": ("tpu_msm_torch/csrc/decompose_digits.cu",
                          "tpu_msm/cuzk/kernels.py:439", "main, glv, twin"),
     "prefix_scan": ("tpu_msm_torch/csrc/prefix_scan.cu",
@@ -358,6 +388,11 @@ SOURCES = {
                     "tpu_msm/cuzk/pipeline_pallas.py:208", "main, glv, twin"),
     "extract_buckets": ("tpu_msm_torch/csrc/extract_buckets.cu",
                         "tpu_msm/cuzk/pipeline_pallas.py:292", "main, glv"),
+    # XLA's part of stage 1 around the encode kernel: the casts and the
+    # (n, 2L) int16 row table (pipeline_pallas.py:141-143, :258)
+    "encode_rows": ("tpu_msm_torch/csrc/encode_mont.cu",
+                    "tpu_msm/cuzk/pipeline_pallas.py:258",
+                    "main, twin, sharded"),
     # the device loop XLA compiles for the JAX package's XLA path: the
     # lax.fori_loop of bucket_accumulate's row walk
     "smvp_rows": ("tpu_msm_torch/csrc/smvp_rows.cu",
@@ -398,7 +433,8 @@ def mul_wide_mads(L: int, w: int) -> int:
 
 # The kernels whose Montgomery multiply is the word-wide one: their
 # operations bound counts mul_wide_mads, and mont_mul_ops beside it.
-WIDE = ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
+WIDE = ("encode_mont", "encode_rows", "prefix_scan", "col_prefix",
+        "padd_batch",
         "pdbl_batch", "pbpr_stage1", "globalize", "pbpr_full", "glv_apply",
         "to_affine", "batch_inverse", "extract_buckets", "smvp_rows",
         "smvp_stitch")
@@ -453,6 +489,13 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         # the kernel reads only the halfwords of a scalar below r
         hs = (curve.scalar_modulus.bit_length() + 15) // 16
         ins = args[:2] + (args[2][:hs],) + args[3:]
+    if name == "decompose_digits":
+        # the kernel reads only the halfwords its W windows touch: the
+        # top window's first and, off a halfword's start, the next
+        hw, s, W = args[:3]
+        top = (W - 1) * s
+        ins = (hw[:min(hw.shape[0], (top >> 4) + 1 + (top % 16 > 0))],
+               ) + args[1:]
     nbytes = sum(a.numel() * a.element_size() for a in ins + as_tuple(out)
                  if isinstance(a, torch.Tensor))
     if name == "smvp_stitch":
@@ -471,6 +514,8 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
                   + (ends - Wg) * 3 * L * out.element_size())
     if name == "encode_mont":
         ops = args[0].shape[1] * mm
+    elif name == "encode_rows":
+        ops = args[0].shape[1] * 2 * mm
     elif name == "decompose_digits":
         ops = out.numel() * 8          # shifts, masks, compare, select
     elif name == "prefix_scan":
@@ -509,7 +554,8 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         _, _, R, F = args[0].shape
         ops = R * F * MULS["padd"] * mm
     elif name == "glv_apply":
-        ops = args[0].shape[1] * (mm + 4 * GLV_SPLIT_PRODUCTS)
+        # the encode of x and y, beta x, and the split
+        ops = args[0].shape[1] * (3 * mm + 4 * GLV_SPLIT_PRODUCTS)
     elif name == "bucket_sort":
         ops = args[0].numel() * kernels.sort_passes(args[1]) * SORT_OPS
     elif name == "extract_buckets":
@@ -638,6 +684,16 @@ def timed_once(fn):
     return out, s.elapsed_time(e)
 
 
+def keep_tensor(a: torch.Tensor) -> torch.Tensor:
+    """A copy of `a` with its strides: a view that a kernel reads in place
+    (the column totals in the scan output, a pass's slice of the wire)
+    stays one, with the same gaps."""
+    if a.is_contiguous():
+        return a.clone()
+    return torch.empty_strided(a.size(), a.stride(), dtype=a.dtype,
+                               device=a.device).copy_(a)
+
+
 @contextlib.contextmanager
 def spy(seen: dict, targets, counts: dict | None = None):
     """While active, keep (name, args, kwargs, output) of the first call of
@@ -660,7 +716,8 @@ def spy(seen: dict, targets, counts: dict | None = None):
                 key = f"{name}[{args[0].dtype}->{od}]"
             # the arguments as the call found them (a wrapper may write
             # into one), the outputs as it left them
-            keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+            keep = lambda a: keep_tensor(a) if isinstance(
+                a, torch.Tensor) else a
             first = key not in seen
             kept = tuple(map(keep, args)) if first else None
             out = fn(*args, **kw)
@@ -737,8 +794,10 @@ def stage3_chain(curve, tbuf, S, cnt, buckets, Wg: int, C: int, R: int,
 
 
 def capture_inputs(curve, logn: int, glv: bool) -> dict:
-    """Run the device program once and keep the first call of every
-    kernel wrapper of the main path and, under GLV, of `apply_glv`; then
+    """Run the device program once on the wire dtypes (int16 limbs,
+    uint16 halfwords, as `timed_runs` stages them) and keep the first
+    call of every kernel wrapper of the main path and, under GLV, of
+    `glv_rows`; then
     run the stage-3 chain that `extract_buckets` replaced on the first
     window group (`stage3_chain`), so that `padd_batch` and `psub_batch`
     are kept at the shapes the main path gave them until PR 14."""
@@ -747,13 +806,13 @@ def capture_inputs(curve, logn: int, glv: bool) -> dict:
     hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
     dev = torch.device(DEVICE)
     cfg = config(curve, logn, glv)
-    targets = [(kernels, k) for k in MAIN + ("padd_batch", "psub_batch")]
-    targets += [(glv_dev, "apply_glv")]
+    targets = [(kernels, k) for k in MAIN + ("padd_batch", "psub_batch",
+                                            "glv_rows")]
     with spy({}, targets) as seen:
         pipeline_cuda.windows_device(
-            torch.from_numpy(xs.astype(np.int32)).to(dev),
-            torch.from_numpy(ys.astype(np.int32)).to(dev),
-            torch.from_numpy(hw.astype(np.int32)).to(dev), cfg)
+            torch.from_numpy(xs.astype(np.int16)).to(dev),
+            torch.from_numpy(ys.astype(np.int16)).to(dev),
+            torch.from_numpy(hw.astype(np.uint16)).to(dev), cfg)
         tbuf, S, cnt, Wg, C, R = group_shape(seen, cfg)
         buckets = seen["extract_buckets"][1][3].clone()
         stage3_chain(curve, tbuf, S, cnt, buckets, Wg, C, R,
@@ -763,7 +822,7 @@ def capture_inputs(curve, logn: int, glv: bool) -> dict:
 
 
 # A wrapper that launches another wrapper's kernel.
-KERNEL_OF = {"psub_batch": "padd_batch"}
+KERNEL_OF = {"psub_batch": "padd_batch", "glv_rows": "glv_apply"}
 # A wrapper that writes its output into an argument: that argument's
 # index. Its kernel and plain version each get their own copy of it.
 IN_PLACE = {"extract_buckets": 3, "smvp_stitch": 0}
@@ -832,15 +891,24 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
 
 def check_main_kernels(curve, seen: dict, tag: str, card: str,
                        reps: int) -> dict:
-    """Phase 3 for the seven kernels of the main path, and for
-    `padd_batch` and `psub_batch` where the capture ran the chain that
-    `extract_buckets` replaced."""
+    """Phase 3 for the seven kernels of the main path (under GLV six:
+    `glv_rows`, which writes the table there, is held in `glv_check`),
+    and for `padd_batch` and `psub_batch` where the capture ran the chain
+    that `extract_buckets` replaced; without GLV also `encode_mont`, off
+    the path, on the (L, n) int32 x limbs that `points_to_mont` hands
+    it."""
     results = {key: compare(curve, key, name, args, kw, tag, card, reps)
                for key, (name, args, kw, _) in seen.items()
                if KERNEL_OF.get(name, name) in MAIN + ("padd_batch",)}
-    missing = set(MAIN) - {r["name"] for r in results.values()}
+    glv = "glv_rows" in seen
+    missing = (set(path_kernels(glv)) - {"glv_apply"}
+               - {r["name"] for r in results.values()})
     if missing:
         raise AssertionError(f"kernels never called at {tag}: {missing}")
+    if not glv:
+        xs32 = seen["encode_rows"][1][0].to(torch.int32).contiguous()
+        results["encode_mont"] = compare(curve, "encode_mont", "encode_mont",
+                                         (xs32, curve), {}, tag, card, reps)
     for r in results.values():
         if r["name"] in ("bucket_sort", "extract_buckets"):
             r["occupancy"] = occupancy(curve, r["name"], r["launched"], tag,
@@ -1010,6 +1078,31 @@ def wide_edges(seen: dict, card: str) -> None:
     same_as_plain("encode_mont of 0, 1, p - 1", "encode_mont", (xs, CURVE))
     print(f"[edge] encode_mont bit-identical to its plain version on the "
           f"limbs of 0, 1 and p - 1 [{card}]", flush=True)
+    # stage 1 on what the main path may not give it: int32 and int16
+    # limbs of 0, 1, p - 1; lane counts about the blocks' 128 points; a
+    # slice of the columns of a wider array (a pass's inputs); uint16 and
+    # int32 halfwords with Wp > W
+    rows_in = seen["encode_rows"][1]
+    hw_in = seen["decompose_digits"][1][0]
+    cases = {"0, 1, p - 1 int32": (xs, xs.flip(1)),
+             "0, 1, p - 1 int16": (xs.to(torch.int16),
+                                   xs.flip(1).to(torch.int16))}
+    for n in (1, 127, 129, 1000):
+        cases[f"n={n} int16"] = (rows_in[0][:, :n], rows_in[1][:, :n])
+    lo, hi = 4099, 4099 + 3333
+    cases[f"columns [{lo}, {hi}) of the wire"] = (rows_in[0][:, lo:hi],
+                                                 rows_in[1][:, lo:hi])
+    for label, (x, y) in cases.items():
+        same_as_plain(f"encode_rows {label}", "encode_rows", (x, y, CURVE))
+    s_, W = seen["decompose_digits"][1][1:3]
+    hws = {"uint16": hw_in, "int32": hw_in.to(torch.int32),
+           f"uint16 columns [{lo}, {hi})": hw_in[:, lo:hi]}
+    for label, h in hws.items():
+        same_as_plain(f"decompose_digits {label} Wp = W + 3",
+                      "decompose_digits", (h, s_, W, W + 3))
+    print(f"[edge] encode_rows bit-identical to its plain version: "
+          f"{', '.join(cases)}; decompose_digits on "
+          f"{', '.join(hws)} with three zero rows [{card}]", flush=True)
 
 
 def ledger_ends(t: torch.Tensor, rng, curve, top_axis: int) -> None:
@@ -1273,15 +1366,29 @@ def device_us(row) -> float:
     return us if us is not None else row.self_cuda_time_total
 
 
+def over_the_stream(shaped: list, lanes: int) -> list:
+    """The PyTorch ops of `shaped` (dicts of op, input shapes, calls and
+    device time, as `rest_split` reads them from the profiler) that read
+    a tensor with an axis of `lanes` or more. An op whose inputs the
+    profiler gives no shape (a `cat` of a list) cannot be shown to stay
+    off the stream: it counts as over it."""
+    return [r for r in shaped if not r["shapes"]
+            or any(d >= lanes for shp in r["shapes"] for d in shp)]
+
+
 def rest_split(logn: int) -> dict:
     """What the MSM does outside the port's kernels, from one real call:
     window_sums + host Horner on staged inputs, as `timed_runs` runs it,
     under torch.profiler after a warm-up call. Each kernel's device time
     goes to the PyTorch op that launched it (the op's self device time);
     the kernels of csrc/, launched through ctypes, have no such op and are
-    summed apart. Then, on the host clock (median of 5), the d2h of the
-    window sums, their decode and the host Horner, on the device output
-    of the same program."""
+    summed apart. Every PyTorch op that kept the device busy is listed
+    with its input shapes (`wide_ops`); the call fails if one of them
+    read a tensor with an axis as long as the stream's lanes (a cast,
+    `cat`, `copy_` or `contiguous` over the stream: stage 1 and the
+    column totals are the kernels'). Then, on the host clock
+    (median of 5), the d2h of the window sums, their decode and the host
+    Horner, on the device output of the same program."""
     cfg = config(CURVE, logn, False)
     pipe = get_pipeline(cfg, DEVICE)
     n = 1 << logn
@@ -1295,7 +1402,7 @@ def rest_split(logn: int) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(DEVICE).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
         acc = call()
         wall = (time.perf_counter() - t0) * 1e3
@@ -1313,8 +1420,19 @@ def rest_split(logn: int) -> dict:
             device += us / 1e3
             if PORT_KERNEL.match(row.key):
                 port += us / 1e3
+    shaped = [dict(op=row.key, shapes=[list(x) for x in row.input_shapes
+                                       if x], calls=row.count,
+                   device_ms=device_us(row) / 1e3)
+              for row in prof.key_averages(group_by_input_shape=True)
+              if row.device_type == torch.autograd.DeviceType.CPU
+              and device_us(row) > 0]
+    wide = over_the_stream(shaped, n)
+    if wide:
+        raise AssertionError(f"2^{logn} [rest]: PyTorch ops over the "
+                             f"stream's {n} lanes on the device: {wide}")
     out = dict(wall_ms=wall, device_ms=device, kernels_ms=port,
-               ops_ms=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+               ops_ms=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+               ops_by_shape=shaped, wide_ops=len(wide))
 
     def host(fn):
         ts = []
@@ -1350,12 +1468,119 @@ def rest_line(logn: int, rest: dict, outside: float, card: str) -> None:
               "device time not measured (the profiler saw no device "
               "activity)")
     host = rest["d2h"] + rest["decode"] + rest["horner"]
+    shaped = "; ".join(f"{r['op']} {r['shapes']} x{r['calls']} "
+                       f"{r['device_ms']:.4f} ms"
+                       for r in rest["ops_by_shape"]) or "none"
+    print(f"[rest] n=2^{logn} PyTorch ops with device time, by input "
+          f"shape: {shaped}; none over the stream's lanes [{card}]",
+          flush=True)
     print(f"[rest] n=2^{logn}, one window_sums + Horner under torch.profiler:"
           f" {device}; host d2h {rest['d2h']:.3f}, decode "
           f"{rest['decode']:.3f}, Horner {rest['horner']:.3f} ms; ops and "
           f"host together {op_sum + host:.2f} ms against the {outside:.2f} ms"
           f" of the end-to-end median outside the kernels [{card}]",
           flush=True)
+
+
+# [large]: the main path at the sizes above 2^21 that a prover's MSM
+# reaches, on the static schedule (s = 16, C = 8192, Wg = 1,
+# max_points_per_pass = 2^22): 2^22 in one pass, 2^24 in four.
+LARGE_LOGN = (22, 24)
+LARGE_RUNS = {22: 3, 24: 1}
+# the kernels held against their plain versions at 2^22 (the scan's plain
+# version would take some 25 s there)
+LARGE_CHECKED = ("encode_rows", "decompose_digits", "col_prefix")
+
+
+def large_phase(card: str) -> dict:
+    """[large]: BN254_S12 at each size of LARGE_LOGN through
+    `window_sums` + host Horner on planar wire inputs on the card (int16
+    limbs, uint16 halfwords; not the user call, whose host pack of 2^22
+    python points would dominate), gen_planar_inputs(seed=99, k_base=64),
+    the static schedule: EXACT against the oracle, every launch count set
+    to 0 just before the first run and read just after (a pbpr_full a
+    pass); at 2^22 the first call of each kernel of LARGE_CHECKED against
+    its plain version, timed (`col_prefix` on the scan output in place);
+    then LARGE_RUNS timed runs, each EXACT, and the peak device memory
+    of a timed run (`torch.cuda.max_memory_allocated`)."""
+    t0 = time.perf_counter()
+    out = {}
+    for logn in LARGE_LOGN:
+        n = 1 << logn
+        ts = time.perf_counter()
+        xs, ys, hw, base = preprocess.gen_planar_inputs(CURVE, n, seed=99,
+                                                        k_base=64)
+        want = preprocess.expected_msm(base, hw, CURVE)
+        setup_s = time.perf_counter() - ts
+        cfg = static_config(n, CURVE)
+        hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
+        wire = [torch.from_numpy(a).to(DEVICE) for a in (
+            xs.astype(np.int16), ys.astype(np.int16), hw.astype(np.uint16))]
+        del xs, ys, hw
+        pipe = get_pipeline(cfg, DEVICE)
+        label = f"large 2^{logn}"
+        seen = {}
+        targets = ([(kernels, k) for k in LARGE_CHECKED]
+                   if logn == min(LARGE_LOGN) else [])
+        sync(DEVICE)
+        kernels.reset_launches()
+        with spy(seen, targets):
+            t1 = time.perf_counter()
+            acc = pipe.horner(pipe.window_sums(*wire))
+            first_s = time.perf_counter() - t1
+        launches = main_launches(label)
+        passes = -(-n // cfg.max_points_per_pass)
+        exact = ref.jac_eq(CURVE, acc, want)
+        if not exact or launches["pbpr_full"] != passes:
+            raise AssertionError(f"{label}: EXACT {exact}, "
+                                 f"{launches['pbpr_full']} passes for "
+                                 f"{passes}")
+        checked = {}
+        for name, (fn, args, kw, _) in seen.items():
+            checked[name] = compare(CURVE, f"{name}[2^{logn}]", fn, args, kw,
+                                    f"n=2^{logn}", card, 3)
+        del seen
+        on_card = torch.device(DEVICE).type == "cuda"
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(LARGE_RUNS[logn]):
+            sync(DEVICE)
+            t1 = time.perf_counter()
+            acc = pipe.horner(pipe.window_sums(*wire))
+            times.append((time.perf_counter() - t1) * 1e3)
+            if not ref.jac_eq(CURVE, acc, want):
+                raise AssertionError(f"{label}: a timed run differs from "
+                                     "the oracle")
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        ms = statistics.median(times)
+        out[f"2^{logn}"] = dict(
+            passes=passes, msm_ms=ms, runs_ms=times, first_run_s=first_s,
+            setup_s=setup_s, peak_bytes=peak, launches=launches,
+            window_size=cfg.window_size, columns=cfg.columns,
+            subtask_group=cfg.subtask_group, rows=cfg.max_points_per_pass
+            // cfg.columns, kernels=checked)
+        print(f"[large] {CURVE.name} n=2^{logn} s={cfg.window_size} "
+              f"C={cfg.columns} Wg={cfg.subtask_group} R="
+              f"{cfg.max_points_per_pass // cfg.columns} "
+              f"{passes} pass(es) of {cfg.max_points_per_pass}: window_sums + "
+              f"Horner on wire "
+              f"inputs on the card EXACT; median {ms:.2f} ms of "
+              f"{[round(t, 2) for t in times]}; peak device memory "
+              f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches="
+              f"{launches}; "
+              + "".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+                        f"bit-identical to its plain version); "
+                        for k, v in checked.items())
+              + f"inputs and oracle {setup_s:.1f} s [{card}]", flush=True)
+        del wire
+        if on_card:
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[large] every phase passed in {out['seconds']:.1f} s [{card}]",
+          flush=True)
+    return out
 
 
 def lane_sweep(curve, card: str) -> dict:
@@ -1689,7 +1914,8 @@ def check_size(logn: int, card: str):
                f"n=2^{logn} glv", card, reps)
     sweep_glv = scan_sweep(CURVE, seen, f"n=2^{logn} glv", card, reps)
     results_glv["glv_apply"] = glv_check(
-        CURVE, seen["apply_glv"][1], f"n=2^{logn} glv", card, reps)
+        CURVE, seen["glv_rows"][1][:3] + (config(CURVE, logn, True),),
+        f"n=2^{logn} glv", card, reps)
     glv_ms = results_glv["glv_apply"]["apply_glv_ms"]
     del seen
     torch.cuda.empty_cache()
@@ -1717,39 +1943,42 @@ def glv_edge_scalars(glvp) -> list:
 
 
 def glv_args(curve, logn: int) -> tuple:
-    """What the device program hands `apply_glv` at one size: the
-    Montgomery points, the (18, n) halfwords, the GLV config."""
+    """What the device program hands `glv.glv_rows` at one size: the wire
+    limbs (int16), the (18, n) halfwords (uint16), the GLV config."""
     n = 1 << logn
     xs, ys, hw, _, _ = inputs(curve, logn)
     hw = np.concatenate([hw, np.zeros((2, n), np.uint32)])
-    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(DEVICE)
-    return (kernels.encode_mont(t(xs), curve),
-            kernels.encode_mont(t(ys), curve), t(hw), config(curve, logn, True))
+    return (torch.from_numpy(xs.astype(np.int16)).to(DEVICE),
+            torch.from_numpy(ys.astype(np.int16)).to(DEVICE),
+            torch.from_numpy(hw.astype(np.uint16)).to(DEVICE),
+            config(curve, logn, True))
 
 
 def glv_check(curve, args, tag: str, card: str, reps: int) -> dict:
-    """[apply_glv]: `glv_apply` against `glv_apply_plain` on apply_glv's
-    inputs (xm, ym, hw, cfg) with the edge scalars in the first lanes,
-    timed; the digits of the one `decompose_digits` against the plain
-    version's; the edge lanes' signs and magnitudes against the python
-    ints; then `apply_glv` whole, timed."""
-    xm, ym, hw, cfg = args
+    """[apply_glv]: the GLV kernel's rows form, `glv_rows`, against
+    `glv_rows_plain` on what stage 1 hands it (xs, ys, hw, cfg: the wire
+    limbs, encoded in the kernel) with the edge scalars in the first
+    lanes, timed; the digits of the one
+    `decompose_digits`, Wp rows, against the plain version's; the edge
+    lanes' signs and magnitudes against the python ints; then stage 1
+    under GLV (`glv.glv_rows`, two launches) whole, timed."""
+    xs, ys, hw, cfg = args
     glvp = cfg.glv_params
     ks = glv_edge_scalars(glvp)
-    hw = hw.clone()
-    hw[:16, :len(ks)] = torch.tensor(
-        [int_to_limbs(k, 16, 16) for k in ks], dtype=torch.int32,
-        device=hw.device).T
-    res = compare(curve, "glv_apply", "glv_apply",
-                  (xm, ym, hw, curve, glvp), {}, tag, card, reps)
-    _, _, mags, neg1, neg2 = kernels.glv_apply(xm, ym, hw, curve, glvp)
-    W, s = cfg.num_windows, cfg.window_size
-    digits = glv_dev.apply_glv(xm, ym, hw, cfg)[2]
-    plain = kernels.glv_apply_plain(xm, ym, hw, curve, glvp)[2]
-    if not torch.equal(digits, kernels.decompose_digits_plain(plain, s, W)):
-        raise AssertionError(f"apply_glv at {tag}: digits differ from the "
+    h = hw.cpu().numpy().copy()
+    h[:16, :len(ks)] = np.array([int_to_limbs(k, 16, 16) for k in ks]).T
+    hw = torch.from_numpy(h).to(hw.device)
+    res = compare(curve, "glv_apply", "glv_rows", (xs, ys, hw, curve, glvp),
+                  {}, tag, card, reps)
+    _, mags, neg1, neg2 = kernels.glv_rows(xs, ys, hw, curve, glvp)
+    W, s, Wp = cfg.num_windows, cfg.window_size, cfg.padded_windows
+    digits = glv_dev.glv_rows(xs, ys, hw, cfg)[1]
+    plain = kernels.glv_rows_plain(xs, ys, hw, curve, glvp)[1]
+    if not torch.equal(digits, kernels.decompose_digits_plain(plain, s, W,
+                                                              Wp)):
+        raise AssertionError(f"glv_rows at {tag}: digits differ from the "
                              "plain version's")
-    n, m = xm.shape[1], mags[:, :len(ks)].cpu().tolist()
+    n, m = xs.shape[1], mags[:, :len(ks)].cpu().tolist()
     m2 = mags[:, n:n + len(ks)].cpu().tolist()
     val = lambda rows_, i: sum(int(v[i]) << (16 * j)
                                for j, v in enumerate(rows_))
@@ -1758,14 +1987,15 @@ def glv_check(curve, args, tag: str, card: str, reps: int) -> dict:
         if got != glvp.split_signed(k):
             raise AssertionError(f"glv_apply at {tag}: edge scalar {k} "
                                  f"splits to {got}")
-    ms = cuda_ms(lambda: glv_dev.apply_glv(xm, ym, hw, cfg), reps)
-    print(f"[apply_glv] {curve.name} {tag}: glv_apply bit-identical to its "
-          f"plain version on {n} points, {len(ks)} edge scalars among them "
-          f"(each equal to the python-int split); the digits of the one "
-          f"decompose_digits equal; glv_apply {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.1f} ms; apply_glv (glv_apply + "
-          f"decompose_digits, back to back) {ms:.4f} ms [{card}]",
-          flush=True)
+    ms = cuda_ms(lambda: glv_dev.glv_rows(xs, ys, hw, cfg), reps)
+    print(f"[apply_glv] {curve.name} {tag}: glv_apply's rows form "
+          f"(glv_rows, the wire limbs encoded in the kernel) bit-identical "
+          f"to its plain version on {n} points, {len(ks)} edge scalars "
+          f"among them (each equal to the python-int split); the digits "
+          f"of the one decompose_digits equal; "
+          f"glv_rows {res['ms']:.4f} ms, plain {res['plain_ms']:.1f} ms; "
+          f"stage 1 under GLV (glv_rows + decompose_digits, back to back) "
+          f"{ms:.4f} ms [{card}]", flush=True)
     return dict(res, apply_glv_ms=ms, edge_scalars=len(ks))
 
 
@@ -1794,17 +2024,18 @@ def main_path(curve, logn: int, card: str, glv: bool = False):
     if not ref.jac_eq(curve, got, want):
         raise AssertionError(f"2^{logn} {label}: MSM result differs from "
                              "the oracle")
-    idle = [k for k in MAIN if launches[k] == 0]
+    idle = [k for k in path_kernels(glv) if launches[k] == 0]
     if idle:
         raise AssertionError(f"2^{logn} {label}: kernels not launched: {idle}")
-    # under GLV one glv_apply and one decompose_digits a call, else none
-    want_glv = (1, 1) if glv else (0, 1)
-    if (launches["glv_apply"], launches["decompose_digits"]) != want_glv:
-        raise AssertionError(f"2^{logn} {label}: glv_apply and "
-                             f"decompose_digits launched "
-                             f"{launches['glv_apply']} and "
-                             f"{launches['decompose_digits']} times, "
-                             f"expected {want_glv}")
+    # stage 1 is two launches: encode_rows and decompose_digits, under GLV
+    # glv_apply (its rows form) and decompose_digits; encode_mont none
+    stage1 = {k: launches[k] for k in ("encode_rows", "glv_apply",
+                                       "decompose_digits", "encode_mont")}
+    want1 = dict(encode_rows=0 if glv else 1, glv_apply=1 if glv else 0,
+                 decompose_digits=1, encode_mont=0)
+    if stage1 != want1:
+        raise AssertionError(f"2^{logn} {label}: stage 1 launched {stage1}, "
+                             f"expected {want1}")
     used = {k: v for k, v in launches.items() if v}
     print(f"[{label}] {curve.name} n=2^{logn} tpu_variable_base_msm EXACT "
           f"in {t_user:.2f} s"
@@ -1879,7 +2110,7 @@ def where_line(label: str, logn: int, launches: dict, results: dict,
                total_ms: float, card: str, extra: str = "") -> None:
     """launches x kernel time (padd_batch: mean of its two dtype forms);
     returns the kernels' sum."""
-    names = MAIN + (("glv_apply",) if launches["glv_apply"] else ())
+    names = path_kernels(launches["glv_apply"] > 0)
     per = {name: launches[name] * statistics.mean(
         r["ms"] for r in results.values() if r["name"] == name)
         for name in names}
@@ -2170,7 +2401,7 @@ def profile_entry(name: str, prof: dict) -> dict:
         nine = prof["nine"][logn]
         r = next(v for v in (*prof["checked"][logn].values(),
                              *nine["results"].values()) if v["name"] == name)
-        if name in MAIN:
+        if name in MAIN or name == "encode_mont":
             launches = prof["runs"][logn][0][name]
         elif name == "globalize":
             launches = nine["globalize_launches"]
@@ -2659,9 +2890,9 @@ def sharded_phase(card: str) -> dict:
 # stage-2 launch is also held against its plain version
 TWIN_RUNS = ((BN254_S12, 16, False), (BN254_S12, 16, True),
              (BLS12_377_S12, 14, False), (BN254_S12, 20, False))
-# the kernels the twin launches, with glv_apply under GLV; the others
-# must stay idle
-TWIN_KERNELS = ("encode_mont", "decompose_digits", "bucket_sort",
+# the kernels the twin launches, glv_apply in encode_rows' place under
+# GLV; the others must stay idle
+TWIN_KERNELS = ("encode_rows", "decompose_digits", "bucket_sort",
                 "smvp_rows", "smvp_stitch", "padd_batch", "pbpr_stage1",
                 "pdbl_batch")
 # (Wg, n, columns) of the [edge] smvp_stitch shapes: C = min(columns, n)
@@ -2676,7 +2907,8 @@ def twin_config(curve, logn: int, glv: bool) -> MSMConfig:
 
 
 def twin_kernels(glv: bool) -> tuple:
-    return TWIN_KERNELS + (("glv_apply",) if glv else ())
+    return tuple("glv_apply" if glv and k == "encode_rows" else k
+                 for k in TWIN_KERNELS)
 
 
 def twin_label(curve, logn: int, glv: bool) -> str:
@@ -2698,7 +2930,8 @@ def twin_user_call(curve, logn: int, glv: bool, card: str,
     points = [base[i % len(base)] for i in range(n)]
     scalars = preprocess.halfwords_to_ints(hw)
     kset = twin_kernels(glv)
-    targets = [(kernels, k) for k in kset] + [(pbpr, "bucket_reduce")]
+    targets = ([(kernels, WRAPPER.get(k, k)) for k in kset]
+               + [(pbpr, "bucket_reduce")])
     seen, counts = {}, {}
     kernels.reset_launches()
     with spy(seen, targets if capture else [], counts):
@@ -2880,7 +3113,7 @@ def twin_check(curve, logn: int, glv: bool, card: str,
     kset = twin_kernels(glv)
     results = {}
     for key, (name, args, kw, _) in seen.items():
-        if name not in kset:
+        if KERNEL_OF.get(name, name) not in kset:
             continue
         if name == "pbpr_stage1" and args[2] == 1:
             results[key] = reduce_stage2_check(curve, key, args, tag, card,
@@ -3154,7 +3387,7 @@ PROFILE_LOGN = 16
 # each CUDA kernel has there (prefix_scan's scan has three template
 # arguments, pbpr_full's two).
 TRACE_NAMES = {
-    "encode_mont": (r"::encode_kernel\b",),
+    "encode_rows": (r"::encode_rows_kernel\b",),
     "decompose_digits": (r"::digits_kernel\b",),
     "prefix_scan": (r"::scan_kernel<\d+, \d+, \d+>",),
     "col_prefix": (r"::colprefix_kernel\b",),
@@ -3174,11 +3407,11 @@ MULTIPASS_PASS = 1 << 20
 SERVICE_LOGN = 16
 
 
-def main_launches(label: str) -> dict:
+def main_launches(label: str, glv: bool = False) -> dict:
     """The launch counts since the last reset; fails if a kernel of the
     main path did not launch."""
     launches = dict(kernels.LAUNCHES)
-    idle = [k for k in MAIN if launches[k] == 0]
+    idle = [k for k in path_kernels(glv) if launches[k] == 0]
     if idle:
         raise AssertionError(f"{label}: kernels not launched: {idle}")
     return {k: v for k, v in launches.items() if v}
@@ -3331,13 +3564,15 @@ def profile_traces(device: str, logdir: str, logn: int) -> dict:
                trace_lost=lost, alone={})
 
     seen = capture_inputs(CURVE, logn, True)
-    _, gargs, gkw, _ = seen["apply_glv"]
+    _, gargs, _, _ = seen["glv_rows"]
     del seen
+    gcfg = config(CURVE, logn, True)
     hw2 = np.concatenate([hw, np.zeros((2, n), np.uint32)])
     g = pipeline_cuda.windows_device(
         *(torch.from_numpy(a.astype(np.int32)).to(DEVICE)
           for a in (xs, ys, hw2)), config(CURVE, logn, False))
-    for label, fn in (("apply_glv", lambda: glv_dev.apply_glv(*gargs, **gkw)),
+    for label, fn in (("apply_glv",
+                       lambda: glv_dev.glv_rows(*gargs[:3], gcfg)),
                       ("to_affine", lambda: to_affine(g, CURVE))):
         wall = profiling.device_ms(fn, runs=3, warmup=1)
         with profiling.trace(logdir) as path:
@@ -3451,7 +3686,7 @@ def multipass_phase(card: str) -> dict:
                                     device=DEVICE)
         wall = time.perf_counter() - ts
         label = f"multipass{' glv' if glv else ''}"
-        launches = main_launches(label)
+        launches = main_launches(label, glv)
         passes = launches["pbpr_full"]
         expect = -(-n // (MULTIPASS_PASS // (2 if glv else 1)))
         if passes != expect:
@@ -3616,7 +3851,9 @@ def main_on_card(t_start: float) -> int:
     for k, v in resources.items():
         print(f"[ptxas] {k}: {v} [{card}]", flush=True)
     sass = {}
-    for stem in WIDE:
+    # each object once (encode_mont.cu holds encode_rows too)
+    for stem in dict.fromkeys(os.path.basename(SOURCES[k][0])[:-3]
+                              for k in WIDE):
         for fn, counts in sass_counts(stem).items():
             sass[f"{stem}.{fn}"] = counts
             print(f"[sass] {stem}.{fn}: " + ", ".join(
@@ -3644,6 +3881,7 @@ def warm_plain(curve) -> None:
     kernels.psub_batch_plain(z, z, curve)
     kernels.pdbl_batch_plain(z, curve)
     kernels.encode_mont_plain(z[0], curve)
+    kernels.encode_rows_plain(z[0], z[0], curve)
     kernels.decompose_digits_plain(
         torch.zeros((18, 2), dtype=torch.int32, device=DEVICE), 13, 20)
     torch.cuda.synchronize()
@@ -3777,6 +4015,7 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
     affine_glv = affine_check(CURVE, min(SIZES), card, glv=True)
     affine_big = affine_full(CURVE, AFFINE_LOGK, card)
     rests = {logn: rest_split(logn) for logn in SIZES}
+    large = large_phase(card)
     profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
     shard_run = sharded_phase(card)
     twin = twin_phase(card, lat)
@@ -3816,8 +4055,10 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                                      if v["name"] == name)
             r = first(c["main"])
             sfx = "" if logn == max(SIZES) else f"_2p{logn}"
-            if name in MAIN or name == "padd_batch":
-                # padd_batch: the main path's (0 since PR 15)
+            if name in MAIN or name in ("padd_batch", "encode_mont"):
+                # padd_batch: the main path's (0: stage 3 is
+                # extract_buckets'); encode_mont the same (0: stage 1 is
+                # encode_rows')
                 launches = runs[logn][0][name]
             elif name == "globalize":
                 launches = c["globalize_launches"]
@@ -3839,7 +4080,10 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                               f"chain_ms_glv{sfx}": rg["chain_ms"],
                               f"library_ms_glv{sfx}": rg.get("library_ms"),
                               f"launched{sfx}": r["launched"]})
-            if name in MAIN:
+            if name == "encode_rows":
+                # under GLV glv_apply writes the table (0 launches here)
+                entry[f"launches_glv{sfx}"] = runs_glv[logn][0][name]
+            elif name in MAIN:
                 rg = first(c["glv"])
                 entry.update({
                     f"launches_glv{sfx}": runs_glv[logn][0][name],
@@ -3877,6 +4121,16 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                         ("_glv", c["scan_sweep_glv"], runs_glv[logn])):
                     entry[f"threads_per_lane{key}{sfx}"] = run[3]
                     entry[f"ms_by_threads_per_lane{key}{sfx}"] = sw["ms"]
+        lg = large[f"2^{min(LARGE_LOGN)}"]
+        if name in lg["kernels"]:
+            # at the large shapes: 2^22 in one pass
+            r = lg["kernels"][name]
+            sfx = f"_2p{min(LARGE_LOGN)}"
+            entry.update({f"launches{sfx}": lg["launches"][name],
+                          f"ms{sfx}": r["ms"], f"plain_ms{sfx}": r["plain_ms"],
+                          f"bound_ms{sfx}": r["bound_ms"],
+                          f"bound_by{sfx}": r["bound_by"],
+                          f"max_abs_err{sfx}": r["max_abs_err"]})
         if name in MAIN:
             # the sharded path's launches at 2^SHARDED_LOGN: the one NCCL
             # rank's and each gloo rank's
@@ -3892,14 +4146,16 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                 if r["name"] == name)
         if name in MAIN:
             # the paths of phases 13 to 17, each counted on its own
+            # (the counts keep only kernels that launched: under GLV,
+            # glv_apply writes the table in encode_rows' place)
             entry["launches_host_phases"] = {
-                **{f"autotune {k}": v["launches"][name]
+                **{f"autotune {k}": v["launches"].get(name, 0)
                    for k, v in host["autotune"].items() if k != "seconds"},
-                "profile": host["profile"]["launches"][name],
-                **{k: v["launches"][name]
+                "profile": host["profile"]["launches"].get(name, 0),
+                **{k: v["launches"].get(name, 0)
                    for k, v in host["multipass"].items()
                    if isinstance(v, dict)},
-                "service": host["service"]["one"]["launches"][name]}
+                "service": host["service"]["one"]["launches"].get(name, 0)}
         if name == "padd_batch":
             # of which the halving tree's
             entry["launches_sharded_tree"] = {
@@ -3946,9 +4202,10 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             # run (each shape's time by its calls), the largest error
             # against the plain version at every captured shape
             tr = twin["runs"].values()
-            entry["launches_twin"] = {r["label"]: r["launches"][name]
+            entry["launches_twin"] = {r["label"]: r["launches"].get(name, 0)
                                       for r in tr}
-            entry["ms_twin"] = {r["label"]: r["kernel_ms"][name] for r in tr}
+            entry["ms_twin"] = {r["label"]: r["kernel_ms"].get(name, 0.0)
+                                for r in tr}
             entry["max_abs_err_twin"] = max(
                 v["max_abs_err"] for r in tr for v in r["results"].values()
                 if v["name"] == name)
@@ -3982,6 +4239,9 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
         "latency_32_lanes": lat, "scan_by_lanes": lanes_ms,
         "pbpr_full_edges": checks[max(SIZES)]["pbpr_edges"],
         "rest_ms": {f"2^{k}": v for k, v in rests.items()},
+        "large": {k: ({f: x for f, x in v.items() if f != "kernels"}
+                      if isinstance(v, dict) else v)
+                  for k, v in large.items()},
         "ptxas": resources, "sass": sass,
         "sharded": shard_run,
         "twin": {"runs": {k: {f: v for f, v in r.items()

@@ -22,7 +22,11 @@ default schedule:
     from a fixed seed; CUDA events around back-to-back calls, and a
     kernel under 1 ms again queued behind a busy call (`chip_smoke.py`
     `queued_ms`), which leaves out the wrapper's host cost;
-  - `apply_glv` on the inputs the 2^20 GLV device program gives it, and
+  - where the checkout has it, `encode_rows` (stage 1's row table) on
+    the inputs of its first call in the device program;
+  - `apply_glv` on the inputs the 2^20 GLV device program gives it
+    (where the checkout has it, stage 1 under GLV, `glv.glv_rows`: the
+    rows form of the GLV kernel and its `decompose_digits`), and
     `to_affine` on the window sums of the 2^16 MSM (the median of 5 warm
     calls on the host clock between synchronizes, and of the time each
     call takes to return, its host cost; and timed as the kernels
@@ -34,6 +38,10 @@ default schedule:
     plain torch version on the card) one warm call on the host clock;
   - what ptxas said of every kernel at L = 22 and of any kernel with a
     stack frame or spills;
+  - one window_sums at 2^16 and 2^20, without GLV and with it, on the
+    wire dtypes under torch.profiler (`device_work`): the device's
+    kernels and copies a call, and the device time of the PyTorch ops
+    among them;
   - the MSM end to end at 2^16 and 2^20, without GLV and with it, as
     `chip_smoke.py` times it, and the same for the XLA path
     (`backend="xla"`, the twin of `chip_smoke.py`'s `[twin]`) where the
@@ -43,6 +51,22 @@ each checkout's own build (`cuobjdump -sass`, counted by this
 checkout's `chip_smoke.py`): the `encode_mont` kernel, which inlines it,
 and `msm::mul_wide` alone in prefix_scan's object, at L = 22.
 It needs one card, and the checkouts' own `chip_smoke.py`.
+
+    python3 scripts/torch_ab.py --small parent . . parent . parent parent .
+
+runs only the 2^16 part, in turns as above (`small`), on BN254_S12:
+  - each main-path wrapper's host cost a call: `HOST_REPS` calls enqueued
+    behind a busy call (`chip_smoke.py` `busy`), so the card never holds
+    the host back, on the inputs of its first call in the 2^16 device
+    program, without GLV and with it;
+  - the device program (`pipeline_cuda.windows_device`) on the wire
+    dtypes, without GLV, with it, and as the last of the fewest window
+    shards above one (w_shards = 5: 2^16 has 5 window groups): its host
+    cost (the median time to return) and its
+    time to a synchronize (median), `SMALL_REPS` calls each;
+  - the MSM end to end without GLV and with it, as `chip_smoke.py` times
+    it, the median of `SMALL_REPS` runs, and again cut into its parts
+    (`msm_parts`).
 """
 
 import os
@@ -74,6 +98,119 @@ def host_ms(fn, runs: int, wait: bool = True) -> float:
     return statistics.median(times)
 
 
+# Calls a median or a mean of the --small mode is taken over.
+SMALL_REPS = 21
+HOST_REPS = 50
+
+
+def small(root: str) -> None:
+    """The --small mode for one checkout (see the module docstring)."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_msm_torch.constants import BN254_S12 as C
+    from tpu_msm_torch.cuzk import kernels, pipeline_cuda
+
+    logn, n = 16, 1 << 16
+    out = []
+    for glv in (False, True):
+        seen = cs.capture_inputs(C, logn, glv)
+        for key, (name, args, kw, _) in seen.items():
+            if name not in ("encode_rows", "decompose_digits", "prefix_scan",
+                            "col_prefix", "bucket_sort", "extract_buckets",
+                            "pbpr_full", "glv_rows", "glv_apply",
+                            "encode_mont"):
+                continue
+            fn = getattr(kernels, name)
+            call = lambda: fn(*args, **kw)
+            call()
+            torch.cuda.synchronize()
+            cs.busy(C)
+            t0 = time.perf_counter()
+            for _ in range(HOST_REPS):
+                call()
+            us = (time.perf_counter() - t0) * 1e6 / HOST_REPS
+            torch.cuda.synchronize()
+            out.append(f"host {'glv ' if glv else ''}{name} {us:.1f} us a "
+                       f"call (mean of {HOST_REPS}, queued)")
+        del seen
+    xs, ys, hw, _, _ = cs.inputs(C, logn)
+    wire = [torch.from_numpy(a).cuda() for a in (
+        xs.astype(np.int16), ys.astype(np.int16),
+        np.concatenate([hw, np.zeros((2, n), np.uint32)]).astype(np.uint16))]
+    G = cs.config(C, logn, False).num_groups
+    w = next(d for d in range(2, G + 1) if G % d == 0)
+    for label, glv, shards in (("main", False, 1), ("glv", True, 1),
+                               (f"shard {w}/{w}", False, w)):
+        cfg = cs.config(C, logn, glv)
+        call = lambda: pipeline_cuda.windows_device(
+            *wire, cfg, w_shards=shards, w_index=shards - 1)
+        ret, done = [], []
+        for i in range(SMALL_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i:
+                ret.append((t1 - t0) * 1e3)
+                done.append((t2 - t0) * 1e3)
+        out.append(f"windows_device 2^{logn} {label}: returns in "
+                   f"{statistics.median(ret):.3f} ms, done in "
+                   f"{statistics.median(done):.3f} ms (medians of "
+                   f"{SMALL_REPS})")
+    for glv in (False, True):
+        label = "msm-glv" if glv else "msm"
+        ms, _ = cs.timed_runs(cs.config(C, logn, glv), logn, label, "",
+                              runs=SMALL_REPS)
+        out.append(f"{label} 2^{logn} {ms:.3f} ms (median of {SMALL_REPS})")
+        out.append(f"{label} 2^{logn} parts: " + msm_parts(
+            cs, cs.config(C, logn, glv), logn, wire, C))
+    for line in out:
+        print(f"[ab-small] {root} {line}", flush=True)
+
+
+def msm_parts(cs, cfg, logn: int, wire, curve) -> str:
+    """The MSM of `chip_smoke.timed_runs` on the staged wire tensors, cut
+    into its parts on the host clock: staging and the device program
+    until it returns, until a synchronize, the decode of the window sums
+    (their d2h included), Horner; medians of SMALL_REPS runs, each
+    EXACT."""
+    import statistics
+
+    import torch
+    pipe = cs.get_pipeline(cfg, "cuda")
+    want = cs.inputs(curve, logn)[4]
+    parts = {k: [] for k in ("returned", "done", "decode", "horner",
+                             "total")}
+    for i in range(SMALL_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = pipe._run(pipe._stage(wire))
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        sums = pipe._decode_windows(g)
+        t3 = time.perf_counter()
+        acc = pipe.horner(sums)
+        t4 = time.perf_counter()
+        if not cs.ref.jac_eq(curve, acc, want):
+            raise AssertionError("msm_parts: the MSM differs from the oracle")
+        if i:
+            for k, v in zip(parts, (t1 - t0, t2 - t0, t3 - t2, t4 - t3,
+                                    t4 - t0)):
+                parts[k].append(v * 1e3)
+    return ", ".join(f"{k} {statistics.median(v):.3f}"
+                     for k, v in parts.items()) + " ms (medians)"
+
+
 def affine_inputs(curve, K: int):
     """(3, L, K) int32 lazy limbs of projective points from a fixed seed:
     each coordinate below p, a unit of the next limb borrowed into a
@@ -87,6 +224,35 @@ def affine_inputs(curve, K: int):
     t[:, :-1] += move << w
     t[:, 1:] -= move
     return t
+
+
+def device_work(cs, C, logn: int, glv: bool) -> str:
+    """Device activities (kernels, copies, fills) of one warm window_sums
+    on the wire dtypes, and the device ms of the PyTorch ops among them,
+    from torch.profiler."""
+    import numpy as np
+    import torch
+    n = 1 << logn
+    pipe = cs.get_pipeline(cs.config(C, logn, glv), "cuda")
+    xs, ys, hw, _, _ = cs.inputs(C, logn)
+    dev_in = [torch.from_numpy(a).cuda() for a in (
+        xs.astype(np.int16), ys.astype(np.int16),
+        np.concatenate([hw, np.zeros((2, n), np.uint32)]).astype(np.uint16))]
+    pipe.window_sums(*dev_in)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pipe.window_sums(*dev_in)
+        torch.cuda.synchronize()
+    events, ops_ms = 0, 0.0
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CPU:
+            ops_ms += cs.device_us(row) / 1e3
+        else:
+            events += row.count
+    return (f"window_sums 2^{logn}{' glv' if glv else ''}: {events} device "
+            f"activities a call, PyTorch ops {ops_ms:.4f} ms of device time")
 
 
 def one(root: str) -> None:
@@ -121,8 +287,8 @@ def one(root: str) -> None:
     calls = {}
     for key, (name, args, kw, _) in seen.items():
         calls.setdefault(name, (key, args, kw))
-    for name in ("encode_mont", "prefix_scan", "col_prefix", "padd_batch",
-                 "pbpr_full", "bucket_sort", "extract_buckets"):
+    for name in ("encode_mont", "encode_rows", "prefix_scan", "col_prefix",
+                 "padd_batch", "pbpr_full", "bucket_sort", "extract_buckets"):
         if name not in calls:
             continue
         key, args, kw = calls[name]
@@ -139,10 +305,18 @@ def one(root: str) -> None:
     out.append(timed("globalize (128, 8192)",
                      lambda: kernels.globalize(t, s, C)))
     del seen, calls, buckets, p, t, s
-    _, args, kw, _ = cs.capture_inputs(C, 20, True)["apply_glv"]
-    out.append(timed(f"apply_glv n=2^20 {tuple(args[0].shape)}",
-                     lambda: glv_dev.apply_glv(*args, **kw)))
-    del args, kw
+    seen = cs.capture_inputs(C, 20, True)
+    if "apply_glv" in seen:
+        _, args, kw, _ = seen["apply_glv"]
+        out.append(timed(f"apply_glv n=2^20 {tuple(args[0].shape)}",
+                         lambda: glv_dev.apply_glv(*args, **kw)))
+    else:
+        _, args, _, _ = seen["glv_rows"]
+        gcfg = cs.config(C, 20, True)
+        out.append(timed(f"glv_rows + decompose_digits (stage 1 under GLV) "
+                         f"n=2^20 {tuple(args[0].shape)}",
+                         lambda: glv_dev.glv_rows(*args[:3], gcfg)))
+    del seen, args
     g = cs.capture_inputs(C, 16, False)["pbpr_full"][3][0]
     out.append(f"to_affine n=2^16 window sums {tuple(g.shape)} "
                f"{host_ms(lambda: to_affine(g, C), 5):.4f} ms (median of 5 "
@@ -175,6 +349,9 @@ def one(root: str) -> None:
                            "loads")
     for glv in (False, True):
         for logn in (16, 20):
+            out.append(device_work(cs, C, logn, glv))
+    for glv in (False, True):
+        for logn in (16, 20):
             label = "msm-glv" if glv else "msm"
             ms, _ = cs.timed_runs(cs.config(C, logn, glv), logn, label, "")
             out.append(f"{label} 2^{logn} {ms:.2f} ms")
@@ -188,9 +365,13 @@ def one(root: str) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        one(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] in ("--one", "--one-small"):
+        (one if sys.argv[1] == "--one" else small)(sys.argv[2])
         return 0
+    mode = "--one"
+    if len(sys.argv) > 1 and sys.argv[1] == "--small":
+        mode = "--one-small"
+        del sys.argv[1]
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -199,8 +380,10 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     for root in sys.argv[1:]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+        subprocess.run([sys.executable, os.path.abspath(__file__), mode,
                         root], check=True)
+    if mode == "--one-small":
+        return 0
     # the multiply's instructions in each checkout's own build, counted by
     # this checkout's chip_smoke.py
     sys.path.insert(0, str(HERE))

@@ -458,15 +458,17 @@ def test_stitch_combines():
 
 
 def test_windows_device_launches(monkeypatch):
-    """The wrappers `_windows_device` calls, counted on CPU tensors: per
-    group one bucket_sort, one smvp_rows and one smvp_stitch; then two
+    """The wrappers `_windows_device` calls, counted on CPU tensors: stage
+    1's encode_rows and decompose_digits (the encode_mont of each
+    coordinate until the row table was a kernel's); per group one
+    bucket_sort, one smvp_rows and one smvp_stitch; then two
     pbpr_stage1 (stage 1, stage 2), the halving tree and the last add on
     padd_batch, log2 Bt doublings. At BN254_S12 2^16 (5 groups, T = 256,
     Bt = 16) that is 9 padd_batch calls, and at 2^20 (16 groups, T = 512,
     Bt = 64) 10."""
     counts = {}
     for name in ("padd_batch", "bucket_sort", "smvp_rows", "smvp_stitch",
-                 "pbpr_stage1", "pdbl_batch", "encode_mont",
+                 "pbpr_stage1", "pdbl_batch", "encode_mont", "encode_rows",
                  "decompose_digits"):
         fn = getattr(kernels, name)
 
@@ -486,7 +488,7 @@ def test_windows_device_launches(monkeypatch):
     Bt = cfg.half_columns // T
     tree = T.bit_length() - 1
     assert counts == {
-        "encode_mont": 2, "decompose_digits": 1, "bucket_sort": G,
+        "encode_rows": 1, "decompose_digits": 1, "bucket_sort": G,
         "smvp_rows": G, "smvp_stitch": G, "pbpr_stage1": 2,
         "pdbl_batch": Bt.bit_length() - 1, "padd_batch": tree + 1}
     for T, want in ((256, 9), (512, 10)):

@@ -40,10 +40,12 @@ _I64 = ctypes.c_int64
 # C signature of every kernel entry point (all return a cudaError_t).
 SIGNATURES = {
     "msm_encode_mont": [_I, _I, _P, _P, _I64, _P, _P],
-    "msm_decompose_digits": [_P, _P, _I, _I64, _I, _I, _P],
+    "msm_encode_rows": [_I, _I, _P, _P, _I, _I64, _I64, _P, _I64, _P, _P],
+    "msm_decompose_digits": [_P, _I, _I64, _P, _I, _I64, _I, _I, _I, _P],
     "msm_prefix_scan": [_I, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _I64, _P,
                         _P, _P],
-    "msm_col_prefix": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "msm_col_prefix": [_I, _I, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                       _P],
     "msm_col_prefix_limits": [_I, _I, _P, _P, _P, _P],
     "msm_padd_batch": [_I, _I, _I, _I, _P, _P, _P, _I64, _I, _I, _I, _I,
                        _P, _P, _P],
@@ -55,8 +57,8 @@ SIGNATURES = {
                         _P, _P],
     "msm_globalize": [_I, _I, _I, _I, _P, _P, _P, _I64, _I64, _I, _I, _I,
                       _P, _P, _P],
-    "msm_glv_apply": [_I, _I, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _P, _P,
-                      _I, _P],
+    "msm_glv_apply": [_I, _I, _P, _P, _I, _I64, _I64, _P, _I, _I64, _I,
+                      _I64, _P, _P, _P, _P, _P, _I, _P],
     "msm_to_affine": [_I, _I, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I,
                       _I, _I, _I, _I64, _P, _I, _P],
     "msm_batch_inverse": [_I, _I, _P, _I64, _P, _P, _P, _I64, _I, _I, _I,

@@ -45,7 +45,11 @@
 // path.
 // Not built: shuffle and shared-memory exchange for shifts below the
 // block's columns, and one launch per level in place of the grid barrier.
-// Layouts: in/out/scratch (3, L, Wg, C) int16.
+// Layouts: out/scratch (3, L, Wg, C) int16; in the same but for the
+// stride between its (coordinate, limb) rows, in_stride elements: the
+// column totals are read in place from the scan output, row R - 1 of
+// (3, L, R, Wg C), whose rows lie R Wg C apart (Wg C where in is a
+// contiguous (3, L, Wg, C) array).
 #include <cooperative_groups.h>
 
 #include <cstring>
@@ -66,8 +70,9 @@ constexpr int kRowStep = kThreads / kLanes;
 
 template <int L, int W>
 __global__ void __launch_bounds__(kThreads)
-colprefix_kernel(const int16_t* in, int16_t* out, int16_t* scratch, int Wg,
-                 int C, int levels, const int32_t* __restrict__ kc,
+colprefix_kernel(const int16_t* in, int64_t in_stride, int16_t* out,
+                 int16_t* scratch, int Wg, int C, int levels,
+                 const int32_t* __restrict__ kc,
                  const msm::WideConsts<L, W> KW) {
   using M = msm::PaddLane<L>;
   using Ph = msm::Phases<L, W>;
@@ -86,6 +91,7 @@ colprefix_kernel(const int16_t* in, int16_t* out, int16_t* scratch, int Wg,
   const int g = (threadIdx.x & 31) % msm::kAddG;    // thread within the lane
   const int l = (threadIdx.x >> 5) * msm::kPaddLanesPerWarp + lw;
   const int16_t* src = in;
+  int64_t src_stride = in_stride;
   for (int lv = 0; lv < levels; lv++) {
     const int k = 1 << lv;
     int16_t* dst = ((levels - 1 - lv) & 1) ? scratch : out;
@@ -103,7 +109,7 @@ colprefix_kernel(const int16_t* in, int16_t* out, int16_t* scratch, int Wg,
         const int c = static_cast<int>(idx % C);
         int32_t* m = lanes + ll * M::STRIDE;
         for (int row = r0; row < 3 * L; row += kRowStep) {
-          const int16_t* s = src + (int64_t)row * plane + idx;
+          const int16_t* s = src + (int64_t)row * src_stride + idx;
           // infinity (0 : one : 0) where the shift leaves the window
           const int32_t inf = row >= L && row < 2 * L ? K.one[row - L] : 0;
           if (fetch_cur)
@@ -133,6 +139,7 @@ colprefix_kernel(const int16_t* in, int16_t* out, int16_t* scratch, int Wg,
       __syncthreads();   // the stores read P1 before the next columns land
     }
     src = dst;
+    src_stride = plane;
     if (lv + 1 < levels) grid.sync();
   }
 }
@@ -158,23 +165,27 @@ extern "C" int msm_col_prefix_limits(int num_limbs, int limb_bits,
   return static_cast<int>(rc);
 }
 
-// levels: max(log2 C, 1); threads_per_lane must be kAddG (the wrapper's
+// in_stride: elements between in's (coordinate, limb) rows, at least
+// Wg C; levels: max(log2 C, 1); threads_per_lane must be kAddG (the wrapper's
 // lane count rests on it); blocks from cuzk/kernels.py
 // col_prefix_geometry, at most the resident blocks (the cooperative
 // launch refuses more); wide: host memory, the words of
 // msm::WideConsts<L, W>.
 extern "C" int msm_col_prefix(int num_limbs, int limb_bits, const int16_t* in,
-                              int16_t* out, int16_t* scratch, int Wg, int C,
+                              int64_t in_stride, int16_t* out,
+                              int16_t* scratch, int Wg, int C,
                               int levels, int threads_per_lane, int blocks,
                               const int32_t* consts, const uint32_t* wide,
                               void* stream) {
-  if (Wg < 1 || C < 1 || levels < 1 || levels > 30 ||
+  if (Wg < 1 || C < 1 || in_stride < (int64_t)Wg * C || levels < 1 ||
+      levels > 30 ||
       threads_per_lane != msm::kAddG || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   MSM_DISPATCH_PROFILE(num_limbs, limb_bits, {
     msm::WideConsts<L, W> KW;
     std::memcpy(&KW, wide, sizeof(KW));
-    void* args[] = {&in, &out, &scratch, &Wg, &C, &levels, &consts, &KW};
+    void* args[] = {&in, &in_stride, &out, &scratch, &Wg, &C, &levels,
+                    &consts, &KW};
     return static_cast<int>(cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(&colprefix_kernel<L, W>),
         dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0,

@@ -1,7 +1,10 @@
-"""Pipeline stage 1 of the XLA path: Montgomery encoding of the points
+"""The JAX package's stage-1 functions: Montgomery encoding of the points
 and the signed scalar-window decomposition.
 
-The port of `tpu_msm/cuzk/decompose.py`. `points_to_mont` runs the
+The port of `tpu_msm/cuzk/decompose.py`, kept as the counterpart of the
+JAX functions for the parity tests; both device programs run
+`pipeline_cuda.stage1` (`encode_rows` and `decompose_digits` from the
+wire tensors) instead. `points_to_mont` runs the
 `encode_mont` kernel on each coordinate, and `decompose` the
 `decompose_digits` kernel (on CPU tensors, their plain versions), which
 the JAX package's kernels make bit-identical to its XLA functions

@@ -19,9 +19,10 @@ what its design does about that.
   pbpr_stage1        _pbpr_kernel / pbpr_stage1           csrc/pbpr_stage1.cu
   globalize          _globalize_kernel / globalize        csrc/globalize.cu
 
-`encode_mont`, `decompose_digits`, `prefix_scan`, `col_prefix` and
-`pbpr_full` are on the main path (`pipeline_cuda.windows_device`), with
-`bucket_sort` and `extract_buckets` below;
+`decompose_digits`, `prefix_scan`, `col_prefix` and `pbpr_full` are on
+the main path (`pipeline_cuda.windows_device`), with `encode_rows`,
+`bucket_sort` and `extract_buckets` below; `encode_mont` is left to
+`cuzk/decompose.points_to_mont`, the counterpart of the JAX function;
 `pbpr_stage1` and `pdbl_batch` serve the two-stage bucket reduction
 (`cuzk/pbpr.py`), and `globalize` is the full-stream form of the G = T + S
 step that the main path takes only at the bucket-region ends.
@@ -30,26 +31,35 @@ Three more kernels replace functions that the JAX package leaves to
 XLA, no pallas_call:
 
   wrapper            replaces                              source
-  glv_apply          tpu_msm/cuzk/glv.py apply_glv         csrc/glv_apply.cu
+  glv_rows           tpu_msm/cuzk/glv.py apply_glv         csrc/glv_apply.cu
                      (the split and the doubled stream)
   to_affine          tpu_msm/ops/inverse.py to_affine      csrc/to_affine.cu
   batch_inverse      tpu_msm/ops/inverse.py batch_inverse  csrc/batch_inverse.cu
 
-`glv_apply` serves every path under `glv=True` (`cuzk/glv.apply_glv`);
-`to_affine` and `batch_inverse` are the public `tpu_msm_torch.to_affine`
+`glv_rows` serves every path under `glv=True` (`pipeline_cuda.stage1`):
+the wire limbs encoded and the doubled stream written as the (2n, 2L)
+row table in one launch (its launches count as "glv_apply");
+`glv_apply`, the JAX function's planar form on Montgomery limbs
+(`cuzk/glv.apply_glv`), is its plain counterpart for the tests, on CPU
+tensors only; `to_affine` and `batch_inverse` are the public `tpu_msm_torch.to_affine`
 and `tpu_msm_torch.batch_inverse`, both the product tree of
 csrc/batch_inv.cuh, and their plain versions the same tree in
 `ops/inverse.py`.
 
-Two more replace what XLA compiles around the Pallas kernels of the
+Three more replace what XLA compiles around the Pallas kernels of the
 JAX package's device program (tpu_msm/cuzk/pipeline_pallas.py):
 
   wrapper            replaces (pipeline_pallas.py)         source
+  encode_rows        :141-143, :258, the casts, encode     csrc/encode_mont.cu
+                     and the (n, 2L) int16 row table
   bucket_sort        :208-226, lax.sort + _bucket_counts   csrc/bucket_sort.cu
   extract_buckets    :292-304, flat_gather, padd_batch,    csrc/extract_buckets.cu
                      where, psub_batch
 
-Both are on the main path, stages 2 and 3, so `padd_batch` and
+`encode_rows` is stage 1's encode (`glv_rows` under GLV, below), and
+`decompose_digits` takes XLA's cast and zero digit rows
+(pipeline_pallas.py:174-176) into its kernel. `bucket_sort` and
+`extract_buckets` are on the main path, stages 2 and 3, so `padd_batch` and
 `psub_batch` are not: they serve the reduction path, the XLA twin and
 the sharded halving tree. `bucket_sort` sorts by |d| alone, stably, the
 sign in the payload; its plain version is torch's stable sort. The XLA
@@ -110,7 +120,8 @@ _BITS = {I16: 16, I32: 32}
 # (csrc/field.cuh MSM_DISPATCH_PROFILE).
 CUDA_PROFILES = {(22, 12), (21, 13), (32, 12), (30, 13), (6, 12)}
 
-LAUNCHES = {name: 0 for name in ("encode_mont", "decompose_digits",
+LAUNCHES = {name: 0 for name in ("encode_mont", "encode_rows",
+                                 "decompose_digits",
                                  "prefix_scan", "col_prefix", "padd_batch",
                                  "pbpr_full", "pdbl_batch", "pbpr_stage1",
                                  "globalize", "glv_apply", "to_affine",
@@ -290,17 +301,82 @@ def encode_mont(xs: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     return out
 
 
+# The dtypes stage 1's kernels read as staged: limbs of the wire (int16
+# or int32) and scalar halfwords (uint16 or int32). The kernels refuse
+# others; the plain versions cast any integer dtype, and the pipelines
+# convert any other to int32 while they stage it.
+LIMB_DTYPES = (I16, I32)
+HALFWORD_DTYPES = (torch.uint16, I32)
+
+
+def _lanes(name: str, t: torch.Tensor, dtypes, rows: int | None = None
+           ) -> int:
+    """The row stride of a (rows, n) lane-major operand that a stage-1
+    kernel reads in place: any dtype of `dtypes`, the lanes contiguous
+    (a slice of the columns of a wider array is fine)."""
+    if (t.dim() != 2 or t.dtype not in dtypes
+            or (rows is not None and t.shape[0] != rows)
+            or (t.shape[1] > 1 and t.stride(1) != 1)
+            or (t.shape[0] > 1 and t.stride(0) < t.shape[1])):
+        raise ValueError(f"{name}: expected a ({rows or 'H'}, n) tensor of "
+                         f"{[str(d) for d in dtypes]} with contiguous lanes, "
+                         f"got {t.dtype} {tuple(t.shape)} strides "
+                         f"{t.stride()}")
+    return max(t.stride(0), t.shape[1])
+
+
+def row_table(xm: torch.Tensor, ym: torch.Tensor) -> torch.Tensor:
+    """(L, n) Montgomery x and y limbs (canonical, < 2^w) -> the points'
+    (n, 2L) int16 row table, x limbs then y limbs: the torch ops of the
+    JAX package's pipeline_pallas.py:258, for the plain versions and the
+    callers that start from Montgomery planes."""
+    return torch.cat([xm, ym]).to(I16).T.contiguous()
+
+
+def encode_rows_plain(xs: torch.Tensor, ys: torch.Tensor,
+                      curve: CurveParams) -> torch.Tensor:
+    return row_table(encode_mont_plain(xs.to(I32), curve),
+                     encode_mont_plain(ys.to(I32), curve))
+
+
+def encode_rows(xs: torch.Tensor, ys: torch.Tensor, curve: CurveParams
+                ) -> torch.Tensor:
+    """(L, n) canonical standard-form x and y limbs, int16 or int32 as
+    staged -> the (n, 2L) int16 row table of their Montgomery forms:
+    `encode_mont` of each, cast and laid out points-major, in one launch
+    that reads the limbs in place (any row stride). On the card the limbs
+    are `LIMB_DTYPES` only."""
+    if not _on_cuda("encode_rows", xs, ys):
+        return encode_rows_plain(xs, ys, curve)
+    L, w = _profile("encode_rows", curve)
+    ldx = _lanes("encode_rows", xs, LIMB_DTYPES, L)
+    ldy = _lanes("encode_rows", ys, LIMB_DTYPES, L)
+    n = xs.shape[1]
+    if ys.dtype != xs.dtype or ys.shape[1] != n:
+        raise ValueError(f"encode_rows: x {xs.dtype} {tuple(xs.shape)} and "
+                         f"y {ys.dtype} {tuple(ys.shape)} differ")
+    out = torch.empty((n, 2 * L), dtype=I16, device=xs.device)
+    if n:
+        rc = _build.library().msm_encode_rows(
+            L, w, xs.data_ptr(), ys.data_ptr(), xs.element_size(), ldx, ldy,
+            out.data_ptr(), n, ctypes.addressof(_wide_consts(curve)),
+            _stream(xs))
+        _check("encode_rows", rc)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 2. Signed-digit decomposition
 # ---------------------------------------------------------------------------
 
 
-def decompose_digits_plain(halfwords: torch.Tensor, s: int, W: int
-                           ) -> torch.Tensor:
+def decompose_digits_plain(halfwords: torch.Tensor, s: int, W: int,
+                           Wp: int | None = None) -> torch.Tensor:
+    halfwords = halfwords.to(I32)
     H = halfwords.shape[0]
     mask, full, half = (1 << s) - 1, 1 << s, 1 << (s - 1)
-    out = torch.empty((W,) + halfwords.shape[1:], dtype=I16,
-                      device=halfwords.device)
+    out = torch.zeros((W if Wp is None else Wp,) + halfwords.shape[1:],
+                      dtype=I16, device=halfwords.device)
     carry = None
     for w in range(W):
         bit = w * s
@@ -317,20 +393,28 @@ def decompose_digits_plain(halfwords: torch.Tensor, s: int, W: int
     return out
 
 
-def decompose_digits(halfwords: torch.Tensor, s: int, W: int) -> torch.Tensor:
-    """(H, n) int32 16-bit halfwords -> (W, n) int16 signed digits in
-    [-2^(s-1), 2^(s-1)), carry-chained across windows."""
+def decompose_digits(halfwords: torch.Tensor, s: int, W: int,
+                     Wp: int | None = None) -> torch.Tensor:
+    """(H, n) 16-bit halfwords, uint16 or int32 as staged -> (Wp, n) int16
+    signed digits in [-2^(s-1), 2^(s-1)), carry-chained across the W
+    windows, rows W to Wp - 1 zero (Wp defaults to W). Reads the
+    halfwords in place (any row stride); on the card they are
+    `HALFWORD_DTYPES` only."""
+    if Wp is not None and Wp < W:
+        raise ValueError(f"decompose_digits: Wp={Wp} < W={W}")
     if not _on_cuda("decompose_digits", halfwords):
-        return decompose_digits_plain(halfwords, s, W)
-    _need("decompose_digits", halfwords, I32, 2)
+        return decompose_digits_plain(halfwords, s, W, Wp)
+    ld = _lanes("decompose_digits", halfwords, HALFWORD_DTYPES)
     H, n = halfwords.shape
     if (W - 1) * s // 16 >= H:
         raise ValueError("decompose_digits: too few halfwords for W windows")
-    out = torch.empty((W, n), dtype=I16, device=halfwords.device)
-    rc = _build.library().msm_decompose_digits(
-        halfwords.data_ptr(), out.data_ptr(), H, n, s, W,
-        _stream(halfwords))
-    _check("decompose_digits", rc)
+    Wp = W if Wp is None else Wp
+    out = torch.empty((Wp, n), dtype=I16, device=halfwords.device)
+    if n:
+        rc = _build.library().msm_decompose_digits(
+            halfwords.data_ptr(), halfwords.element_size(), ld,
+            out.data_ptr(), H, n, s, W, Wp, _stream(halfwords))
+        _check("decompose_digits", rc)
     return out
 
 
@@ -570,22 +654,53 @@ def _col_prefix_limits(curve: CurveParams, device: torch.device
     return sms, per_sm, threads, per_lane
 
 
+def column_totals(tbuf: torch.Tensor, Wg: int) -> torch.Tensor:
+    """The (3, L, Wg, C) column totals of a window group, row R - 1 of
+    its (3, L, R, Wg C) scan output: a view, no copy."""
+    _, L, R, F = tbuf.shape
+    return tbuf.select(2, R - 1).view(3, L, Wg, F // Wg)
+
+
+def col_prefix_row_stride(coltot: torch.Tensor, num_limbs: int) -> int:
+    """The elements between the (coordinate, limb) rows of (3, L, Wg, C)
+    int16 column totals that the col_prefix kernel reads in place (Wg C
+    for a contiguous array, R Wg C for `column_totals`); refuses totals
+    whose (Wg, C) planes are not contiguous or whose rows are not one
+    stride apart. A pure function, so the CPU tests can hold it; strides
+    only, no view made, as it runs once a window group."""
+    L = num_limbs
+    if coltot.dtype != I16 or coltot.dim() != 4 or coltot.shape[:2] != (3, L):
+        raise ValueError(f"col_prefix: expected (3, {L}, Wg, C) int16 column "
+                         f"totals, got {coltot.dtype} {tuple(coltot.shape)}")
+    _, _, Wg, C = coltot.shape
+    plane, row, sw, sc = coltot.stride()
+    if ((C > 1 and sc != 1) or (Wg > 1 and sw != C) or plane != L * row
+            or row < Wg * C):
+        raise ValueError("col_prefix: the (Wg, C) planes of the totals must "
+                         "be contiguous, one stride between their rows; "
+                         f"got strides {coltot.stride()}")
+    return row
+
+
 def col_prefix(coltot: torch.Tensor, curve: CurveParams) -> torch.Tensor:
     """(3, L, Wg, C) int16 column totals -> (3, L, Wg, C) int16 EXCLUSIVE
     prefix points along the last axis (S[c] = sum of columns < c).
-    `col_prefix_geometry` picks the launch."""
+    `col_prefix_geometry` picks the launch. The totals may be a view
+    whose (Wg, C) planes are contiguous with any stride between its
+    (coordinate, limb) rows: `column_totals` of the scan output, read in
+    place."""
     if not _on_cuda("col_prefix", coltot):
         return col_prefix_plain(coltot, curve)
     L, w = _profile("col_prefix", curve)
-    _need("col_prefix", coltot, I16, 4)
+    row = col_prefix_row_stride(coltot, L)
     _, _, Wg, C = coltot.shape
     geo = col_prefix_geometry(
         Wg, C, *_col_prefix_limits(curve, coltot.device), L, w)
-    out = torch.empty_like(coltot)
-    scratch = torch.empty_like(coltot)
+    out = torch.empty((3, L, Wg, C), dtype=I16, device=coltot.device)
+    scratch = torch.empty_like(out)
     rc = _build.library().msm_col_prefix(
-        L, w, coltot.data_ptr(), out.data_ptr(), scratch.data_ptr(), Wg, C,
-        _levels(C), geo.threads_per_lane, geo.blocks,
+        L, w, coltot.data_ptr(), row, out.data_ptr(), scratch.data_ptr(),
+        Wg, C, _levels(C), geo.threads_per_lane, geo.blocks,
         _consts(curve, coltot.device).data_ptr(),
         ctypes.addressof(_wide_consts(curve)), _stream(coltot))
     _check("col_prefix", rc)
@@ -1264,43 +1379,75 @@ def _glv_consts(curve: CurveParams, glvp: GLVParams) -> ctypes.Array:
     return (ctypes.c_uint32 * len(words))(*words)
 
 
-def glv_apply(xm: torch.Tensor, ym: torch.Tensor, halfwords: torch.Tensor,
-              curve: CurveParams, glvp: GLVParams):
-    """Montgomery-encoded (L, n) points and raw (H, n) 16-bit scalar
-    halfwords -> (x2, y2, mags, neg1, neg2): the doubled stream of 2n
-    lanes, sign1 * P then sign2 * phi(P), as canonical limbs (y negated
-    as 2p - y, rippled), the (B_LIMBS, 2n) int32 halfword magnitudes
-    |k1| then |k2|, and the (n,) bool signs of k1 and k2."""
+def glv_rows_plain(xs: torch.Tensor, ys: torch.Tensor,
+                   halfwords: torch.Tensor, curve: CurveParams,
+                   glvp: GLVParams):
+    xm, ym = (encode_mont_plain(v.to(I32), curve) for v in (xs, ys))
+    x2, y2, mags, neg1, neg2 = glv_apply_plain(xm, ym, halfwords.to(I32),
+                                               curve, glvp)
+    return row_table(x2, y2), mags, neg1, neg2
+
+
+def glv_rows(xs: torch.Tensor, ys: torch.Tensor, halfwords: torch.Tensor,
+             curve: CurveParams, glvp: GLVParams):
+    """(L, n) standard-form x and y limbs (encoded here), int16 or int32
+    as staged, and raw (H, n) 16-bit scalar halfwords, uint16 or int32
+    (`LIMB_DTYPES`, `HALFWORD_DTYPES`) -> (table, mags, neg1, neg2): the
+    doubled stream's (2n, 2L) int16 row table, rows [0, n) sign1 * P
+    and rows [n, 2n) sign2 * phi(P) (canonical limbs, y negated as
+    2p - y, rippled), the (B_LIMBS, 2n) int32 halfword magnitudes |k1|
+    then |k2|, and the (n,) bool signs of k1 and k2. One launch, the
+    inputs read in place (any row stride)."""
     if glvp.curve != curve:
         raise ValueError(f"glv_apply: GLV parameters of {glvp.curve.name} "
                          f"for {curve.name}")
-    if not _on_cuda("glv_apply", xm, ym, halfwords):
-        return glv_apply_plain(xm, ym, halfwords, curve, glvp)
+    if not _on_cuda("glv_apply", xs, ys, halfwords):
+        return glv_rows_plain(xs, ys, halfwords, curve, glvp)
     L, w = _profile("glv_apply", curve)
     if (L, w) not in GLV_PROFILES:
         raise ValueError(f"glv_apply: no GLV kernel for {curve.name}")
-    for t in (xm, ym, halfwords):
-        _need("glv_apply", t, I32, 2)
-    n = xm.shape[1]
-    if ym.shape != (L, n) or xm.shape[0] != L or halfwords.shape[1] != n:
-        raise ValueError(f"glv_apply: shapes {tuple(xm.shape)}, "
-                         f"{tuple(ym.shape)}, {tuple(halfwords.shape)}")
+    ldx = _lanes("glv_apply", xs, LIMB_DTYPES, L)
+    ldy = _lanes("glv_apply", ys, LIMB_DTYPES, L)
+    ldh = _lanes("glv_apply", halfwords, HALFWORD_DTYPES)
+    n = xs.shape[1]
+    if ys.dtype != xs.dtype or ys.shape[1] != n or halfwords.shape[1] != n:
+        raise ValueError(f"glv_apply: shapes {tuple(xs.shape)}, "
+                         f"{tuple(ys.shape)}, {tuple(halfwords.shape)}")
     hs = (curve.scalar_modulus.bit_length() + 15) // 16
-    dev = xm.device
-    x2 = torch.empty((L, 2 * n), dtype=I32, device=dev)
-    y2 = torch.empty_like(x2)
+    dev = xs.device
+    table = torch.empty((2 * n, 2 * L), dtype=I16, device=dev)
     mags = torch.empty((B_LIMBS, 2 * n), dtype=I32, device=dev)
     neg1 = torch.empty(n, dtype=torch.bool, device=dev)
     neg2 = torch.empty_like(neg1)
     if n:
         consts = _glv_consts(curve, glvp)
         rc = _build.library().msm_glv_apply(
-            L, w, xm.data_ptr(), ym.data_ptr(), halfwords.data_ptr(),
-            min(hs, halfwords.shape[0]), n, x2.data_ptr(), y2.data_ptr(),
+            L, w, xs.data_ptr(), ys.data_ptr(), xs.element_size(), ldx, ldy,
+            halfwords.data_ptr(), halfwords.element_size(), ldh,
+            min(hs, halfwords.shape[0]), n, table.data_ptr(),
             mags.data_ptr(), neg1.data_ptr(), neg2.data_ptr(),
-            ctypes.addressof(consts), len(consts), _stream(xm))
+            ctypes.addressof(consts), len(consts), _stream(xs))
         _check("glv_apply", rc)
-    return x2, y2, mags, neg1, neg2
+    return table, mags, neg1, neg2
+
+
+def glv_apply(xm: torch.Tensor, ym: torch.Tensor, halfwords: torch.Tensor,
+              curve: CurveParams, glvp: GLVParams):
+    """Montgomery-encoded (L, n) points and raw (H, n) 16-bit scalar
+    halfwords -> (x2, y2, mags, neg1, neg2): the doubled stream of 2n
+    lanes, sign1 * P then sign2 * phi(P), as (L, 2n) int32 canonical
+    limbs (y negated as 2p - y, rippled), the (B_LIMBS, 2n) int32 halfword
+    magnitudes |k1| then |k2|, and the (n,) bool signs of k1 and k2: the
+    JAX function's planar layout, for the tests that hold the port
+    against it: CPU tensors only. The card runs `glv_rows` (the same
+    split from the wire, written as rows)."""
+    if glvp.curve != curve:
+        raise ValueError(f"glv_apply: GLV parameters of {glvp.curve.name} "
+                         f"for {curve.name}")
+    if _on_cuda("glv_apply", xm, ym, halfwords):
+        raise ValueError("glv_apply: the planar form runs on CPU tensors "
+                         "only; on the card call glv_rows")
+    return glv_apply_plain(xm, ym, halfwords, curve, glvp)
 
 
 # ---------------------------------------------------------------------------

@@ -30,9 +30,8 @@ from ..constants import BN254_S12, CurveParams
 from ..reference import curve as ref
 from ..utils.limbs_conversion import (planar_signed_to_ints_modp,
                                       points_to_planar, scalars_to_planar)
-from . import decompose, pbpr, smvp
-from . import glv as glv_dev
-from .pipeline_cuda import windows_device
+from . import kernels, pbpr, smvp
+from .pipeline_cuda import stage1, windows_device
 
 JacInt = Tuple[int, int, int]
 
@@ -43,56 +42,48 @@ def _windows_device(xs: torch.Tensor, ys: torch.Tensor,
                     halfwords: torch.Tensor, cfg: MSMConfig,
                     w_shards: int = 1, w_index: int = 0) -> torch.Tensor:
     """The XLA path's device program (JAX `cuzk/pipeline.py`
-    `_windows_device`): Montgomery encoding and the signed digits
-    (`decompose`; under GLV `glv.apply_glv`), then for each window group
-    the sort, row walk and stitch of `smvp.bucket_accumulate`, then the
-    two-stage bucket reduction `pbpr.bucket_reduce`. Takes the planar
-    inputs of `windows_device` and returns the same (3, L, Wp) int32
-    window sums, so `MSMPipeline._decode_windows` reads both. The
-    points' (n, 2L) int16 row table is made once, for every group.
+    `_windows_device`): Montgomery encoding and the signed digits (the
+    main path's `pipeline_cuda.stage1`: the points' (n, 2L) int16 row
+    table and the (Wp, n) digits; under GLV the doubled stream's), then
+    for each window group the sort, row walk and stitch of
+    `smvp.bucket_accumulate`, then the two-stage bucket reduction
+    `pbpr.bucket_reduce`. Takes the planar inputs of `windows_device` and
+    returns the same (3, L, Wp) int32 window sums, so
+    `MSMPipeline._decode_windows` reads both.
 
     w_shards > 1 keeps the shard's contiguous block of Wp / w_shards
     windows, w_index the shard's index (a plain slice of the digits),
     and returns (3, L, Wp / w_shards); w_shards must divide num_groups.
 
-    On CUDA tensors it launches `encode_mont` (twice), `decompose_digits`
-    (once; under GLV `glv_apply` and the `decompose_digits` of
-    `apply_glv`), per window group `bucket_sort` (its launches inside
-    one call), `smvp_rows` (the row walk) and `smvp_stitch` (the stitch
-    across columns and the inject), then `pbpr_stage1` (stage 1, and
-    stage 2 as one more launch), `padd_batch` (the halving tree and the
-    last add) and `pdbl_batch` (log2 Bt doublings). At BN254_S12 2^16
-    (5 groups, T = 256) that is 5 each of `bucket_sort`, `smvp_rows` and
-    `smvp_stitch`, 2 of `pbpr_stage1`, 9 of `padd_batch` and 4 of
-    `pdbl_batch`; at 2^20 (16 groups, T = 512) 16 of each of the three,
-    10 of `padd_batch` and 6 of `pdbl_batch`."""
+    On CUDA tensors it launches `encode_rows` and `decompose_digits`
+    (under GLV `glv_apply` and `decompose_digits`), per window group
+    `bucket_sort` (its launches inside one call), `smvp_rows` (the row
+    walk) and `smvp_stitch` (the stitch across columns and the inject),
+    then `pbpr_stage1` (stage 1, and stage 2 as one more launch),
+    `padd_batch` (the halving tree and the last add) and `pdbl_batch`
+    (log2 Bt doublings). At BN254_S12 2^16 (5 groups, T = 256) that is 5
+    each of `bucket_sort`, `smvp_rows` and `smvp_stitch`, 2 of
+    `pbpr_stage1`, 9 of `padd_batch` and 4 of `pdbl_batch`; at 2^20 (16
+    groups, T = 512) 16 of each of the three, 10 of `padd_batch` and 6
+    of `pdbl_batch`."""
     curve = cfg.curve
     L = curve.num_limbs
-    W, Wg, G = cfg.num_windows, cfg.subtask_group, cfg.num_groups
+    Wg, G = cfg.subtask_group, cfg.num_groups
     B, Wp = cfg.half_columns, cfg.padded_windows
     if w_shards < 1 or G % w_shards:
         raise ValueError(f"w_shards={w_shards} must divide num_groups={G}")
     if not 0 <= w_index < w_shards:
         raise ValueError(f"w_index={w_index} is not in [0, {w_shards})")
-    hw = halfwords.to(I32)
 
-    xm, ym = decompose.points_to_mont(xs, ys, curve)
-    if cfg.glv:
-        xm, ym, digits = glv_dev.apply_glv(xm, ym, hw, cfg)
-    else:
-        digits = decompose.decompose(hw, cfg)                    # (W, n)
-    n = xm.shape[-1]                    # 2x the input lanes under GLV
-    if Wp > W:
-        digits = torch.cat([digits, digits.new_zeros((Wp - W, n))])
+    pts_rows, digits = stage1(xs, ys, halfwords, cfg)
     Wp, G = Wp // w_shards, G // w_shards
     digits = digits[w_index * Wp:(w_index + 1) * Wp]
 
-    pts_rows = torch.cat([xm, ym]).to(torch.int16).T.contiguous()
-    buckets = torch.empty((3, L, Wp, B), dtype=I32, device=xm.device)
+    buckets = torch.empty((3, L, Wp, B), dtype=I32, device=xs.device)
     for g in range(G):
         sl = slice(g * Wg, (g + 1) * Wg)
-        buckets[:, :, sl] = smvp.bucket_accumulate(xm, ym, digits[sl], cfg,
-                                                   pts_rows)
+        buckets[:, :, sl] = smvp.bucket_accumulate(None, None, digits[sl],
+                                                   cfg, pts_rows)
     return pbpr.bucket_reduce(buckets, cfg)
 
 
@@ -144,14 +135,22 @@ class MSMPipeline:
         return xs.astype(np.int32), ys.astype(np.int32), hw.astype(np.int32)
 
     def _stage(self, arrays):
-        """Start the host-to-device copies of one pass; returns the device
-        tensors and the event that marks their arrival (None on the CPU)."""
+        """Start the host-to-device copies of one pass's (xs, ys,
+        halfwords); returns the device tensors and the event that marks
+        their arrival (None on the CPU). Limbs other than int16 or int32
+        and halfwords other than uint16 or int32, the dtypes stage 1's
+        kernels read, are converted to int32 first (on the host for host
+        arrays), on either device."""
+        wire = (kernels.LIMB_DTYPES, kernels.LIMB_DTYPES,
+                kernels.HALFWORD_DTYPES)
+        tensors = [torch.as_tensor(a) for a in arrays]
+        tensors = [t if t.dtype in ok else t.to(torch.int32)
+                   for t, ok in zip(tensors, wire, strict=True)]
         if self._copy_stream is None:
-            return tuple(torch.as_tensor(a) for a in arrays), None
+            return tuple(tensors), None
         with torch.cuda.stream(self._copy_stream):
             out = []
-            for a in arrays:
-                t = torch.as_tensor(a)
+            for t in tensors:
                 if t.device.type == "cpu":
                     t = t.contiguous().pin_memory()
                 out.append(t.to(self.device, non_blocking=True))
@@ -184,7 +183,10 @@ class MSMPipeline:
 
     def window_sums(self, xs, ys, halfwords) -> List[JacInt]:
         """Run the device program on planar inputs (numpy arrays or
-        tensors) and decode the per-window sums to Jacobian int tuples.
+        tensors of any integer dtype: int16 or int32 limbs and uint16 or
+        int32 halfwords are read as they are, others converted to int32
+        while staged) and decode the per-window sums to Jacobian int
+        tuples.
 
         Inputs above cfg.max_points_per_pass run as several passes; the
         next pass's inputs are copied on a side stream while the current

@@ -1,18 +1,22 @@
 """The MSM device program on the H100: the counterpart of
 `tpu_msm/cuzk/pipeline_pallas.py` (`_windows_device_pallas`).
 
-  Stage 1  widen the wire dtypes to int32; encode_mont on x and y;
-           decompose_digits into int16 signed digits (under GLV,
-           `glv.apply_glv`: the doubled stream P ++ phi(P) and the
-           digits of |k1| ++ |k2|); pad the windows to Wp with zero
-           digits; under a window shard (w_shards > 1) keep the shard's
-           block of whole window groups, before the sort.
+  Stage 1  (`stage1`) from the wire tensors as staged (int16 or int32
+           limbs, uint16 or int32 halfwords, read in place):
+           `encode_rows`, the points' (n, 2L) int16 row table of their
+           Montgomery forms, and `decompose_digits`, the (Wp, n) int16
+           signed digits, zero from W up; under GLV `glv.glv_rows`:
+           the doubled stream P ++ phi(P) as a (2n, 2L) table and the
+           digits of |k1| ++ |k2|. Two launches; no torch op touches the
+           stream. Under a window shard (w_shards > 1) keep the shard's
+           block of whole window groups, a view, before the sort.
   Stage 2  `bucket_sort`: each window's digits sorted stably by |d|, the
            sign riding in the payload idx << 1 | sign, and the counts
            cnt[w, j] = #(|d| <= j), every bucket boundary; one call over
            all windows (an LSD radix sort on the card).
   Stage 3  per window group: prefix_scan (which gathers its own point
-           rows), col_prefix over the column totals, and
+           rows), col_prefix over the column totals (read in place from
+           the scan output), and
            `extract_buckets`: G = T + S at the B+1 region ends
            (infinity where cnt == 0) and bucket = G[1:] - G[:-1], written
            into the group's slice of the bucket tensor in one launch.
@@ -60,6 +64,19 @@ def boundary_positions(skeys2: torch.Tensor, B: int, Wg: int, C: int, R: int):
     return (cnt, *kernels.boundary_lanes(cnt, Wg, C, R))
 
 
+def stage1(xs: torch.Tensor, ys: torch.Tensor, halfwords: torch.Tensor,
+           cfg: MSMConfig):
+    """The wire tensors -> (pts_rows, digits): the (n', 2L) int16 row
+    table of the points' Montgomery forms and the (Wp, n') int16 signed
+    digits, n' the stream's lanes (2n under GLV). Shared by both device
+    programs and the sharded path."""
+    if cfg.glv:
+        return glv_dev.glv_rows(xs, ys, halfwords, cfg)
+    return (kernels.encode_rows(xs, ys, cfg.curve),
+            kernels.decompose_digits(halfwords, cfg.window_size,
+                                     cfg.num_windows, cfg.padded_windows))
+
+
 def windows_device(xs: torch.Tensor, ys: torch.Tensor,
                    halfwords: torch.Tensor, cfg: MSMConfig,
                    w_shards: int = 1, w_index: int = 0) -> torch.Tensor:
@@ -68,8 +85,9 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     xs, ys: (L, n) canonical standard-form limbs (int16 or int32).
     halfwords: (H, n) 16-bit scalar halfwords (uint16 or int32), with the
         two zero pad rows of `MSMPipeline.pack`.
-    Under cfg.glv the stream has 2n lanes, and C, R, F and the row table
-    follow it.
+    Each may be a slice of the columns of a wider array: stage 1 reads
+    them in place. Under cfg.glv the stream has 2n lanes, and C, R, F and
+    the row table follow it.
 
     w_shards > 1 runs stages 2 to 4 on the shard's contiguous block of
     whole window groups only, windows [w_index Wp_l, (w_index + 1) Wp_l)
@@ -79,9 +97,8 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     curve = cfg.curve
     L = curve.num_limbs
     dev = xs.device
-    xs, ys, hw = xs.to(I32), ys.to(I32), halfwords.to(I32)
     n = (2 if cfg.glv else 1) * xs.shape[-1]       # stream lanes
-    W, Wg, G = cfg.num_windows, cfg.subtask_group, cfg.num_groups
+    Wg, G = cfg.subtask_group, cfg.num_groups
     B, Wp = cfg.half_columns, cfg.padded_windows
     if w_shards < 1 or G % w_shards:
         raise ValueError(f"w_shards={w_shards} must divide num_groups={G}")
@@ -93,31 +110,22 @@ def windows_device(xs: torch.Tensor, ys: torch.Tensor,
     R = n // C
 
     # ---- stage 1 ----
-    xm = kernels.encode_mont(xs.contiguous(), curve)
-    ym = kernels.encode_mont(ys.contiguous(), curve)
-    if cfg.glv:
-        xm, ym, digits = glv_dev.apply_glv(xm, ym, hw, cfg)
-    else:
-        digits = kernels.decompose_digits(hw.contiguous(), cfg.window_size,
-                                          W)
-    if Wp > W:
-        digits = torch.cat([digits, digits.new_zeros((Wp - W, n))])
-    # the shard's window groups; Wg divides Wp, so the lanes of
-    # kernels.boundary_lanes stay right
+    pts_rows, digits = stage1(xs, ys, halfwords, cfg)
+    # the shard's window groups, a view of whole rows; Wg divides Wp, so
+    # the lanes of kernels.boundary_lanes stay right
     Wp, G = Wp // w_shards, G // w_shards
     digits = digits[w_index * Wp:(w_index + 1) * Wp]
 
     # ---- stage 2: one stable sort of all windows by |d|, and the counts
-    pay_all, cnt_all = kernels.bucket_sort(digits.contiguous(), B)
-    pts_rows = torch.cat([xm, ym]).to(I16).T.contiguous()     # (n, 2L)
+    pay_all, cnt_all = kernels.bucket_sort(digits, B)
 
     # ---- stage 3: per window group ----
     buckets = torch.empty((3, L, Wp, B), dtype=I16, device=dev)
     for g in range(G):
         sl = slice(g * Wg, (g + 1) * Wg)
         tbuf = kernels.prefix_scan(pts_rows, pay_all[sl], curve, C)
-        coltot = tbuf[:, :, R - 1].reshape(3, L, Wg, C).contiguous()
-        S = kernels.col_prefix(coltot, curve)                 # exclusive
+        S = kernels.col_prefix(kernels.column_totals(tbuf, Wg),
+                               curve)                         # exclusive
         kernels.extract_buckets(tbuf, S, cnt_all, buckets, g, Wg, C, R,
                                 curve)
 

@@ -38,16 +38,18 @@ from ..config import MSMConfig
 from . import kernels
 
 
-def bucket_accumulate(xs_m: torch.Tensor, ys_m: torch.Tensor,
+def bucket_accumulate(xs_m: torch.Tensor | None, ys_m: torch.Tensor | None,
                       digits: torch.Tensor, cfg: MSMConfig,
                       pts_rows: torch.Tensor | None = None) -> torch.Tensor:
     """The bucket sums of one window group.
 
     xs_m, ys_m: (L, n) int32 Montgomery affine coordinates (canonical
-        limbs, value < 2p), shared by the windows.
+        limbs, value < 2p), shared by the windows: the JAX function's
+        arguments, read only where pts_rows is not given.
     digits: (Wg, n) signed digits of the group's windows.
-    pts_rows: the (n, 2L) int16 row table of xs_m and ys_m
-        (`pipeline_cuda.windows_device`'s), made here if not given.
+    pts_rows: the (n, 2L) int16 row table of the points, as stage 1
+        writes it (`pipeline_cuda.stage1`, the XLA path's caller); made
+        from xs_m and ys_m by `kernels.row_table` if not given.
     Returns (3, L, Wg, B) int32 stacked points, slot b holding bucket b+1
     (multiplier b+1)."""
     curve = cfg.curve
@@ -58,7 +60,7 @@ def bucket_accumulate(xs_m: torch.Tensor, ys_m: torch.Tensor,
     B = cfg.half_columns
 
     if pts_rows is None:
-        pts_rows = torch.cat([xs_m, ys_m]).to(torch.int16).T.contiguous()
+        pts_rows = kernels.row_table(xs_m, ys_m)
     pay, _ = kernels.bucket_sort(digits.to(torch.int16).contiguous(), B)
     skeys = torch.gather(digits.to(torch.int32).abs(), 1, (pay >> 1).long())
     bucket, trailing = kernels.smvp_rows(pts_rows, pay, skeys, curve, C, B)

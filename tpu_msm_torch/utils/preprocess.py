@@ -75,11 +75,22 @@ def gen_planar_inputs(curve: CurveParams, n: int, seed: int = 0,
 
 def aggregate_scalars(hw: np.ndarray, k_base: int, curve: CurveParams
                       ) -> List[int]:
-    """Per-base aggregated scalars (mod r) for the linearity check."""
-    agg = [0] * k_base
-    for i, s in enumerate(halfwords_to_ints(hw)):
-        agg[i % k_base] = (agg[i % k_base] + s) % curve.scalar_modulus
-    return agg
+    """Per-base aggregated scalars (mod r) for the linearity check:
+    sum_{i = j mod k_base} k_i for each base j. Each 16-bit halfword row
+    is summed per base in int64 (n / k_base values below 2^16 a sum), then
+    one carry of the (H, k_base) column sums into an int a base."""
+    hw = np.asarray(hw)
+    H, n = hw.shape
+    pad = (-n) % k_base
+    sums = np.empty((H, k_base), dtype=np.int64)
+    for h in range(H):
+        row = hw[h].astype(np.int64) & 0xFFFF
+        if pad:
+            row = np.concatenate([row, np.zeros(pad, np.int64)])
+        sums[h] = row.reshape(-1, k_base).sum(axis=0)
+    r = curve.scalar_modulus
+    return [sum(int(sums[h, j]) << (16 * h) for h in range(H)) % r
+            for j in range(k_base)]
 
 
 def expected_msm(base, hw, curve: CurveParams):
