@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the kernels of tpu_msm_torch/csrc (timed as set-up); print
      what ptxas said of the redesigned kernels at BN254_S12 and at every
      profile of PROFILES (`[ptxas]`: registers, stack frame, spills)
-     and, for the eight on the word-wide multiply, their instructions by
-     kind from cuobjdump -sass (`[sass]`), and the multiply's own
+     and, for the eight on the word-wide multiply and for every form of
+     `decompose_digits`, their instructions by kind from cuobjdump -sass
+     (`[sass]`), and the multiply's own
      (`msm::mul_wide` in prefix_scan's object; `encode_mont` inlines it)
      beside the parent's counts before its rows were carry chains;
   3. per kernel, at the shapes its path gives it for BN254_S12 at 2^16
@@ -40,7 +41,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      `bucket_reduce` doubles; `globalize` on the first window group's
      scan output and column prefix; `prefix_scan` once more for every
      number of threads per lane its launcher can pick, bit-identical to
-     the first and timed (`[scan-G]`); and, at 2^16, both redesigned
+     the first and timed (`[scan-G]`); `decompose_digits` beside a
+     PyTorch copy of the same bytes (its `[kernel]` line) and once more
+     for every word a thread can read, bit-identical and timed
+     (`[digits-P]`); and, at 2^16, both redesigned
      kernels at shapes the two sizes do not reach (`[edge]`):
      `bucket_sort` on all-zero digits, every digit equal, one point,
      +-2^(s-1) in a partial last tile, s = 8 (one pass), s = 16 at
@@ -63,14 +67,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      ledger, and `encode_mont` on 0, 1 and p - 1; `encode_rows` on 0, 1,
      p - 1 (int32 and int16), 1, 127, 129 and 1,000 lanes and a slice of
      the wire's columns, `decompose_digits` on uint16, int32 and sliced
-     halfwords with three zero rows; `pbpr_stage1` at
-     (Wp, B, T) = STAGE1_EDGES (T = 1 with an odd lane count, T = B, a
-     slice of 3 buckets) with infinity and P + P in the chains, int16 and
-     int32 buckets; `globalize` at (R, F) = GLOBALIZE_EDGES (F = 1, R = 1,
-     F no multiple of a block's lanes) with S = T (P + P), S = -T
-     (P + (-P)) and S at infinity, every dtype pair; `pdbl_batch` at
-     F = 1, 7, 8, 9 (about the 8 lanes of a warp) and 16, on all-infinity
-     lanes and on limbs at the ends of the ledger;
+     halfwords, 1, 127 and 129 lanes of each and of a slice at an odd
+     column, at s = 13 (20 windows) and s = 16, with three zero rows;
+     `pbpr_stage1` at (Wp, B, T) = STAGE1_EDGES (T = 1 with an odd lane
+     count, T = B, a slice of 3 buckets) with infinity and P + P in the
+     chains, int16 and int32 buckets; `globalize` at (R, F) =
+     GLOBALIZE_EDGES (F = 1, R = 1, F no multiple of a block's lanes) with
+     S = T (P + P), S = -T (P + (-P)) and S at infinity, every dtype pair;
+     `pdbl_batch` at F = 1, 7, 8, 9 (about the 8 lanes of a warp) and 16,
+     on all-infinity lanes and on limbs at the ends of the ledger;
      at 2^20, `pbpr_full` at PBPR_EDGES (T = 1, T = B, T = 1024 and 2048,
      one window, B = 2^15 with T = 32), with the geometry it launched
      (the narrow ones are held against plain versions run on the CPU
@@ -197,16 +202,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      `bucket_sort`, `smvp_rows` and `smvp_stitch` (the first group's),
      `padd_batch` (the reduction's tree and last add), `pbpr_stage1`
      (stage 1) and `pdbl_batch`, once per shape, against its plain
-     version, timed (`[stitch]`: the stitch's time a group, its levels,
-     launches and depth floor); the stage-2 launch of `pbpr_stage1`
-     (threads = 1) against the 2 (T - 1) `padd_batch` launches it
-     replaced, bit for bit, both timed, and against its plain version
-     in the first run (T = 256, the twin's smallest); the median of 3
-     timed runs and its split into the kernels' time (each shape's time
+     version, timed (`[stitch]`: the stitch's time a group, its launches and
+     depth floor, of its scan levels those it ran as the kernel reports
+     them, held equal to the closed form's and the carried flags' levels
+     with an add, and its grid barriers); the stage-2 launch of
+     `pbpr_stage1` (threads = 1) against the 2 (T - 1) `padd_batch`
+     launches it replaced, bit for bit, both timed, and against its plain
+     version in the first run (T = 256, the twin's smallest); the median of
+     3 timed runs and its split into the kernels' time (each shape's time
      by its calls) and the rest (`[twin-where]`); then `[edge]
      smvp_stitch` at STITCH_EDGES (C = 1001, odd, with n below the
      columns; C = 2 and 1), with random digits, every key equal, every
-     column its own run and every digit 0, against its plain version;
+     column its own run and every digit 0, against its plain version,
+     the levels it ran held as in `[stitch]`;
  12. the `pbpr_full` edges whose plain versions ran on the CPU;
  13. `[autotune]`: `utils/window.autotune` on BN254_S12 at 2^16 (the
      model's 36 candidates and the static default) and 2^20 (its 24,
@@ -255,7 +263,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     path's launches (0 since PR 15) and its halving tree's; the seven of
     the twin its launches, time and error at each of TWIN_RUNS;
     `smvp_rows` and `smvp_stitch` from the twin's 2^20 and 2^16 runs,
-    with their depth floors) and the `[sharded]` and `[twin]`
+    with their depth floors, the stitch with the levels it ran and its
+    grid barriers; `decompose_digits` with its launch, the copy of the
+    same bytes and its time at every word) and the `[sharded]` and `[twin]`
     numbers under "sharded" and "twin", those of phases 13 to 17 under
     their names, and each main-path kernel's launches on their paths;
  19. last line {"ok": true, "device": {...}}.
@@ -490,19 +500,16 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         hs = (curve.scalar_modulus.bit_length() + 15) // 16
         ins = args[:2] + (args[2][:hs],) + args[3:]
     if name == "decompose_digits":
-        # the kernel reads only the halfwords its W windows touch: the
-        # top window's first and, off a halfword's start, the next
+        # the kernel reads only the halfwords its W windows touch
         hw, s, W = args[:3]
-        top = (W - 1) * s
-        ins = (hw[:min(hw.shape[0], (top >> 4) + 1 + (top % 16 > 0))],
-               ) + args[1:]
+        ins = (hw[:kernels.digits_rows(hw.shape[0], s, W)],) + args[1:]
     nbytes = sum(a.numel() * a.element_size() for a in ins + as_tuple(out)
                  if isinstance(a, torch.Tensor))
     if name == "smvp_stitch":
         # what the function needs: the trailing sums, each column's first
         # and last key, the injected buckets read and written
         bucket, trailing, skeys, _, C = args
-        adds, injects, _ = stitch_adds(skeys, C)
+        adds, injects, _, _ = stitch_adds(skeys, C)
         nbytes = (trailing.numel() * 4 + 2 * skeys.shape[0] * C * 4
                   + 2 * injects * 3 * L * 4)
     if name == "extract_buckets":
@@ -582,13 +589,15 @@ def run_starts(skeys: torch.Tensor, C: int) -> int:
 
 
 def stitch_adds(skeys: torch.Tensor, C: int) -> tuple:
-    """(the scan's adds, the injects, the depth) of one smvp_stitch call
-    on the (Wg, n) sorted keys: a level's pair adds where its b is not
-    flagged (the flags carried as csrc/smvp_stitch.cu carries them), a
-    column injects where it goes on with the run before it and holds
-    more than one run or the next column does not go on; the depth is
-    the longest chain of dependent adds that these keys need in XLA's
-    tree, the inject's add included."""
+    """(the scan's adds, the injects, the depth, the levels with an add)
+    of one smvp_stitch call on the (Wg, n) sorted keys: a level's pair
+    adds where its b is not flagged, the flags carried level by level as
+    the recursion carries them (independent of the closed form that
+    csrc/smvp_stitch.cu and kernels.stitch_pairs_add decide by), a column
+    injects where it goes on with the run before it and holds more than
+    one run or the next column does not go on; the depth is the longest
+    chain of dependent adds that these keys need in XLA's tree, the
+    inject's add included."""
     Wg, n = skeys.shape
     k = skeys.cpu().long().reshape(Wg, C, n // C)
     first, last = k[..., 0], k[..., -1]
@@ -596,13 +605,14 @@ def stitch_adds(skeys: torch.Tensor, C: int) -> tuple:
     cont = torch.cat([no, last[:, :-1]], dim=1) == first
     goes_on = torch.cat([first[:, 1:], no], dim=1) == last
     flags = (first != last) | ~cont
-    pairs, starts = kernels._stitch_schedule(C, torch.device("cpu"))
-    adds = 0
+    adds, levels = 0, []
     depth = torch.zeros((Wg, C), dtype=torch.int64)
-    for lv in range(len(starts) - 1):
-        a, b = pairs[starts[lv]:starts[lv + 1]].long().T
+    for lv, pairs in enumerate(kernels.smvp_stitch_levels(C)):
+        a, b = torch.tensor(pairs).T
         go = ~flags[:, b]
         adds += int(go.sum())
+        if bool(go.any()):
+            levels.append(lv)
         flags[:, b] = torch.where(go, flags[:, a], flags[:, b])
         depth[:, b] = torch.where(
             go, torch.maximum(depth[:, a], depth[:, b]) + 1, depth[:, b])
@@ -610,7 +620,7 @@ def stitch_adds(skeys: torch.Tensor, C: int) -> tuple:
     before = torch.cat([depth.new_zeros((Wg, 1)), depth[:, :-1]], dim=1)
     chain = max(int(depth.max()), int(torch.where(inject, before + 1,
                                                   0).max()))
-    return adds, int(inject.sum()), chain
+    return adds, int(inject.sum()), chain, tuple(levels)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -874,9 +884,17 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
         note = f" bound_ms by mont_mul_ops={b_old:.4f} ({by_old})"
     if name in ("padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
                 "bucket_sort", "extract_buckets", "to_affine",
-                "batch_inverse", "smvp_rows", "smvp_stitch"):
+                "batch_inverse", "smvp_rows", "smvp_stitch",
+                "decompose_digits"):
         extra["launched"] = dict(kernels.LAUNCHED[name])
         note += f" launched={extra['launched']}"
+    if name == "decompose_digits":
+        copy = same_bytes_copy(args[0], extra["launched"]["rows"],
+                               got.shape[0])
+        extra["copy_ms"] = (queued_ms(copy, QUEUE_REPS, lambda: busy(curve))
+                            if queued else cuda_ms(copy, reps))
+        note += (f" a copy of the same bytes (PyTorch copy_) "
+                 f"{extra['copy_ms']:.4f} ms, x{t / extra['copy_ms']:.2f}")
     shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
     how = "queued behind a busy call" if queued else "back to back"
     print(f"[kernel] {curve.name} {key} {tag} in={shape} "
@@ -887,6 +905,45 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
           f"bit-identical max_abs_err={err} [{card}]", flush=True)
     return dict(name=name, ms=t, ms_cuda=t_cuda, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err, **extra)
+
+
+def same_bytes_copy(hw: torch.Tensor, rows: int, Wp: int):
+    """decompose_digits' yardstick: one PyTorch copy that moves its bytes,
+    the `rows` halfword rows its windows read (in place, at their
+    stride) into Wp rows of int16, each read and written once."""
+    src = hw[:rows].view(torch.int16) if hw.dtype == torch.uint16 else \
+        hw[:rows]
+    dst = torch.empty((Wp, hw.shape[1]), dtype=torch.int16, device=hw.device)
+    k = min(rows, Wp)
+    if rows == Wp:
+        return lambda: dst.copy_(src)
+    # rows and Wp differ: the rows read, and the rest of the rows written
+    return lambda: (dst[:k].copy_(src[:k]), dst[k:].zero_())
+
+
+def digits_sweep(seen: dict, tag: str, card: str) -> dict:
+    """`decompose_digits` on the captured inputs at every word a thread
+    can read (kernels.DIGITS_WORD_BYTES): bit-identical to the captured
+    output, and timed as `compare` times it."""
+    _, args, kw, (want,) = seen["decompose_digits"]
+    hw = args[0]
+    times = {}
+    for b in kernels.DIGITS_WORD_BYTES:
+        P = b // hw.element_size()
+        call = lambda: kernels.decompose_digits(*args, **kw,
+                                                _points_per_thread=P)
+        if not torch.equal(call(), want):
+            raise AssertionError(f"decompose_digits at {tag}: {P} scalars a "
+                                 "thread differ from the main path's output")
+        times[P] = queued_ms(call, QUEUE_REPS, lambda: busy(CURVE))
+    kernels.decompose_digits(*args, **kw)
+    picked = kernels.LAUNCHED["decompose_digits"]["points_per_thread"]
+    print(f"[digits-P] {tag} {tuple(hw.shape)} {hw.dtype}: ms by scalars a "
+          "thread (queued) " + ", ".join(f"{P}: {t:.4f}" for P, t in
+                                         times.items())
+          + f"; the wrapper launched {picked}; all bit-identical [{card}]",
+          flush=True)
+    return dict(picked=picked, ms=times)
 
 
 def check_main_kernels(curve, seen: dict, tag: str, card: str,
@@ -1096,13 +1153,23 @@ def wide_edges(seen: dict, card: str) -> None:
         same_as_plain(f"encode_rows {label}", "encode_rows", (x, y, CURVE))
     s_, W = seen["decompose_digits"][1][1:3]
     hws = {"uint16": hw_in, "int32": hw_in.to(torch.int32),
-           f"uint16 columns [{lo}, {hi})": hw_in[:, lo:hi]}
+           f"uint16 columns [{lo}, {hi})": hw_in[:, lo:hi],
+           f"int32 columns [{lo}, {hi})": hw_in.to(torch.int32)[:, lo:hi]}
+    for n in (1, 127, 129):
+        hws[f"uint16 n={n}"] = hw_in[:, :n]
+        hws[f"int32 n={n}"] = hw_in[:, :n].to(torch.int32)
+        hws[f"uint16 columns [{lo}, {lo + n})"] = hw_in[:, lo:lo + n]
+    # s = 13 (20 windows, the 2^16 shape) and the size's own s and W
+    windows = dict.fromkeys([(s_, W), (13, 20), (16, 16)])
     for label, h in hws.items():
-        same_as_plain(f"decompose_digits {label} Wp = W + 3",
-                      "decompose_digits", (h, s_, W, W + 3))
+        for sw, Ww in windows:
+            same_as_plain(f"decompose_digits {label} s={sw} Wp = W + 3",
+                          "decompose_digits", (h, sw, Ww, Ww + 3))
     print(f"[edge] encode_rows bit-identical to its plain version: "
           f"{', '.join(cases)}; decompose_digits on "
-          f"{', '.join(hws)} with three zero rows [{card}]", flush=True)
+          f"{', '.join(hws)}, each at (s, W) = "
+          f"{', '.join(map(str, windows))}, with three zero rows [{card}]",
+          flush=True)
 
 
 def ledger_ends(t: torch.Tensor, rng, curve, top_axis: int) -> None:
@@ -1892,6 +1959,7 @@ def check_size(logn: int, card: str):
     yardsticks(CURVE, seen, config(CURVE, logn, False), results, tag, card,
                reps)
     sweep = scan_sweep(CURVE, seen, tag, card, reps)
+    digits = digits_sweep(seen, tag, card)
     if logn == min(SIZES):
         sort_extract_edges(seen, config(CURVE, logn, False), card)
         edge_shapes(seen, card)
@@ -1922,7 +1990,7 @@ def check_size(logn: int, card: str):
     return dict(main=results, glv=results_glv, reduce_launches=red[0],
                 reduce_ms=red[1], globalize_launches=glob, apply_glv_ms=glv_ms,
                 scan_sweep=sweep, scan_sweep_glv=sweep_glv,
-                pbpr_edges=pbpr_edge)
+                digits_sweep=digits, pbpr_edges=pbpr_edge)
 
 
 def glv_edge_scalars(glvp) -> list:
@@ -3014,30 +3082,51 @@ def reduce_stage2_check(curve, key: str, args, tag: str, card: str,
     return r
 
 
+def stitch_levels(skeys: torch.Tensor, C: int, label: str) -> tuple:
+    """The scan levels that the last smvp_stitch launch ran (on `skeys`),
+    as its kernel reports them, held against the levels with an add by
+    the closed form (kernels.stitch_levels_that_add) and by the flags
+    carried level by level (`stitch_adds`); returns (those levels, the
+    propagation's (adds, injects, chain))."""
+    ran = kernels.stitch_levels_ran()
+    closed = kernels.stitch_levels_that_add(skeys, C)
+    adds, injects, chain, carried = stitch_adds(skeys, C)
+    if not ran == closed == carried:
+        raise AssertionError(f"smvp_stitch {label}: ran levels {ran}, the "
+                             f"closed form {closed}, the carried flags "
+                             f"{carried}")
+    return ran, (adds, injects, chain)
+
+
 def stitch_line(label: str, cfg: MSMConfig, run: dict, r: dict, args,
-                lat: dict | None, card: str) -> float | None:
+                lat: dict | None, card: str) -> dict:
     """The [stitch] line of one twin run: smvp_stitch's launches in the
     user call, its time a group (the first group's call, compared, on
-    `args`), its scan levels, the adds and the chain of dependent adds
-    its keys need and, with `lat`, its depth floor (that chain, each add
-    a [latency] level); returns the floor."""
+    `args`), its scan levels, the levels it ran (`stitch_levels`) and
+    its grid barriers, the adds and the chain of dependent adds its keys
+    need and, with `lat`, its depth floor (that chain, each add a
+    [latency] level); returns the levels run, the barriers and the
+    floor."""
     C = cfg.columns
     levels = len(kernels.smvp_stitch_levels(C))
     pairs = cfg.subtask_group * sum(map(len, kernels.smvp_stitch_levels(C)))
-    adds, injects, chain = stitch_adds(args[2], C)
+    ran, (adds, injects, chain) = stitch_levels(args[2], C, label)
+    barriers = kernels.stitch_barriers(ran)
     floor = chain * lat["stitch_level_ms"] if lat else None
     print(f"[stitch] {label}: {run['launches']['smvp_stitch']} smvp_stitch "
           f"launches, one a window group ({cfg.num_groups} groups of "
           f"{cfg.subtask_group} windows, C = {C}); {r['ms']:.4f} ms a group "
-          f"({r['ms_cuda']:.4f} back to back), {levels} scan levels and "
-          f"the inject; the first group's keys need {adds} scan adds of "
-          f"its {pairs} pairs and {injects} injects, a chain of {chain} "
-          f"dependent adds"
+          f"({r['ms_cuda']:.4f} back to back); of {levels} scan levels it "
+          f"ran {len(ran)} {list(ran)} (the kernel's report, equal to the "
+          f"closed form's and the carried flags' levels with an add), "
+          f"{barriers} grid barriers, and the inject; the first group's "
+          f"keys need {adds} scan adds of its {pairs} pairs and {injects} "
+          f"injects, a chain of {chain} dependent adds"
           + (f", depth floor {floor:.4f} ms ({r['ms'] / floor:.2f}x)"
              if floor else "")
           + f"; padd_batch {run['launches']['padd_batch']} launches (the "
           f"reduction's tree and last add) [{card}]", flush=True)
-    return floor
+    return dict(levels_ran=list(ran), barriers=barriers, floor_ms=floor)
 
 
 def stitch_edges(card: str) -> None:
@@ -3050,7 +3139,7 @@ def stitch_edges(card: str) -> None:
     xs, ys, _, _, _ = inputs(curve, 16)
     B = 4096
     rng = np.random.default_rng(19)
-    done = []
+    done, ran = [], {}
     for Wg, n, columns in STITCH_EDGES:
         C, R = min(columns, n), n // min(columns, n)
         xm, ym = (kernels.encode_mont(torch.from_numpy(a[:, :n].astype(
@@ -3069,15 +3158,19 @@ def stitch_edges(card: str) -> None:
             skeys = torch.gather(dg.abs(), 1, (pay >> 1).long())
             bucket, trailing = kernels.smvp_rows(pts_rows, pay, skeys, curve,
                                                  C, B)
-            same_as_plain(f"smvp_stitch (Wg, n, C) = ({Wg}, {n}, {C}) "
-                          f"{kind}", "smvp_stitch",
+            tag = f"(Wg, n, C) = ({Wg}, {n}, {C}) {kind}"
+            same_as_plain(f"smvp_stitch {tag}", "smvp_stitch",
                           (bucket, trailing, skeys, curve, C))
+            ran[f"({Wg}, {n}, {C}) {kind}"] = len(stitch_levels(
+                skeys, C, tag)[0])
         done.append(f"({Wg}, {n}, {C})")
     print(f"[edge] smvp_stitch bit-identical to its plain version, the "
           f"whole (3, L, Wg, B + 2) bucket tensor, at (Wg, n, C) = "
           f"{', '.join(done)} (C = min(columns, n); B = {B}), each with "
           f"random digits with runs, every key equal, every column its own "
-          f"run and every digit 0 [{card}]", flush=True)
+          f"run and every digit 0; scan levels run (the kernel's report, "
+          f"equal to the closed form's and the carried flags'): {ran} "
+          f"[{card}]", flush=True)
 
 
 def twin_check(curve, logn: int, glv: bool, card: str,
@@ -3124,8 +3217,8 @@ def twin_check(curve, logn: int, glv: bool, card: str,
     for key, r in results.items():
         kern_ms[r["name"]] += counts[key] * r["ms"]
     key = next(k for k, r in results.items() if r["name"] == "smvp_stitch")
-    stitch_floor = stitch_line(label, cfg, run, results[key], seen[key][1],
-                               lat, card)
+    stitch = stitch_line(label, cfg, run, results[key], seen[key][1], lat,
+                         card)
     del seen
     ms, h2d = timed_runs(cfg, logn, "twin", card, runs=TWIN_TIMED_RUNS)
     total = sum(kern_ms.values())
@@ -3141,7 +3234,8 @@ def twin_check(curve, logn: int, glv: bool, card: str,
                 user_s=run["user_s"], kernels_ms=total, kernel_ms=kern_ms,
                 outside_ms=ms - total,
                 launches={k: run["launches"][k] for k in kset},
-                stitch_floor_ms=stitch_floor, results=results, calls=counts)
+                stitch_floor_ms=stitch["floor_ms"], stitch=stitch,
+                results=results, calls=counts)
 
 
 def twin_phase(card: str, lat: dict | None = None) -> dict:
@@ -3169,7 +3263,7 @@ PTXAS_LIMBS = (CURVE.num_limbs,) + tuple(c.num_limbs for c, _ in PROFILES)
 
 
 # Element types as the mangled template arguments name them.
-MANGLED_TYPES = {"s": "int16", "i": "int32"}
+MANGLED_TYPES = {"s": "int16", "i": "int32", "t": "uint16"}
 
 
 def template_args(fn: str, name: str) -> list:
@@ -3205,11 +3299,18 @@ def sass_kinds(ops) -> dict:
     return out
 
 
+# Sources whose kernels are templated on no profile: [ptxas] and [sass]
+# report every form of theirs.
+NO_PROFILE_STEMS = ("bucket_sort", "decompose_digits")
+
+
 def sass_listings(obj) -> dict:
     """(address, opcode, call target or None) of every instruction of each
-    kernel in the object file at the limb counts PTXAS_LIMBS, read with
-    cuobjdump -sass. A kernel's listing holds the out-of-line functions
-    it calls."""
+    kernel in the object file at the limb counts PTXAS_LIMBS (every kernel
+    of NO_PROFILE_STEMS), read with cuobjdump -sass. A kernel's listing
+    holds the out-of-line functions it calls."""
+    stem = os.path.splitext(os.path.basename(str(obj)))[0]
+    every = stem in NO_PROFILE_STEMS
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
                           text=True, check=True).stdout
@@ -3220,7 +3321,7 @@ def sass_listings(obj) -> dict:
             targs = (template_args(m[1], "_kernel") if "_kernelI" in m[1]
                      else [None])
             cur = None
-            if targs[0] in map(str, PTXAS_LIMBS):
+            if every or targs[0] in map(str, PTXAS_LIMBS):
                 cur = out[f"{kernel_name(m[1])}<{', '.join(targs)}>"] = []
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
@@ -3837,13 +3938,15 @@ def main_on_card(t_start: float) -> int:
                  "padd_batch", "pdbl_batch", "pbpr_stage1", "globalize",
                  "glv_apply", "to_affine", "batch_inverse",
                  "extract_buckets", "bucket_sort", "smvp_rows",
-                 "smvp_stitch"):
+                 "smvp_stitch", "decompose_digits"):
         for fn, regs, stack, st, ld in _build.resources(stem):
             # kernel name and template arguments <L, W[, G, types]> from
-            # the mangled name (bucket_sort's are no profile's)
+            # the mangled name (bucket_sort's and decompose_digits' are no
+            # profile's)
             targs = (template_args(fn, "_kernel") if "_kernelI" in fn
                      else [])
-            if stem != "bucket_sort" and int(targs[0]) not in PTXAS_LIMBS:
+            if (stem not in NO_PROFILE_STEMS
+                    and int(targs[0]) not in PTXAS_LIMBS):
                 continue
             resources[f"{stem}.{kernel_label(fn)}"] = dict(
                 registers=regs, stack_bytes=stack, spill_store_bytes=st,
@@ -3859,6 +3962,12 @@ def main_on_card(t_start: float) -> int:
             print(f"[sass] {stem}.{fn}: " + ", ".join(
                 f"{k} {v}" for k, v in counts.items() if v or k == "LD")
                 + f" [{card}]", flush=True)
+    # decompose_digits: every form, by element type and scalars a thread
+    for fn, counts in sass_counts("decompose_digits").items():
+        sass[f"decompose_digits.{fn}"] = counts
+        print(f"[sass] decompose_digits.{fn}: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items() if v) + f" [{card}]",
+            flush=True)
     show = lambda c: ", ".join(f"{k} {v}" for k, v in c.items() if v)
     for fn, counts in callee_counts("prefix_scan").items():
         sass[f"mul_wide.{fn}"] = counts
@@ -3990,6 +4099,8 @@ def smvp_entry(entry: dict, name: str, twin: dict, lat: dict) -> dict:
             entry[f"depth_floor_ms{sfx}"] = R * lat["scan_step_ms"][G]
         else:
             entry[f"depth_floor_ms{sfx}"] = run["stitch_floor_ms"]
+            entry[f"levels_ran{sfx}"] = run["stitch"]["levels_ran"]
+            entry[f"grid_barriers{sfx}"] = run["stitch"]["barriers"]
     entry["launches_twin"] = {k: r["launches"][name] for k, r in tr.items()}
     entry["ms_twin"] = {k: r["kernel_ms"][name] for k, r in tr.items()}
     entry["max_abs_err_twin"] = max(
@@ -4094,6 +4205,12 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             if name in WIDE:
                 entry[f"bound_ms_mont_mul_ops{sfx}"] = r[
                     "bound_ms_mont_mul_ops"]
+            if name == "decompose_digits":
+                # its launch, a copy of the same bytes, and every word
+                entry.update({f"launched{sfx}": r["launched"],
+                              f"copy_ms{sfx}": r["copy_ms"],
+                              f"ms_by_points_per_thread{sfx}": c[
+                                  "digits_sweep"]["ms"]})
             if name in ("pdbl_batch", "pbpr_stage1", "globalize"):
                 entry[f"launched{sfx}"] = r["launched"]
             if name == "pdbl_batch":
@@ -4126,6 +4243,8 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
             # at the large shapes: 2^22 in one pass
             r = lg["kernels"][name]
             sfx = f"_2p{min(LARGE_LOGN)}"
+            if "copy_ms" in r:
+                entry[f"copy_ms{sfx}"] = r["copy_ms"]
             entry.update({f"launches{sfx}": lg["launches"][name],
                           f"ms{sfx}": r["ms"], f"plain_ms{sfx}": r["plain_ms"],
                           f"bound_ms{sfx}": r["bound_ms"],

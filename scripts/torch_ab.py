@@ -9,8 +9,9 @@ change, change, parent puts both on the card twice, so that a drift of
 the host between the first and the last shows), and builds its kernels
 into its own `build/`. Each prints `[ab]` lines, on BN254_S12 with the
 default schedule:
-  - the eight kernels on the word-wide multiply at the shapes the 2^20
-    MSM gives them: `encode_mont`, `prefix_scan`, `col_prefix`,
+  - the eight kernels on the word-wide multiply, and `decompose_digits`,
+    at the shapes the 2^20 MSM gives them: `encode_mont`, `prefix_scan`,
+    `col_prefix`,
     `padd_batch` and `pbpr_full` on the inputs of their first call in
     the device program (captured by the checkout's `chip_smoke.py`;
     `padd_batch` where the checkout's capture runs it: on the main path
@@ -45,11 +46,16 @@ default schedule:
   - the MSM end to end at 2^16 and 2^20, without GLV and with it, as
     `chip_smoke.py` times it, and the same for the XLA path
     (`backend="xla"`, the twin of `chip_smoke.py`'s `[twin]`) where the
-    checkout's `chip_smoke.py` has it.
+    checkout's `chip_smoke.py` has it, and before it `smvp_stitch` on the
+    first window group of the XLA path's 2^16 and 2^20 calls (captured by
+    the checkout's `twin_user_call`) and at (Wg, n, C) = (3, 1001, 1001)
+    with every key equal (every scan level adds), timed as the kernels
+    above.
 Then, once each checkout has run, the multiply's instructions by kind in
 each checkout's own build (`cuobjdump -sass`, counted by this
 checkout's `chip_smoke.py`): the `encode_mont` kernel, which inlines it,
-and `msm::mul_wide` alone in prefix_scan's object, at L = 22.
+and `msm::mul_wide` alone in prefix_scan's object, at L = 22; and every
+form of the `decompose_digits` kernel.
 It needs one card, and the checkouts' own `chip_smoke.py`.
 
     python3 scripts/torch_ab.py --small parent . . parent . parent parent .
@@ -64,6 +70,10 @@ runs only the 2^16 part, in turns as above (`small`), on BN254_S12:
     shards above one (w_shards = 5: 2^16 has 5 window groups): its host
     cost (the median time to return) and its
     time to a synchronize (median), `SMALL_REPS` calls each;
+  - where the checkout's `chip_smoke.py` has the XLA path, the host cost
+    of its `decompose_digits` and `smvp_stitch` calls as above (the first
+    window group's, captured by its `twin_user_call`) and its MSM end to
+    end, the median of `SMALL_REPS` runs;
   - the MSM end to end without GLV and with it, as `chip_smoke.py` times
     it, the median of `SMALL_REPS` runs, and again cut into its parts
     (`msm_parts`).
@@ -166,6 +176,29 @@ def small(root: str) -> None:
                    f"{statistics.median(ret):.3f} ms, done in "
                    f"{statistics.median(done):.3f} ms (medians of "
                    f"{SMALL_REPS})")
+    if hasattr(cs, "twin_config"):
+        # the XLA path: its stitch's and digits' host cost, as above, on
+        # the first window group, and its MSM end to end
+        seen = cs.twin_user_call(C, logn, False, "", capture=True)["seen"]
+        for key, (name, args, kw, _) in seen.items():
+            if name not in ("decompose_digits", "smvp_stitch"):
+                continue
+            fn = getattr(kernels, name)
+            call = lambda: fn(*args, **kw)
+            call()
+            torch.cuda.synchronize()
+            cs.busy(C)
+            t0 = time.perf_counter()
+            for _ in range(HOST_REPS):
+                call()
+            us = (time.perf_counter() - t0) * 1e6 / HOST_REPS
+            torch.cuda.synchronize()
+            out.append(f"host twin {name} {us:.1f} us a call (mean of "
+                       f"{HOST_REPS}, queued)")
+        del seen
+        ms, _ = cs.timed_runs(cs.twin_config(C, logn, False), logn, "twin",
+                              "", runs=SMALL_REPS)
+        out.append(f"twin 2^{logn} {ms:.3f} ms (median of {SMALL_REPS})")
     for glv in (False, True):
         label = "msm-glv" if glv else "msm"
         ms, _ = cs.timed_runs(cs.config(C, logn, glv), logn, label, "",
@@ -287,8 +320,9 @@ def one(root: str) -> None:
     calls = {}
     for key, (name, args, kw, _) in seen.items():
         calls.setdefault(name, (key, args, kw))
-    for name in ("encode_mont", "encode_rows", "prefix_scan", "col_prefix",
-                 "padd_batch", "pbpr_full", "bucket_sort", "extract_buckets"):
+    for name in ("encode_mont", "encode_rows", "decompose_digits",
+                 "prefix_scan", "col_prefix", "padd_batch", "pbpr_full",
+                 "bucket_sort", "extract_buckets"):
         if name not in calls:
             continue
         key, args, kw = calls[name]
@@ -355,6 +389,32 @@ def one(root: str) -> None:
             label = "msm-glv" if glv else "msm"
             ms, _ = cs.timed_runs(cs.config(C, logn, glv), logn, label, "")
             out.append(f"{label} 2^{logn} {ms:.2f} ms")
+    if hasattr(kernels, "smvp_stitch"):
+        # the stitch at an edge shape where every level adds: C = 1001,
+        # every key equal, made as chip_smoke.py stitch_edges makes it
+        xs, ys, _, _, _ = cs.inputs(C, 16)
+        n = 1001
+        xm, ym = (kernels.encode_mont(torch.from_numpy(a[:, :n].astype(
+            np.int32)).cuda(), C) for a in (xs, ys))
+        rows_ = torch.cat([xm, ym]).to(torch.int16).T.contiguous()
+        dg = torch.full((3, n), -9, dtype=torch.int32, device="cuda")
+        pay, _ = kernels.bucket_sort(dg.to(torch.int16), 4096)
+        skeys = torch.gather(dg.abs(), 1, (pay >> 1).long())
+        bucket, trailing = kernels.smvp_rows(rows_, pay, skeys, C, n, 4096)
+        out.append(timed("smvp_stitch (Wg, n, C) = (3, 1001, 1001) every "
+                         "key equal", lambda: kernels.smvp_stitch(
+                             bucket, trailing, skeys, C, n)))
+        del bucket, trailing
+        # the stitch on the XLA path's first window group, in place
+        for logn in (16, 20):
+            seen = cs.twin_user_call(C, logn, False, "", capture=True)[
+                "seen"]
+            _, args, kw, _ = next(v for v in seen.values()
+                                  if v[0] == "smvp_stitch")
+            out.append(timed(f"smvp_stitch twin 2^{logn} "
+                             f"{tuple(args[0].shape)}",
+                             lambda: kernels.smvp_stitch(*args, **kw)))
+            del seen, args
     if hasattr(cs, "twin_config"):
         for logn in (16, 20):
             ms, _ = cs.timed_runs(cs.twin_config(C, logn, False), logn,
@@ -393,9 +453,11 @@ def main() -> int:
         for what, counts in (("encode_mont kernel", cs.sass_counts(
                 "encode_mont", build)), ("prefix_scan's msm::mul_wide",
                                          cs.callee_counts("prefix_scan",
-                                                          build))):
+                                                          build)),
+                             ("decompose_digits kernel", cs.sass_counts(
+                                 "decompose_digits", build))):
             for k, v in counts.items():
-                if k.startswith(("encode<22,", "scan<22,")):
+                if k.startswith(("encode<22,", "scan<22,", "digits<")):
                     print(f"[ab] {os.path.abspath(root)} sass {what} {k}: "
                           + ", ".join(f"{n} {c}" for n, c in v.items() if c),
                           flush=True)

@@ -1,8 +1,9 @@
 """Shared pieces of the tests of the XLA path's stitch across columns
 (tests/test_torch_smvp_stitch*.py): the cases, the stitch's inputs as
 `smvp.bucket_accumulate` makes them, one jit of the JAX
-`bucket_accumulate` a shape, `kernel_replay`, the phases of
-csrc/smvp_stitch.cu on CPU tensors, and `check_against_jax`, one case."""
+`bucket_accumulate` a shape, `replay_levels`, the scan's levels carried
+flag by flag, `kernel_replay`, the phases of csrc/smvp_stitch.cu on CPU
+tensors, and `check_against_jax`, one case."""
 
 import functools
 
@@ -107,14 +108,15 @@ def jax_buckets(name: str, C: int, R: int, s: int, xm, ym, digits
 
 
 def replay_levels(scan: torch.Tensor, flags: torch.Tensor, curve, C: int):
-    """The scan's levels of csrc/smvp_stitch.cu on CPU tensors, in place,
-    from the tables the kernel reads (`kernels._stitch_schedule`): on
-    every window at once, v[b] = padd(v[a], v[b]) and the flag of b
-    becomes a's where b is not flagged; nothing where it is. Checks that
-    no level reads a position it writes or writes one twice."""
+    """The scan's levels on CPU tensors, in place, with the flags carried
+    level by level as the recursion carries them, from the table the
+    kernel reads (`kernels._stitch_schedule`): on every window at once,
+    v[b] = padd(v[a], v[b]) and the flag of b becomes a's where b is not
+    flagged; nothing where it is. Checks that no level reads a position
+    it writes or writes one twice."""
     pairs, starts = kernels._stitch_schedule(C, torch.device("cpu"))
     for lv in range(len(starts) - 1):
-        a, b = pairs[starts[lv]:starts[lv + 1]].long().T
+        a, b = pairs[starts[lv]:starts[lv + 1], :2].long().T
         assert len(set(b.tolist())) == len(b)
         assert not set(a.tolist()) & set(b.tolist())
         wi, ii = (~flags[:, b]).nonzero(as_tuple=True)
@@ -125,25 +127,45 @@ def replay_levels(scan: torch.Tensor, flags: torch.Tensor, curve, C: int):
 
 
 def kernel_replay(bucket, trailing, skeys, curve, C):
-    """csrc/smvp_stitch.cu's phases on CPU tensors: the copy-in (the scan
-    from the trailing sums; a column flagged where its first key differs
-    from its last, it is the first column, or the key before it differs
-    from its first), the levels (`replay_levels`), the inject (column
-    c > 0 whose key before equals its first key and which holds more
-    than one run or whose next column does not start with its last key:
-    bucket[first] = padd(bucket[first], scan[c - 1]), the slot below the
-    spare). Returns a new bucket tensor."""
+    """csrc/smvp_stitch.cu's phases on CPU tensors, from the table the
+    kernel reads (`kernels._stitch_schedule`): the pass before the first
+    barrier (every pair (a, b, lo, level) decided by the closed form,
+    k[lo R - 1] == k[(b + 1) R - 1], and the levels with an add
+    collected); where there are any, the scan from the trailing sums and
+    those levels alone, each only at its adding pairs, v[b] = padd(v[a],
+    v[b]); the inject (column c > 0 whose key before equals its first key
+    and which holds more than one run or whose next column does not start
+    with its last key: bucket[first] = padd(bucket[first], P), the slot
+    below the spare), P the scan at c - 1, or the trailing sum at c - 1
+    where no level added. Returns (a new bucket tensor, the levels run).
+    Checks that no level reads a position it writes or writes one
+    twice."""
     Wg, n = skeys.shape
     R = n // C
     B2 = bucket.shape[-1]
     k = skeys.reshape(Wg, C, R).long()
+    keys = skeys.long()
+    table, starts = kernels._stitch_schedule(C, torch.device("cpu"))
+    table = table.long()
+    adds = torch.zeros((Wg, len(table)), dtype=torch.bool)
+    for p, (a, b, lo, lv) in enumerate(table.tolist()):
+        adds[:, p] = keys[:, lo * R - 1] == keys[:, (b + 1) * R - 1]
+    ran = sorted({lv for (_, _, _, lv), col in zip(table.tolist(), adds.T)
+                  if bool(col.any())})
+    scan = trailing.clone() if ran else trailing
+    for lv in ran:
+        s0, s1 = int(starts[lv]), int(starts[lv + 1])
+        a, b = table[s0:s1, 0], table[s0:s1, 1]
+        assert len(set(b.tolist())) == len(b)
+        assert not set(a.tolist()) & set(b.tolist())
+        wi, ii = adds[:, s0:s1].nonzero(as_tuple=True)
+        ai, bi = a[ii], b[ii]
+        scan[:, :, wi, bi] = kernels.padd_batch_plain(
+            scan[:, :, wi, ai], scan[:, :, wi, bi], curve)
     first, last = k[..., 0], k[..., -1]
     before = torch.cat([torch.full((Wg, 1), -1), last[:, :-1]], dim=1)
     after = torch.cat([first[:, 1:], torch.full((Wg, 1), -1)], dim=1)
     col = torch.arange(C).expand(Wg, C)
-    scan = trailing.clone()
-    flags = (first != last) | (col == 0) | (before != first)
-    replay_levels(scan, flags, curve, C)
     inject = ((col > 0) & (before == first)
               & ((first != last) | (col + 1 == C) | (after != last))
               & (first < B2 - 1))
@@ -153,7 +175,7 @@ def kernel_replay(bucket, trailing, skeys, curve, C):
     out = bucket.clone()
     out[:, :, wi, slots] = kernels.padd_batch_plain(
         bucket[:, :, wi, slots], scan[:, :, wi, ci - 1], curve)
-    return out
+    return out, tuple(ran)
 
 
 def check_against_jax(name, C, R, s, kind):
@@ -164,7 +186,8 @@ def check_against_jax(name, C, R, s, kind):
     cfg, xm, ym, digits = make_case(name, C, R, s, kind)
     B = cfg.half_columns
     bucket, trailing, skeys = stitch_inputs(cfg, xm, ym, digits)
-    replay = kernel_replay(bucket, trailing, skeys, cfg.curve, C)
+    replay, ran = kernel_replay(bucket, trailing, skeys, cfg.curve, C)
+    assert ran == kernels.stitch_levels_that_add(skeys, C)
     kernels.reset_launches()
     got = kernels.smvp_stitch(bucket, trailing, skeys, cfg.curve, C)
     assert got is bucket and set(kernels.LAUNCHES.values()) == {0}

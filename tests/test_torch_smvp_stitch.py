@@ -7,7 +7,9 @@ TINY62 (BN254_S12 in tests/test_torch_smvp_stitch_bn254.py): C in {1, 2,
 key equal, every column its own run, every digit 0; one jit of the JAX
 function a shape (tests/_torch_twin.py runs it so too). On those cases
 the phases of csrc/smvp_stitch.cu replayed on CPU tensors from the
-tables the kernel reads (`_torch_stitch.kernel_replay`). The level
+tables the kernel reads (`_torch_stitch.kernel_replay`: the levels with
+an add by the closed form, only their adding pairs, P from the trailing
+sums where no level adds). The level
 schedule (`kernels.smvp_stitch_levels`) against the recursion of
 `kernels.associative_scan`: on a combine whose results name their tree
 at every C up to 300 and more, and with complete adds at BN254_S12 at
@@ -105,7 +107,8 @@ def test_schedule_replay_matches_associative_scan(C):
     pairs, starts = kernels._stitch_schedule(C, torch.device("cpu"))
     levels = kernels.smvp_stitch_levels(C)
     assert starts.tolist()[-1] == len(pairs) == sum(map(len, levels))
-    assert pairs.tolist() == [list(p) for lv in levels for p in lv]
+    assert pairs[:, :2].tolist() == [list(p) for lv in levels for p in lv]
+    assert pairs.tolist() == [list(p) for p in kernels.smvp_stitch_pairs(C)]
 
 
 # ---------------------------------------------------------------------------
@@ -118,15 +121,21 @@ def test_schedule_replay_matches_associative_scan(C):
                                          (3, 7, 2), (1, 8192, 1)])
 def test_geometry(Wg, C, per_sm):
     """Lanes of 6 threads, 10 a block of 64 threads; one lane an item of
-    the widest level (Wg C) up to the resident blocks, then several."""
+    the widest level (Wg C) up to the resident blocks, then several; the
+    pass before the first barrier decides Wg times the schedule's pairs,
+    spread over every thread of the grid."""
     geo = kernels.smvp_stitch_geometry(Wg, C, 132, per_sm, 64)
     assert geo.threads_per_lane == 6 and geo.lanes_per_block == 10
     assert geo.blocks == min(-(-Wg * C // 10), 132 * per_sm)
     assert geo.blocks * geo.lanes_per_block * geo.items_per_lane >= Wg * C
     assert geo.levels == len(kernels.smvp_stitch_levels(C))
     assert geo.shared_bytes <= kernels.BLOCK_SHARED_BYTES
+    assert geo.pair_items == Wg * len(kernels.smvp_stitch_pairs(C))
+    assert (geo.blocks * geo.threads * geo.pairs_per_thread
+            >= geo.pair_items)
     if (Wg, C, per_sm) == (1, 8192, 11):
         assert (geo.blocks, geo.items_per_lane, geo.levels) == (820, 1, 25)
+        assert (geo.pair_items, geo.pairs_per_thread) == (16369, 1)
     if (Wg, C) == (16, 8192):
         assert geo.blocks == 1452 and geo.items_per_lane == 10
     for bad in ((0, C, 132, per_sm, 64), (Wg, C, 132, 0, 64),
@@ -141,7 +150,7 @@ class FakeLib:
     def __init__(self, rc=0):
         self.rc, self.calls = rc, []
 
-    def msm_smvp_stitch(self, L, w, bucket, trailing, keys, scan, flags,
+    def msm_smvp_stitch(self, L, w, bucket, trailing, keys, scan, masks,
                         pairs, starts, Wg, C, R, B2, levels, G, blocks,
                         consts, wide, stream):
         self.calls.append((L, w, Wg, C, R, B2, levels, G, blocks, pairs,

@@ -454,8 +454,10 @@ class FakeLib:
         self.calls.append(("encode_rows", L, w, nb, ldx, ldy, n))
         return 0
 
-    def msm_decompose_digits(self, hw, nb, ld, out, H, n, s, W, Wp, st):
-        self.calls.append(("decompose_digits", nb, ld, H, n, s, W, Wp))
+    def msm_decompose_digits(self, hw, nb, ld, out, H, n, s, W, Wp, rows,
+                             P, head, threads, vl, vs, st):
+        self.calls.append(("decompose_digits", nb, ld, H, n, s, W, Wp, rows,
+                           P, head, threads, vl, vs))
         return 0
 
     def msm_glv_apply(self, L, w, xs, ys, nb, ldx, ldy, hw, hb, ldh,
@@ -491,6 +493,11 @@ def test_wrappers_hand_the_kernels_strides_and_widths(fake_card):
     assert rows_.shape == (n, 2 * L) and rows_.dtype == I16
     d = kernels.decompose_digits(hw[:, lo:lo + n], 16, 16, 18)
     assert d.shape == (18, n)
+    # the slice starts 16 bytes in: 2 scalars a thread (n is small), words
+    # aligned, no head
+    geo = kernels.decompose_digits_geometry(
+        n, N, 2, hw[:, lo:].data_ptr() % 16, 18, 16, 16)
+    assert kernels.LAUNCHED["decompose_digits"] == geo._asdict()
     cfg = glv_cfg(c)
     table, mags, n1, n2 = kernels.glv_rows(xs[:, lo:lo + n].to(I32),
                                            xs[:, lo:lo + n].to(I32),
@@ -501,7 +508,9 @@ def test_wrappers_hand_the_kernels_strides_and_widths(fake_card):
     kernels.col_prefix(kernels.column_totals(tbuf, 2), c)
     assert fake_card.calls == [
         ("encode_rows", L, 12, 2, N, N, n),
-        ("decompose_digits", 2, N, 18, n, 16, 16, 18),
+        ("decompose_digits", 2, N, 18, n, 16, 16, 18, 16, geo.
+         points_per_thread, geo.head, geo.threads, int(geo.vector_loads),
+         int(geo.vector_stores)),
         ("glv_apply", L, 12, 4, n, n, 2, N, 16, n),
         ("col_prefix", L, 7 * 16, 2, 8, 3)]
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {

@@ -41,7 +41,8 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     "msm_encode_mont": [_I, _I, _P, _P, _I64, _P, _P],
     "msm_encode_rows": [_I, _I, _P, _P, _I, _I64, _I64, _P, _I64, _P, _P],
-    "msm_decompose_digits": [_P, _I, _I64, _P, _I, _I64, _I, _I, _I, _P],
+    "msm_decompose_digits": [_P, _I, _I64, _P, _I, _I64, _I, _I, _I, _I,
+                             _I, _I64, _I64, _I, _I, _P],
     "msm_prefix_scan": [_I, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _I64, _P,
                         _P, _P],
     "msm_col_prefix": [_I, _I, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P, _P,

@@ -131,11 +131,12 @@ LAUNCHES = {name: 0 for name in ("encode_mont", "encode_rows",
 """Kernel launches per wrapper, counted where the CUDA kernel launches."""
 
 LAUNCHED = {}
-"""The geometry that the last launch of `prefix_scan`, `col_prefix`,
-`padd_batch`, `pbpr_full`, `pdbl_batch`, `pbpr_stage1`, `globalize`,
-`bucket_sort`, `extract_buckets`, `smvp_rows` and `smvp_stitch` passed
-to its kernel, and the plan of the last call of `to_affine` and
-`batch_inverse`, written where the kernels launch."""
+"""The geometry that the last launch of `decompose_digits`,
+`prefix_scan`, `col_prefix`, `padd_batch`, `pbpr_full`, `pdbl_batch`,
+`pbpr_stage1`, `globalize`, `bucket_sort`, `extract_buckets`,
+`smvp_rows` and `smvp_stitch` passed to its kernel, and the plan of the
+last call of `to_affine` and `batch_inverse`, written where the kernels
+launch."""
 
 
 def reset_launches() -> None:
@@ -393,13 +394,95 @@ def decompose_digits_plain(halfwords: torch.Tensor, s: int, W: int,
     return out
 
 
+DIGITS_THREADS = 128
+"""Threads a block of csrc/decompose_digits.cu (kThreads)."""
+DIGITS_WORD_BYTES = (8, 4)
+"""The words a thread of decompose_digits can read of each row, widest
+first: P = word / element size scalars a thread. 16-byte words were
+slower on the H100 at 2^20 and 2^22 (twice the registers a thread, fewer
+threads resident)."""
+DIGITS_MIN_THREADS = 1 << 17
+"""The threads a launch should have to fill the card: the widest word
+that leaves at least this many, else the narrowest."""
+
+
+class DigitsGeometry(NamedTuple):
+    points_per_thread: int
+    head: int
+    threads: int
+    blocks: int
+    rows: int
+    vector_loads: bool
+    vector_stores: bool
+
+
+def digits_rows(H: int, s: int, W: int) -> int:
+    """The halfword rows of H that W windows of s bits read: the top
+    window's first and, off a halfword's start, the next (0 for no
+    window)."""
+    if W < 1:
+        return 0
+    top = (W - 1) * s
+    return min(H, (top >> 4) + 1 + (top % 16 > 0))
+
+
+def decompose_digits_geometry(n: int, ld: int, elem_bytes: int,
+                              misalign: int, H: int, s: int, W: int,
+                              points_per_thread: int | None = None
+                              ) -> DigitsGeometry:
+    """One decompose_digits launch on n scalars of (H, n) halfwords of
+    `elem_bytes` each, row stride `ld` elements, the data pointer
+    `misalign` bytes past a 16-byte boundary: a pure function, so the
+    CPU tests can hold it (`digits_points` gives each thread's scalars).
+
+    A thread takes P consecutive scalars, one word of each row: the
+    wider of `DIGITS_WORD_BYTES` where it leaves DIGITS_MIN_THREADS
+    threads, else the narrower (or `points_per_thread`). Where the row
+    stride is a multiple of the word, every row starts on the same
+    phase: thread 0 takes the `head` scalars before the first word
+    boundary, and every later full thread loads whole words (none where
+    n ends before the boundary). Stores are whole words of 2P bytes
+    where head is 0 and n is a multiple of P. A thread that is not full,
+    and every thread where a flag is off, goes element by element."""
+    if elem_bytes not in (2, 4) or misalign % elem_bytes or n < 1:
+        raise ValueError(f"decompose_digits_geometry: n={n}, "
+                         f"elem_bytes={elem_bytes}, misalign={misalign}")
+    widths = [b // elem_bytes for b in DIGITS_WORD_BYTES]
+    P = points_per_thread or next(
+        (p for p in widths if -(-n // p) >= DIGITS_MIN_THREADS), widths[-1])
+    if P not in widths:
+        raise ValueError(f"decompose_digits_geometry: {P} scalars a thread "
+                         f"of {elem_bytes}-byte halfwords")
+    word = P * elem_bytes
+    head = (word - misalign % word) % word // elem_bytes
+    loads = (ld * elem_bytes) % word == 0 and head < n
+    head = head if loads else 0
+    threads = (head > 0) + -(-(n - head) // P)
+    return DigitsGeometry(P, head, threads, -(-threads // DIGITS_THREADS),
+                          digits_rows(H, s, W), loads,
+                          head == 0 and n % P == 0)
+
+
+def digits_points(geo: DigitsGeometry, n: int, t: int) -> Tuple[int, int]:
+    """[f0, f1): the scalars of thread t of a launch, as the kernel
+    takes them (empty past n)."""
+    first = int(geo.head > 0)
+    if t < first:
+        return 0, geo.head
+    f0 = geo.head + (t - first) * geo.points_per_thread
+    return min(f0, n), min(n, f0 + geo.points_per_thread)
+
+
 def decompose_digits(halfwords: torch.Tensor, s: int, W: int,
-                     Wp: int | None = None) -> torch.Tensor:
+                     Wp: int | None = None,
+                     _points_per_thread: int | None = None) -> torch.Tensor:
     """(H, n) 16-bit halfwords, uint16 or int32 as staged -> (Wp, n) int16
     signed digits in [-2^(s-1), 2^(s-1)), carry-chained across the W
     windows, rows W to Wp - 1 zero (Wp defaults to W). Reads the
     halfwords in place (any row stride); on the card they are
-    `HALFWORD_DTYPES` only."""
+    `HALFWORD_DTYPES` only. `decompose_digits_geometry` picks the
+    launch; `_points_per_thread` overrides its P (a measurement's
+    sweep)."""
     if Wp is not None and Wp < W:
         raise ValueError(f"decompose_digits: Wp={Wp} < W={W}")
     if not _on_cuda("decompose_digits", halfwords):
@@ -411,10 +494,15 @@ def decompose_digits(halfwords: torch.Tensor, s: int, W: int,
     Wp = W if Wp is None else Wp
     out = torch.empty((Wp, n), dtype=I16, device=halfwords.device)
     if n:
+        eb = halfwords.element_size()
+        geo = decompose_digits_geometry(n, ld, eb, halfwords.data_ptr() % 16,
+                                        H, s, W, _points_per_thread)
         rc = _build.library().msm_decompose_digits(
-            halfwords.data_ptr(), halfwords.element_size(), ld,
-            out.data_ptr(), H, n, s, W, Wp, _stream(halfwords))
+            halfwords.data_ptr(), eb, ld, out.data_ptr(), H, n, s, W, Wp,
+            geo.rows, geo.points_per_thread, geo.head, geo.threads,
+            int(geo.vector_loads), int(geo.vector_stores), _stream(halfwords))
         _check("decompose_digits", rc)
+        LAUNCHED["decompose_digits"] = geo._asdict()
     return out
 
 
@@ -2147,17 +2235,64 @@ def smvp_stitch_levels(C: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
+def smvp_stitch_pairs(C: int) -> tuple:
+    """Every pair of `smvp_stitch_levels(C)`, level by level, as the
+    kernel reads it: (a, b, lo, level). [lo, b] are the columns whose
+    trailing sums b's value holds at that level, lo = a + 1 (the
+    recursion's element at depth j covers 2^j columns, and a's ends
+    where b's begins; a >= 0, so column 0, always flagged, is never
+    b's). b is flagged where one of those columns is, so, the keys of
+    each window sorted, the pair adds exactly where k[lo R - 1] ==
+    k[(b + 1) R - 1] (`stitch_pairs_add`)."""
+    return tuple((a, b, a + 1, lv)
+                 for lv, level in enumerate(smvp_stitch_levels(C))
+                 for a, b in level)
+
+
+def stitch_pairs_add(skeys: torch.Tensor, C: int) -> list:
+    """Which pairs of each scan level of the stitch add on the (Wg, n)
+    keys, sorted in each window (column c holds positions c R .. c R +
+    R - 1): a (Wg, pairs of the level) bool tensor a level, by the
+    closed form of `smvp_stitch_pairs`, as csrc/smvp_stitch.cu decides
+    them; a pure function of the keys."""
+    Wg, n = skeys.shape
+    R = n // C
+    table = torch.tensor(smvp_stitch_pairs(C), dtype=torch.int64,
+                         device=skeys.device).reshape(-1, 4)
+    out, p = [], 0
+    for level in smvp_stitch_levels(C):
+        t = table[p:p + len(level)]
+        p += len(level)
+        lo, b = t[:, 2], t[:, 1]
+        out.append(skeys[:, lo * R - 1] == skeys[:, (b + 1) * R - 1])
+    return out
+
+
+def stitch_levels_that_add(skeys: torch.Tensor, C: int) -> Tuple[int, ...]:
+    """The scan levels of the stitch that hold an add on these keys: the
+    levels that csrc/smvp_stitch.cu runs, each behind a grid barrier."""
+    return tuple(lv for lv, adds in enumerate(stitch_pairs_add(skeys, C))
+                 if bool(adds.any()))
+
+
+def stitch_barriers(levels_run) -> int:
+    """Grid barriers of one smvp_stitch launch that runs `levels_run`:
+    one after the pass that finds them; where there are any, one after
+    the copy of the trailing sums into the scan and one after each."""
+    return 1 + (1 + len(levels_run) if levels_run else 0)
+
+
+@functools.lru_cache(maxsize=None)
 def _stitch_schedule(C: int, device: torch.device
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`smvp_stitch_levels(C)` on the device, as the kernel reads it: the
-    (pairs, 2) int32 (a, b) of every level in order, and each level's
-    first pair, one more entry at the end (levels + 1 int32)."""
+    """`smvp_stitch_pairs(C)` on the device, as the kernel reads it: the
+    (pairs, 4) int32 (a, b, lo, level) of every level in order, and each
+    level's first pair, one more entry at the end (levels + 1 int32)."""
     levels = smvp_stitch_levels(C)
     starts = [0]
     for lv in levels:
         starts.append(starts[-1] + len(lv))
-    pairs = torch.tensor([p for lv in levels for p in lv], dtype=I32
-                         ).reshape(-1, 2)
+    pairs = torch.tensor(smvp_stitch_pairs(C), dtype=I32).reshape(-1, 4)
     return pairs.to(device), torch.tensor(starts, dtype=I32, device=device)
 
 
@@ -2169,6 +2304,8 @@ class StitchGeometry(NamedTuple):
     levels: int
     threads: int
     shared_bytes: int
+    pair_items: int
+    pairs_per_thread: int
 
 
 def smvp_stitch_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
@@ -2190,9 +2327,12 @@ def smvp_stitch_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
     levels, so every block must be resident at once: never more than
     sms * blocks_per_sm blocks; with more items than lanes, a lane takes
     every (blocks * lanes_per_block)-th, `items_per_lane` at most.
-    `levels` counts the scan's levels (`smvp_stitch_levels`); the
-    copy-in before them and the inject after them are one barrier
-    each."""
+    `levels` counts the scan's levels (`smvp_stitch_levels`), of which
+    the kernel runs those with an add (`stitch_levels_that_add`). Before
+    its first barrier every thread decides `pairs_per_thread` of the
+    `pair_items` (Wg times the schedule's pairs), one key comparison
+    each, and each block ORs the levels that add into a word of its
+    own."""
     G = threads_per_lane
     if (min(Wg, C, sms, threads, G, num_limbs, limb_bits) < 1
             or blocks_per_sm < 1 or threads % 32 or G > 32):
@@ -2203,11 +2343,13 @@ def smvp_stitch_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
     lanes = (threads // 32) * (32 // G)
     total = Wg * C
     blocks = min(-(-total // lanes), sms * blocks_per_sm)
-    shared = 4 * (lanes * ((15 * num_limbs | 1) + 2)
+    shared = 4 * (lanes * ((15 * num_limbs | 1) + 2) + 2
                   + _static_shared_words(num_limbs, limb_bits))
     _fits_block("smvp_stitch_geometry", shared)
+    items = Wg * len(smvp_stitch_pairs(C))
     return StitchGeometry(G, lanes, blocks, -(-total // (blocks * lanes)),
-                          len(smvp_stitch_levels(C)), threads, shared)
+                          len(smvp_stitch_levels(C)), threads, shared,
+                          items, -(-items // (blocks * threads)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -2225,6 +2367,12 @@ def _smvp_stitch_limits(curve: CurveParams, device: torch.device
                            f"(cudaError_t {rc})")
     per_sm, sms, threads, per_lane = (v.value for v in out)
     return sms, per_sm, threads, per_lane
+
+
+STITCH_RAN = {}
+"""The last smvp_stitch launch's report: "mask", a one-element int64
+tensor on the card where the kernel's block 0 writes the scan levels it
+ran as bits, and "levels", the schedule's levels."""
 
 
 def smvp_stitch(bucket: torch.Tensor, trailing: torch.Tensor,
@@ -2246,7 +2394,9 @@ def smvp_stitch(bucket: torch.Tensor, trailing: torch.Tensor,
     that continues a run and ends in it (or holds more than one) gets
     bucket[w, first key] = padd(bucket[w, first key], P). Returns
     `bucket`, written in place; the spare slot stays infinity.
-    `smvp_stitch_geometry` picks the launch."""
+    `smvp_stitch_geometry` picks the launch; the kernel runs only the
+    scan levels that hold an add (`stitch_levels_that_add`), and
+    `stitch_levels_ran` reads which it ran."""
     if (bucket.dim() != 4 or trailing.dim() != 4 or skeys.dim() != 2
             or C < 1 or skeys.shape[1] % C or bucket.shape[3] < 2
             or trailing.shape != bucket.shape[:3] + (C,)
@@ -2266,13 +2416,22 @@ def smvp_stitch(bucket: torch.Tensor, trailing: torch.Tensor,
     geo = smvp_stitch_geometry(Wg, C, *_smvp_stitch_limits(curve, dev), L, w)
     pairs, starts = _stitch_schedule(C, dev)
     scan = torch.empty_like(trailing)
-    flags = torch.empty((Wg, C), dtype=I32, device=dev)
+    masks = torch.empty(geo.blocks + 1, dtype=torch.int64, device=dev)
     rc = _build.library().msm_smvp_stitch(
         L, w, bucket.data_ptr(), trailing.data_ptr(), skeys.data_ptr(),
-        scan.data_ptr(), flags.data_ptr(), pairs.data_ptr(),
+        scan.data_ptr(), masks.data_ptr(), pairs.data_ptr(),
         starts.data_ptr(), Wg, C, n // C, bucket.shape[3], geo.levels,
         geo.threads_per_lane, geo.blocks, _consts(curve, dev).data_ptr(),
         ctypes.addressof(_wide_consts(curve)), _stream(bucket))
     _check("smvp_stitch", rc)
+    STITCH_RAN.update(mask=masks[-1:], levels=geo.levels)
     LAUNCHED["smvp_stitch"] = geo._asdict()
     return bucket
+
+
+def stitch_levels_ran() -> Tuple[int, ...]:
+    """The scan levels that the last smvp_stitch launch ran, from the
+    mask it wrote (reading it waits for the card)."""
+    mask = int(STITCH_RAN["mask"].item())
+    return tuple(lv for lv in range(STITCH_RAN["levels"])
+                 if mask >> lv & 1)
