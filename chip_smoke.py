@@ -42,9 +42,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      scan output and column prefix; `prefix_scan` once more for every
      number of threads per lane its launcher can pick, bit-identical to
      the first and timed (`[scan-G]`); `decompose_digits` beside a
-     PyTorch copy of the same bytes (its `[kernel]` line) and once more
-     for every word a thread can read, bit-identical and timed
-     (`[digits-P]`); and, at 2^16, both redesigned
+     PyTorch copy of the same bytes (its `[kernel]` line); and, at 2^16,
+     both redesigned
      kernels at shapes the two sizes do not reach (`[edge]`):
      `bucket_sort` on all-zero digits, every digit equal, one point,
      +-2^(s-1) in a partial last tile, s = 8 (one pass), s = 16 at
@@ -264,8 +263,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     the twin its launches, time and error at each of TWIN_RUNS;
     `smvp_rows` and `smvp_stitch` from the twin's 2^20 and 2^16 runs,
     with their depth floors, the stitch with the levels it ran and its
-    grid barriers; `decompose_digits` with its launch, the copy of the
-    same bytes and its time at every word) and the `[sharded]` and `[twin]`
+    grid barriers; `decompose_digits` with its launch and the copy of
+    the same bytes) and the `[sharded]` and `[twin]`
     numbers under "sharded" and "twin", those of phases 13 to 17 under
     their names, and each main-path kernel's launches on their paths;
  19. last line {"ok": true, "device": {...}}.
@@ -500,9 +499,16 @@ def work(curve, name: str, args, out, wide: bool = True) -> tuple:
         hs = (curve.scalar_modulus.bit_length() + 15) // 16
         ins = args[:2] + (args[2][:hs],) + args[3:]
     if name == "decompose_digits":
-        # the kernel reads only the halfwords its W windows touch
+        # the kernel reads only the halfwords its W windows touch: the
+        # top window's first and, off a halfword's start, the next
         hw, s, W = args[:3]
-        ins = (hw[:kernels.digits_rows(hw.shape[0], s, W)],) + args[1:]
+        top = (W - 1) * s
+        rows = min(hw.shape[0], (top >> 4) + 1 + (top % 16 > 0))
+        if rows != kernels.digits_rows(hw.shape[0], s, W):
+            raise AssertionError(f"decompose_digits: {rows} rows read, the "
+                                 f"kernel loads "
+                                 f"{kernels.digits_rows(hw.shape[0], s, W)}")
+        ins = (hw[:rows],) + args[1:]
     nbytes = sum(a.numel() * a.element_size() for a in ins + as_tuple(out)
                  if isinstance(a, torch.Tensor))
     if name == "smvp_stitch":
@@ -886,7 +892,10 @@ def compare(curve, key: str, fn: str, args, kw, tag: str, card: str,
                 "bucket_sort", "extract_buckets", "to_affine",
                 "batch_inverse", "smvp_rows", "smvp_stitch",
                 "decompose_digits"):
-        extra["launched"] = dict(kernels.LAUNCHED[name])
+        # smvp_stitch's ran_mask is a tensor on the card, read by
+        # stitch_levels_ran
+        extra["launched"] = {k: v for k, v in kernels.LAUNCHED[name].items()
+                             if k != "ran_mask"}
         note += f" launched={extra['launched']}"
     if name == "decompose_digits":
         copy = same_bytes_copy(args[0], extra["launched"]["rows"],
@@ -919,31 +928,6 @@ def same_bytes_copy(hw: torch.Tensor, rows: int, Wp: int):
         return lambda: dst.copy_(src)
     # rows and Wp differ: the rows read, and the rest of the rows written
     return lambda: (dst[:k].copy_(src[:k]), dst[k:].zero_())
-
-
-def digits_sweep(seen: dict, tag: str, card: str) -> dict:
-    """`decompose_digits` on the captured inputs at every word a thread
-    can read (kernels.DIGITS_WORD_BYTES): bit-identical to the captured
-    output, and timed as `compare` times it."""
-    _, args, kw, (want,) = seen["decompose_digits"]
-    hw = args[0]
-    times = {}
-    for b in kernels.DIGITS_WORD_BYTES:
-        P = b // hw.element_size()
-        call = lambda: kernels.decompose_digits(*args, **kw,
-                                                _points_per_thread=P)
-        if not torch.equal(call(), want):
-            raise AssertionError(f"decompose_digits at {tag}: {P} scalars a "
-                                 "thread differ from the main path's output")
-        times[P] = queued_ms(call, QUEUE_REPS, lambda: busy(CURVE))
-    kernels.decompose_digits(*args, **kw)
-    picked = kernels.LAUNCHED["decompose_digits"]["points_per_thread"]
-    print(f"[digits-P] {tag} {tuple(hw.shape)} {hw.dtype}: ms by scalars a "
-          "thread (queued) " + ", ".join(f"{P}: {t:.4f}" for P, t in
-                                         times.items())
-          + f"; the wrapper launched {picked}; all bit-identical [{card}]",
-          flush=True)
-    return dict(picked=picked, ms=times)
 
 
 def check_main_kernels(curve, seen: dict, tag: str, card: str,
@@ -1959,7 +1943,6 @@ def check_size(logn: int, card: str):
     yardsticks(CURVE, seen, config(CURVE, logn, False), results, tag, card,
                reps)
     sweep = scan_sweep(CURVE, seen, tag, card, reps)
-    digits = digits_sweep(seen, tag, card)
     if logn == min(SIZES):
         sort_extract_edges(seen, config(CURVE, logn, False), card)
         edge_shapes(seen, card)
@@ -1990,7 +1973,7 @@ def check_size(logn: int, card: str):
     return dict(main=results, glv=results_glv, reduce_launches=red[0],
                 reduce_ms=red[1], globalize_launches=glob, apply_glv_ms=glv_ms,
                 scan_sweep=sweep, scan_sweep_glv=sweep_glv,
-                digits_sweep=digits, pbpr_edges=pbpr_edge)
+                pbpr_edges=pbpr_edge)
 
 
 def glv_edge_scalars(glvp) -> list:
@@ -3082,13 +3065,29 @@ def reduce_stage2_check(curve, key: str, args, tag: str, card: str,
     return r
 
 
+def stitch_levels_ran() -> tuple:
+    """The scan levels that the last smvp_stitch launch ran, from the
+    mask its kernel wrote (kernels.LAUNCHED; reading it waits for the
+    card)."""
+    launched = kernels.LAUNCHED["smvp_stitch"]
+    mask = int(launched["ran_mask"].item())
+    return tuple(lv for lv in range(launched["levels"]) if mask >> lv & 1)
+
+
+def stitch_barriers(levels_run) -> int:
+    """Grid barriers of one smvp_stitch launch that runs `levels_run`:
+    one after the pass that finds them; where there are any, one after
+    the copy of the trailing sums into the scan and one after each."""
+    return 1 + (1 + len(levels_run) if levels_run else 0)
+
+
 def stitch_levels(skeys: torch.Tensor, C: int, label: str) -> tuple:
     """The scan levels that the last smvp_stitch launch ran (on `skeys`),
     as its kernel reports them, held against the levels with an add by
     the closed form (kernels.stitch_levels_that_add) and by the flags
     carried level by level (`stitch_adds`); returns (those levels, the
     propagation's (adds, injects, chain))."""
-    ran = kernels.stitch_levels_ran()
+    ran = stitch_levels_ran()
     closed = kernels.stitch_levels_that_add(skeys, C)
     adds, injects, chain, carried = stitch_adds(skeys, C)
     if not ran == closed == carried:
@@ -3111,7 +3110,7 @@ def stitch_line(label: str, cfg: MSMConfig, run: dict, r: dict, args,
     levels = len(kernels.smvp_stitch_levels(C))
     pairs = cfg.subtask_group * sum(map(len, kernels.smvp_stitch_levels(C)))
     ran, (adds, injects, chain) = stitch_levels(args[2], C, label)
-    barriers = kernels.stitch_barriers(ran)
+    barriers = stitch_barriers(ran)
     floor = chain * lat["stitch_level_ms"] if lat else None
     print(f"[stitch] {label}: {run['launches']['smvp_stitch']} smvp_stitch "
           f"launches, one a window group ({cfg.num_groups} groups of "
@@ -4206,11 +4205,9 @@ def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
                 entry[f"bound_ms_mont_mul_ops{sfx}"] = r[
                     "bound_ms_mont_mul_ops"]
             if name == "decompose_digits":
-                # its launch, a copy of the same bytes, and every word
+                # its launch and a copy of the same bytes
                 entry.update({f"launched{sfx}": r["launched"],
-                              f"copy_ms{sfx}": r["copy_ms"],
-                              f"ms_by_points_per_thread{sfx}": c[
-                                  "digits_sweep"]["ms"]})
+                              f"copy_ms{sfx}": r["copy_ms"]})
             if name in ("pdbl_batch", "pbpr_stage1", "globalize"):
                 entry[f"launched{sfx}"] = r["launched"]
             if name == "pdbl_batch":

@@ -31,7 +31,7 @@ K_THREADS = int(re.search(r"constexpr int kThreads = (\d+);", SOURCE)[1])
 def kernel_checks(geo, n: int, ld: int, eb: int, misalign: int) -> None:
     """What msm_decompose_digits refuses, on the geometry's flags."""
     P, word = geo.points_per_thread, geo.points_per_thread * eb
-    assert word in (4, 8, 16) and 0 <= geo.head <= n
+    assert word in (4, 8) and 0 <= geo.head <= n
     if geo.vector_loads:
         assert (ld * eb) % word == 0 and (misalign + geo.head * eb) % word == 0
     if geo.vector_stores:
@@ -173,24 +173,22 @@ def fake_card(monkeypatch):
 
 def test_wrapper_hands_the_kernel_its_geometry(fake_card):
     """A slice at an odd column of a wider array, uint16 and int32; the
-    full width; the sweep's override of the word."""
-    N = 4096
+    full width; a width that takes the wider word."""
     for dt, eb in ((torch.uint16, 2), (torch.int32, 4)):
-        hw = torch.zeros((18, N), dtype=dt)
-        for lo, n, P in ((3, 129, None), (0, N, None), (0, N, 8 // eb),
-                         (4099 % N, 127, None)):
+        wide = (1 << 17) * 8 // eb
+        for N, lo, n in ((4096, 3, 129), (4096, 0, 4096), (4096, 3, 127),
+                         (wide, 0, wide)):
+            hw = torch.zeros((18, N), dtype=dt)
             fake_card.calls.clear()
-            d = kernels.decompose_digits(hw[:, lo:lo + n], 13, 20, 22,
-                                         _points_per_thread=P)
+            d = kernels.decompose_digits(hw[:, lo:lo + n], 13, 20, 22)
             assert d.shape == (22, n) and d.dtype == I16
             mis = hw[:, lo:].data_ptr() % 16
             geo = kernels.decompose_digits_geometry(n, N, eb, mis, 18, 13,
-                                                    20, P)
+                                                    20)
+            assert geo.points_per_thread == (8 if n == wide else 4) // eb
             assert fake_card.calls == [(mis, eb, N, 18, n, 13, 20, 22, 17,
                                         geo.points_per_thread, geo.head,
                                         geo.threads, int(geo.vector_loads),
                                         int(geo.vector_stores))]
             assert kernels.LAUNCHED["decompose_digits"] == geo._asdict()
             kernel_checks(geo, n, N, eb, mis)
-    with pytest.raises(ValueError):
-        kernels.decompose_digits(hw, 16, 16, _points_per_thread=3)

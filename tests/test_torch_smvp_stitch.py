@@ -155,6 +155,7 @@ class FakeLib:
                         consts, wide, stream):
         self.calls.append((L, w, Wg, C, R, B2, levels, G, blocks, pairs,
                            starts))
+        self.masks = masks
         return self.rc
 
 
@@ -197,7 +198,12 @@ def test_wrapper_launches_once(fake_card):
                                 B + 2, 25, 6, 820, pairs.data_ptr(),
                                 starts.data_ptr())]
     assert kernels.LAUNCHES["smvp_stitch"] == 1
-    assert kernels.LAUNCHED["smvp_stitch"] == geo._asdict()
+    launched = dict(kernels.LAUNCHED["smvp_stitch"])
+    # the kernel's block 0 writes the levels it ran past the blocks' words
+    mask = launched.pop("ran_mask")
+    assert mask.shape == (1,) and mask.dtype == torch.int64
+    assert mask.data_ptr() == fake_card.masks + 8 * geo.blocks
+    assert launched == geo._asdict()
     assert len(_build.SIGNATURES["msm_smvp_stitch"]) == 19
 
 

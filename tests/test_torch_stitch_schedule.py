@@ -6,9 +6,9 @@ level as the recursion carries them, at C = 1 to 300, 2,048 and 8,192
 on random sorted keys, every key equal, every column its own run and
 every digit 0; each pair's interval [lo, b] against the columns the
 recursion's element covers, and a's interval ending where b's begins;
-the levels with an add (`stitch_levels_that_add`), the grid barriers
-(`stitch_barriers`) and the report of the levels a launch ran
-(`stitch_levels_ran`). The replay of the kernel's phases on real points
+the levels with an add (`stitch_levels_that_add`), and
+`chip_smoke.py`'s count of the grid barriers (`stitch_barriers`) and
+its reading of the levels a launch ran (`stitch_levels_ran`). The replay of the kernel's phases on real points
 is `tests/_torch_stitch.kernel_replay`, held against the plain version
 and the JAX function in tests/test_torch_smvp_stitch*.py."""
 
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tpu_msm_torch.cuzk import kernels
 
 torch.set_num_threads(1)
@@ -104,19 +105,19 @@ def test_pair_intervals_are_the_recursions(Cs):
 def test_barriers():
     """One after the pass that finds the levels; where any adds, one after
     the copy into the scan and one after each level run."""
-    assert kernels.stitch_barriers(()) == 1
-    assert kernels.stitch_barriers((0,)) == 3
-    assert kernels.stitch_barriers(tuple(range(25))) == 27
+    assert chip_smoke.stitch_barriers(()) == 1
+    assert chip_smoke.stitch_barriers((0,)) == 3
+    assert chip_smoke.stitch_barriers(tuple(range(25))) == 27
 
 
 def test_levels_ran_reads_the_kernels_mask(monkeypatch):
-    monkeypatch.setattr(kernels, "STITCH_RAN", {
-        "mask": torch.tensor([0b1000000000000000000000101], dtype=torch.int64),
-        "levels": 25})
-    assert kernels.stitch_levels_ran() == (0, 2, 24)
-    monkeypatch.setattr(kernels, "STITCH_RAN", {
-        "mask": torch.tensor([0], dtype=torch.int64), "levels": 21})
-    assert kernels.stitch_levels_ran() == ()
+    mask = torch.tensor([0, 0b1000000000000000000000101], dtype=torch.int64)
+    monkeypatch.setitem(kernels.LAUNCHED, "smvp_stitch",
+                        {"levels": 25, "ran_mask": mask[-1:]})
+    assert chip_smoke.stitch_levels_ran() == (0, 2, 24)
+    monkeypatch.setitem(kernels.LAUNCHED, "smvp_stitch", {
+        "levels": 21, "ran_mask": torch.tensor([0], dtype=torch.int64)})
+    assert chip_smoke.stitch_levels_ran() == ()
 
 
 def test_default_shapes_need_no_scan_level():

@@ -136,7 +136,8 @@ LAUNCHED = {}
 `pbpr_stage1`, `globalize`, `bucket_sort`, `extract_buckets`,
 `smvp_rows` and `smvp_stitch` passed to its kernel, and the plan of the
 last call of `to_affine` and `batch_inverse`, written where the kernels
-launch."""
+launch; `smvp_stitch`'s also holds "ran_mask", where its kernel writes
+the scan levels it ran."""
 
 
 def reset_launches() -> None:
@@ -437,7 +438,8 @@ def decompose_digits_geometry(n: int, ld: int, elem_bytes: int,
 
     A thread takes P consecutive scalars, one word of each row: the
     wider of `DIGITS_WORD_BYTES` where it leaves DIGITS_MIN_THREADS
-    threads, else the narrower (or `points_per_thread`). Where the row
+    threads, else the narrower (`points_per_thread` sets it, for the
+    tests to cover both at any n). Where the row
     stride is a multiple of the word, every row starts on the same
     phase: thread 0 takes the `head` scalars before the first word
     boundary, and every later full thread loads whole words (none where
@@ -473,16 +475,26 @@ def digits_points(geo: DigitsGeometry, n: int, t: int) -> Tuple[int, int]:
     return min(f0, n), min(n, f0 + geo.points_per_thread)
 
 
+@functools.lru_cache(maxsize=256)
+def _digits_launch(n: int, ld: int, elem_bytes: int, misalign: int, H: int,
+                   s: int, W: int) -> Tuple[dict, tuple]:
+    """`decompose_digits_geometry` as the wrapper hands it on: the report
+    for LAUNCHED and the kernel's geometry arguments, built once a
+    shape."""
+    geo = decompose_digits_geometry(n, ld, elem_bytes, misalign, H, s, W)
+    return geo._asdict(), (geo.rows, geo.points_per_thread, geo.head,
+                           geo.threads, int(geo.vector_loads),
+                           int(geo.vector_stores))
+
+
 def decompose_digits(halfwords: torch.Tensor, s: int, W: int,
-                     Wp: int | None = None,
-                     _points_per_thread: int | None = None) -> torch.Tensor:
+                     Wp: int | None = None) -> torch.Tensor:
     """(H, n) 16-bit halfwords, uint16 or int32 as staged -> (Wp, n) int16
     signed digits in [-2^(s-1), 2^(s-1)), carry-chained across the W
     windows, rows W to Wp - 1 zero (Wp defaults to W). Reads the
     halfwords in place (any row stride); on the card they are
     `HALFWORD_DTYPES` only. `decompose_digits_geometry` picks the
-    launch; `_points_per_thread` overrides its P (a measurement's
-    sweep)."""
+    launch."""
     if Wp is not None and Wp < W:
         raise ValueError(f"decompose_digits: Wp={Wp} < W={W}")
     if not _on_cuda("decompose_digits", halfwords):
@@ -494,15 +506,13 @@ def decompose_digits(halfwords: torch.Tensor, s: int, W: int,
     Wp = W if Wp is None else Wp
     out = torch.empty((Wp, n), dtype=I16, device=halfwords.device)
     if n:
-        eb = halfwords.element_size()
-        geo = decompose_digits_geometry(n, ld, eb, halfwords.data_ptr() % 16,
-                                        H, s, W, _points_per_thread)
+        eb, ptr = halfwords.element_size(), halfwords.data_ptr()
+        launched, geo = _digits_launch(n, ld, eb, ptr % 16, H, s, W)
         rc = _build.library().msm_decompose_digits(
-            halfwords.data_ptr(), eb, ld, out.data_ptr(), H, n, s, W, Wp,
-            geo.rows, geo.points_per_thread, geo.head, geo.threads,
-            int(geo.vector_loads), int(geo.vector_stores), _stream(halfwords))
+            ptr, eb, ld, out.data_ptr(), H, n, s, W, Wp, *geo,
+            _stream(halfwords))
         _check("decompose_digits", rc)
-        LAUNCHED["decompose_digits"] = geo._asdict()
+        LAUNCHED["decompose_digits"] = launched
     return out
 
 
@@ -2275,13 +2285,6 @@ def stitch_levels_that_add(skeys: torch.Tensor, C: int) -> Tuple[int, ...]:
                  if bool(adds.any()))
 
 
-def stitch_barriers(levels_run) -> int:
-    """Grid barriers of one smvp_stitch launch that runs `levels_run`:
-    one after the pass that finds them; where there are any, one after
-    the copy of the trailing sums into the scan and one after each."""
-    return 1 + (1 + len(levels_run) if levels_run else 0)
-
-
 @functools.lru_cache(maxsize=None)
 def _stitch_schedule(C: int, device: torch.device
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -2308,6 +2311,7 @@ class StitchGeometry(NamedTuple):
     pairs_per_thread: int
 
 
+@functools.lru_cache(maxsize=256)
 def smvp_stitch_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
                          threads: int,
                          threads_per_lane: int = PADD_THREADS_PER_LANE,
@@ -2316,7 +2320,7 @@ def smvp_stitch_geometry(Wg: int, C: int, sms: int, blocks_per_sm: int,
     """One smvp_stitch launch on Wg windows of C columns on a card of
     `sms` SMs that holds `blocks_per_sm` blocks of `threads` threads each
     (`msm_smvp_stitch_limits`): a pure function, so the CPU tests can
-    hold it.
+    hold it; cached, as the wrapper calls it a window group.
 
     An add is a lane of `threads_per_lane` threads of one warp (32 //
     threads_per_lane lanes a warp, its last threads idle), as in
@@ -2369,12 +2373,6 @@ def _smvp_stitch_limits(curve: CurveParams, device: torch.device
     return sms, per_sm, threads, per_lane
 
 
-STITCH_RAN = {}
-"""The last smvp_stitch launch's report: "mask", a one-element int64
-tensor on the card where the kernel's block 0 writes the scan levels it
-ran as bits, and "levels", the schedule's levels."""
-
-
 def smvp_stitch(bucket: torch.Tensor, trailing: torch.Tensor,
                 skeys: torch.Tensor, curve: CurveParams, C: int
                 ) -> torch.Tensor:
@@ -2395,8 +2393,9 @@ def smvp_stitch(bucket: torch.Tensor, trailing: torch.Tensor,
     bucket[w, first key] = padd(bucket[w, first key], P). Returns
     `bucket`, written in place; the spare slot stays infinity.
     `smvp_stitch_geometry` picks the launch; the kernel runs only the
-    scan levels that hold an add (`stitch_levels_that_add`), and
-    `stitch_levels_ran` reads which it ran."""
+    scan levels that hold an add (`stitch_levels_that_add`), and its
+    block 0 writes those it ran as bits of a one-element int64 tensor,
+    `LAUNCHED["smvp_stitch"]["ran_mask"]`."""
     if (bucket.dim() != 4 or trailing.dim() != 4 or skeys.dim() != 2
             or C < 1 or skeys.shape[1] % C or bucket.shape[3] < 2
             or trailing.shape != bucket.shape[:3] + (C,)
@@ -2424,14 +2423,6 @@ def smvp_stitch(bucket: torch.Tensor, trailing: torch.Tensor,
         geo.threads_per_lane, geo.blocks, _consts(curve, dev).data_ptr(),
         ctypes.addressof(_wide_consts(curve)), _stream(bucket))
     _check("smvp_stitch", rc)
-    STITCH_RAN.update(mask=masks[-1:], levels=geo.levels)
-    LAUNCHED["smvp_stitch"] = geo._asdict()
+    launched = LAUNCHED["smvp_stitch"] = geo._asdict()
+    launched["ran_mask"] = masks[-1:]
     return bucket
-
-
-def stitch_levels_ran() -> Tuple[int, ...]:
-    """The scan levels that the last smvp_stitch launch ran, from the
-    mask it wrote (reading it waits for the card)."""
-    mask = int(STITCH_RAN["mask"].item())
-    return tuple(lv for lv in range(STITCH_RAN["levels"])
-                 if mask >> lv & 1)
