@@ -115,7 +115,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      `pbpr_stage1` and `pdbl_batch` on 16 lanes follow; one
      `to_affine` on one point (the root's chain and 3 multiplies, which
      with a multiply a tree level give the depth floors of `to_affine`
-     and `batch_inverse`); and one
+     and `batch_inverse`); one row of `smvp_rows`' lane, from one column
+     of one run at R = 64 and 128; and one
      `extract_buckets` run (39 buckets of one window on one block), its
      two dependent adds, the depth floor of a launch; and one
      `smvp_stitch` level, from one window of 2 and of 256 columns;
@@ -139,7 +140,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      int16, timed; `batch_inverse` on the Z plane (the edge lanes 0 and
      p), counted the same way, bit-identical to the plain
      `batch_inverse`, run once, zero at the edges and z^-1 z = 1
-     elsewhere, timed; then (`[rest]`) one real window_sums +
+     elsewhere, timed, and its three launches timed one at a time (up,
+     top with the root's chain, down; `tree_split`) and on one element;
+     then (`[rest]`) one real window_sums +
      host Horner at 2^16 and 2^20 under torch.profiler: the device time
      of the PyTorch ops outside the port's kernels, op by op and by input
      shape, beside the kernels' own, and the d2h, decode and Horner on the
@@ -204,7 +207,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      version, timed (`[stitch]`: the stitch's time a group, its launches and
      depth floor, of its scan levels those it ran as the kernel reports
      them, held equal to the closed form's and the carried flags' levels
-     with an add, and its grid barriers); the stage-2 launch of
+     with an add, and its grid barriers; `[rows]`: the row walk's time a
+     group, its launch, the longest run inside one column and the depth
+     floor that run gives, beside the floor of R scan steps); the
+     stage-2 launch of
      `pbpr_stage1` (threads = 1) against the 2 (T - 1) `padd_batch`
      launches it replaced, bit for bit, both timed, and against its plain
      version in the first run (T = 256, the twin's smallest); the median of
@@ -213,8 +219,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      smvp_stitch` at STITCH_EDGES (C = 1001, odd, with n below the
      columns; C = 2 and 1), with random digits, every key equal, every
      column its own run and every digit 0, against its plain version,
-     the levels it ran held as in `[stitch]`;
- 12. the `pbpr_full` edges whose plain versions ran on the CPU;
+     the levels it ran held as in `[stitch]`, and `smvp_rows` on the
+     same keys, on runs of ROW_RUNS rows (over columns) and with keys -1
+     and B + 1, against its plain version;
+ 12. the `pbpr_full` edges whose plain versions ran on the CPU, in two
+     processes of one thread started after phase 8 (so the host-clock
+     times of phases 9 to 11 share the host with them);
  13. `[autotune]`: `utils/window.autotune` on BN254_S12 at 2^16 (the
      model's 36 candidates and the static default) and 2^20 (its 24,
      the static default and SCHEDULE), runs=2, on inputs on the card,
@@ -272,6 +282,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import datetime
 import json
@@ -592,6 +603,31 @@ def run_starts(skeys: torch.Tensor, C: int) -> int:
     Wg, n = skeys.shape
     k = skeys.reshape(Wg, C, n // C)
     return Wg * C + int((k[..., 1:] != k[..., :-1]).sum())
+
+
+def chain_form(curve) -> str:
+    """Where the product tree's root chain runs at `curve`: csrc/
+    batch_inv.cuh `warp_chain`, one warp from N = 12 words of 32 bits,
+    else one thread."""
+    N = -(-curve.num_limbs * curve.log_limb_size // 32)
+    return "one warp" if N >= 12 else "one thread"
+
+
+def longest_run(skeys: torch.Tensor, C: int) -> int:
+    """Rows of the longest run of equal keys inside one column of the
+    (Wg, n) sorted keys (a run that goes on into the next column counts
+    its rows in each column apart): the row walk's chain of dependent
+    adds is one less."""
+    Wg, n = skeys.shape
+    k = skeys.reshape(Wg * C, n // C)
+    R = k.shape[1]
+    start = torch.ones_like(k, dtype=torch.bool)
+    start[:, 1:] = k[:, 1:] != k[:, :-1]
+    # each row's distance from its run's start: its index less the index
+    # of the last start at or above it
+    idx = torch.arange(R, device=k.device).expand_as(k)
+    last = torch.where(start, idx, torch.zeros_like(idx)).cummax(dim=1)[0]
+    return int((idx - last).max()) + 1
 
 
 def stitch_adds(skeys: torch.Tensor, C: int) -> tuple:
@@ -1341,9 +1377,10 @@ PBPR_EDGES = ((2, 64, 1), (16, 512, 512), (16, 4096, 1024),
 
 
 # A pbpr_full edge of at most this many lanes (Wp * T) is held against
-# its plain version run on the CPU, in child processes, after the last
-# timed phase: its chains of thousands of small launch-bound adds would
-# take minutes of the run on the card.
+# its plain version run on the CPU, in child processes beside the
+# profiles, [sharded] and the twin (`cpu_checks_start`): its chains of
+# thousands of small launch-bound adds would take minutes of the run on
+# the card.
 CPU_PLAIN_LANES = 64
 
 
@@ -1383,18 +1420,31 @@ def pbpr_edges(seen: dict, card: str) -> list:
     return done
 
 
-def cpu_checks(edges: list, card: str) -> None:
-    """The pbpr_full edges kept for the CPU: their plain versions in
-    spawned processes (the parent holds a CUDA context), all at once."""
+def cpu_checks_start(edges: list):
+    """Starts the plain versions of the pbpr_full edges kept for the CPU,
+    in spawned processes (the parent holds a CUDA context), all at once,
+    one thread each, while the card's phases go on; `cpu_checks` takes
+    their results. Returns (pool, edges, futures), or None."""
     edges = [e for e in edges if "buckets" in e]
     if not edges:
+        return None
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(edges),
+        mp_context=multiprocessing.get_context("spawn"))
+    wants = [pool.submit(plain_on_cpu, "pbpr_full",
+                         (e.pop("buckets"), CURVE, e["shape"][2]))
+             for e in edges]
+    return pool, edges, wants
+
+
+def cpu_checks(started, card: str) -> None:
+    """The pbpr_full edges kept for the CPU (`cpu_checks_start`): the
+    kernel's output against each plain version, once it is done; the
+    processes stop here."""
+    if started is None:
         return
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=len(edges),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        wants = [pool.submit(plain_on_cpu, "pbpr_full",
-                             (e.pop("buckets"), CURVE, e["shape"][2]))
-                 for e in edges]
+    pool, edges, wants = started
+    with pool:
         for e, want in zip(edges, wants):
             got, want = e.pop("got"), want.result()
             if got.dtype != want.dtype or not torch.equal(got, want):
@@ -1744,10 +1794,22 @@ def latency(curve, card: str, scan_G: int) -> dict:
           for Bt in (lo, hi)}
     s1_geo = dict(kernels.LAUNCHED["pbpr_stage1"])
     stage1_step = (s1[hi] - s1[lo]) / (hi - lo)
-    # to_affine on one point: one launch of one thread, z = Z one, the
-    # root's chain, X zinv and Y zinv, chain_muls + 3 multiplies deep
+    # the row walk on one column whose keys are all equal: one lane walks
+    # its R rows, one run, an add a row; the calls at R = 128 and 64
+    # differ by 64 steps of the lane
+    rows_r = {}
+    for Rw in (64, 128):
+        rw_pay = pay[:, :Rw].contiguous()
+        rw_keys = torch.full_like(rw_pay, 7)
+        rows_r[Rw] = cuda_ms(lambda: kernels.smvp_rows(
+            table, rw_pay, rw_keys, curve, 1, 4096), 20)
+    rows_step = (rows_r[128] - rows_r[64]) / 64
+    # to_affine on one point: one launch of one block, z = Z one, the
+    # root's chain (on one thread or one warp, `chain_form`), X zinv and
+    # Y zinv, chain_muls + 3 multiplies deep
     one = lazy((1,)).to(torch.int32)
     aff_ms = queued_ms(lambda: to_affine(one, curve), 20, blocker)
+    mul_ms = aff_ms / (chain_muls(curve) + 3)
     # extract_buckets on one window of one run: one block, its two
     # dependent adds (the G lanes, then their differences)
     J = kernels.EXTRACT_LANES - 1
@@ -1789,7 +1851,11 @@ def latency(curve, card: str, scan_G: int) -> dict:
           f"{stage1_step:.5f} ms, from the same buckets: Bt = {lo} "
           f"{s1[lo]:.4f} ms, Bt = {hi} {s1[hi]:.4f} ms, launched {s1_geo}; "
           f"to_affine on one point (a chain of {chain_muls(curve) + 3} "
-          f"multiplies) {aff_ms:.4f} ms; extract_buckets on one run "
+          f"multiplies, the root's on {chain_form(curve)}) {aff_ms:.4f} "
+          f"ms, {mul_ms:.5f} ms a multiply; smvp_rows {rows_step:.5f} ms "
+          f"a row of "
+          f"one lane, from one column of one run (R = 64 {rows_r[64]:.4f} "
+          f"ms, R = 128 {rows_r[128]:.4f} ms); extract_buckets on one run "
           f"({J} buckets of one window on one block, two dependent adds) "
           f"{ext_ms:.4f} ms; smvp_stitch {stitch_level:.5f} ms a level, "
           f"from one window of C columns, every key equal (C = "
@@ -1805,7 +1871,9 @@ def latency(curve, card: str, scan_G: int) -> dict:
                 pbpr_one_warp_ms=pb, pbpr_one_window_bt1_ms=lv_ms,
                 pbpr_stage1_step_ms=stage1_step,
                 pbpr_stage1_one_warp_ms=s1, pbpr_stage1_launched=s1_geo,
-                to_affine_one_lane_ms=aff_ms, extract_one_block_ms=ext_ms,
+                to_affine_one_lane_ms=aff_ms, tree_mul_ms=mul_ms,
+                rows_step_ms=rows_step,
+                extract_one_block_ms=ext_ms,
                 stitch_level_ms=stitch_level, stitch_one_window_ms=stitch)
 
 
@@ -2305,6 +2373,54 @@ def counted(name: str, fn):
     return out, ms, want
 
 
+def tree_split(curve, a: torch.Tensor, reps: int = 5) -> dict:
+    """{up, top, down: ms} of `batch_inverse` on the (L, K) limbs `a`:
+    each launch of its plan (`batch_inverse_geometry`) on its own between
+    CUDA events, as the wrapper enqueues them, the mean of `reps` calls
+    after one warm-up; and `one`: the whole call on one element, the
+    root's chain and little else."""
+    L, w = curve.num_limbs, curve.log_limb_size
+    flat = a.to(torch.int32).reshape(L, -1).contiguous()
+    K = flat.shape[1]
+    geo = kernels.batch_inverse_geometry(K)
+    N = -(-L * w // 32)
+    out = torch.empty_like(flat)
+    zero = torch.empty(K, dtype=torch.uint8, device=flat.device)
+    scratch = torch.empty((N, geo.scratch_nodes), dtype=torch.int32,
+                          device=flat.device)
+    consts = kernels._affine_consts(curve)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(len(geo.launches) + 1)]
+    total = [0.0] * len(geo.launches)
+    for rep in range(reps + 1):
+        ev[0].record()
+        for i, ln in enumerate(geo.launches):
+            rc = lib.msm_batch_inverse(
+                L, w, flat.data_ptr(), K, out.data_ptr(), zero.data_ptr(),
+                scratch.data_ptr(), geo.Kp, ln.lo, ln.n, ln.d, ln.roles,
+                ln.blocks, ctypes.addressof(consts), len(consts), stream)
+            if rc:
+                raise RuntimeError(f"batch_inverse launch {i}: rc {rc}")
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        if rep:
+            for i in range(len(geo.launches)):
+                total[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+    if not torch.equal(out, kernels.batch_inverse(flat, curve)):
+        raise AssertionError("tree_split: the launches one at a time give "
+                             "other inverses")
+    role = {kernels.TREE_UP: "up", kernels.TREE_DOWN: "down"}
+    split = {}
+    for ln, t in zip(geo.launches, total):
+        k = role.get(ln.roles, "top")
+        split[k] = split.get(k, 0.0) + t
+    one = flat[:, :1].contiguous()
+    split["one"] = cuda_ms(lambda: kernels.batch_inverse(one, curve), 10)
+    return split
+
+
 def affine_full(curve, logk: int, card: str) -> dict:
     """Phase 8 at full width: `to_affine` on K = 2^logk - 3 points made
     on the card (`affine_points`), its user call counted (the tree's
@@ -2347,6 +2463,7 @@ def affine_full(curve, logk: int, card: str) -> dict:
     res_inv = compare(curve, "batch_inverse", "batch_inverse", (z, curve), {},
                       f"K={K} (the Z plane, 0 and p at {len(edges)} lanes)",
                       card, 5)
+    split = tree_split(curve, z)
     print(f"[affine] {curve.name} K={K}: to_affine's user call "
           f"{launches} launches ({kernels.LAUNCHED['to_affine']['plan']}), "
           f"{user_ms:.4f} ms, equal to the known affine points, infinity "
@@ -2358,11 +2475,15 @@ def affine_full(curve, logk: int, card: str) -> dict:
           f"bit-identical to the plain batch_inverse, zero at the edges, "
           f"z^-1 z = 1 elsewhere: kernel {res_inv['ms']:.4f} ms, plain "
           f"{res_inv['plain_ms']:.1f} ms once, bound "
-          f"{res_inv['bound_ms']:.4f} ms ({res_inv['bound_by']}) [{card}]",
-          flush=True)
+          f"{res_inv['bound_ms']:.4f} ms ({res_inv['bound_by']}); its "
+          f"launches one at a time: up {split['up']:.4f} ms, top (the top "
+          f"levels and the root's chain on {chain_form(curve)}) "
+          f"{split['top']:.4f}, "
+          f"down {split['down']:.4f}; on one element (the chain) "
+          f"{split['one']:.4f} ms [{card}]", flush=True)
     return dict(to_affine=dict(res, user_ms=user_ms, launches=launches, K=K),
                 batch_inverse=dict(res_inv, user_ms=inv_user_ms,
-                                   launches=inv_launches, K=K))
+                                   launches=inv_launches, K=K, split=split))
 
 
 def run_profile(curve, sizes, card: str) -> dict:
@@ -3128,17 +3249,68 @@ def stitch_line(label: str, cfg: MSMConfig, run: dict, r: dict, args,
     return dict(levels_ran=list(ran), barriers=barriers, floor_ms=floor)
 
 
+def rows_line(label: str, run: dict, r: dict, args, lat: dict | None,
+              card: str) -> dict:
+    """The [rows] line of one twin run: smvp_rows's launches in the user
+    call and its time a group (the first group's call, compared, on
+    `args`), its launch; the longest run inside one column of the group's
+    keys and, with `lat`, the depth floor of the work: that run less one,
+    each a row of the lane, beside the floor of R scan steps (a lane's
+    walk of its whole column, the floor before the keys were counted).
+    Returns the floors and the longest run."""
+    pay, skeys, C = args[1], args[2], args[4]
+    Wg, n = pay.shape
+    R = n // C
+    launched = r["launched"]
+    G = kernels.SMVP_THREADS_PER_LANE
+    longest = longest_run(skeys, C)
+    floor = (longest - 1) * lat["rows_step_ms"] if lat else None
+    floor_R = R * lat["scan_step_ms"][G] if lat else None
+    print(f"[rows] {label}: {run['launches']['smvp_rows']} smvp_rows "
+          f"launches, one a window group (Wg = {Wg}, C = {C}, R = {R}); "
+          f"{r['ms']:.4f} ms a group; launched {launched['blocks']} blocks "
+          f"of {launched['lanes_per_block']} lanes of {G} threads, a lane a "
+          f"column; the longest run inside one column {longest} rows"
+          + (f", depth floor {floor:.4f} ms ({longest - 1} rows of "
+             f"{lat['rows_step_ms']:.5f}; {r['ms'] / floor:.2f}x); the "
+             f"floor of R = {R} scan steps {floor_R:.4f} ms "
+             f"({r['ms'] / floor_R:.2f}x)" if lat and floor else "")
+          + f" [{card}]", flush=True)
+    return dict(floor_ms=floor, floor_R_ms=floor_R, longest_run=longest)
+
+
+# Run lengths of the [edge] row-walk keys, in turn: runs of one row,
+# runs over several columns, a column's last run going on into the next.
+ROW_RUNS = (1, 13, 2, 1, 9, 1, 1, 21, 3, 5, 1, 17, 4, 1, 1, 7, 40, 2, 150)
+# The [edge] row walk runs at the STITCH_EDGES shapes of at most
+# ROW_EDGE_MAX_R rows a column (the plain version takes a step a row).
+ROW_EDGE_MAX_R = 32
+
+
+def rows_against_plain(label: str, args) -> None:
+    """`smvp_rows` bit for bit against its plain version."""
+    want = kernels.smvp_rows_plain(*args)
+    got = kernels.smvp_rows(*args)
+    torch.cuda.synchronize()
+    if not all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want, strict=True)):
+        raise AssertionError(f"{label}: kernel differs from its plain "
+                             "version")
+
+
 def stitch_edges(card: str) -> None:
-    """`smvp_stitch` against its plain version at STITCH_EDGES on
-    BN254_S12, its inputs made as `bucket_accumulate` makes them on the
-    card (`bucket_sort`, `smvp_rows`) from the first points of the 2^16
-    inputs: random digits with runs across columns, every key equal,
-    every column its own run, every digit 0."""
+    """`smvp_rows` and `smvp_stitch` against their plain versions at
+    STITCH_EDGES on BN254_S12, their inputs made as `bucket_accumulate`
+    makes them on the card (`bucket_sort`, `smvp_rows`) from the first
+    points of the 2^16 inputs: random digits with runs across columns,
+    every key equal, every column its own run, every digit 0, runs of
+    ROW_RUNS rows; the row walk also with keys -1 and B + 1, which it
+    writes nowhere."""
     curve = CURVE
     xs, ys, _, _, _ = inputs(curve, 16)
     B = 4096
     rng = np.random.default_rng(19)
-    done, ran = [], {}
+    done, ran, rows_done = [], {}, set()
     for Wg, n, columns in STITCH_EDGES:
         C, R = min(columns, n), n // min(columns, n)
         xm, ym = (kernels.encode_mont(torch.from_numpy(a[:, :n].astype(
@@ -3148,16 +3320,31 @@ def stitch_edges(card: str) -> None:
         d[:, n // 5:n // 5 + n // 2] = 7
         keys = np.repeat(np.arange(1, C + 1), R)
         own = np.stack([rng.permutation(keys) for _ in range(Wg)])
+        runs = np.repeat(np.arange(1, len(ROW_RUNS) + 1), ROW_RUNS)
+        runs = np.resize(runs, (Wg, n)) * rng.choice([-1, 1], (Wg, n))
         kinds = {"random with runs": d, "every key equal": np.full(
             (Wg, n), -9), "every column its own run": own,
-            "every digit 0": np.zeros((Wg, n))}
+            "every digit 0": np.zeros((Wg, n)),
+            "runs over columns": runs,
+            "keys -1 and B + 1": d}
         for kind, digits in kinds.items():
             dg = torch.from_numpy(digits.astype(np.int32)).to(DEVICE)
             pay, _ = kernels.bucket_sort(dg.to(torch.int16), B)
             skeys = torch.gather(dg.abs(), 1, (pay >> 1).long())
+            tag = f"(Wg, n, C) = ({Wg}, {n}, {C}) {kind}"
+            if kind == "keys -1 and B + 1":
+                # keys the row walk writes nowhere (the plain version
+                # writes them into the spare slot, then resets it)
+                skeys[:, :3] = -1
+                skeys[:, -3:] = B + 1
+            if R <= ROW_EDGE_MAX_R:
+                rows_against_plain(f"[edge] smvp_rows {tag}",
+                                   (pts_rows, pay, skeys, curve, C, B))
+                rows_done.add(kind)
+            if kind == "keys -1 and B + 1":
+                continue
             bucket, trailing = kernels.smvp_rows(pts_rows, pay, skeys, curve,
                                                  C, B)
-            tag = f"(Wg, n, C) = ({Wg}, {n}, {C}) {kind}"
             same_as_plain(f"smvp_stitch {tag}", "smvp_stitch",
                           (bucket, trailing, skeys, curve, C))
             ran[f"({Wg}, {n}, {C}) {kind}"] = len(stitch_levels(
@@ -3170,6 +3357,11 @@ def stitch_edges(card: str) -> None:
           f"run and every digit 0; scan levels run (the kernel's report, "
           f"equal to the closed form's and the carried flags'): {ran} "
           f"[{card}]", flush=True)
+    print(f"[edge] smvp_rows bit-identical to its plain version, the "
+          f"buckets and the trailing sums, at those (Wg, n, C) of at most "
+          f"{ROW_EDGE_MAX_R} rows a column, each with "
+          f"{', '.join(sorted(rows_done))} (runs of {ROW_RUNS} rows in "
+          f"turn) [{card}]", flush=True)
 
 
 def twin_check(curve, logn: int, glv: bool, card: str,
@@ -3218,6 +3410,8 @@ def twin_check(curve, logn: int, glv: bool, card: str,
     key = next(k for k, r in results.items() if r["name"] == "smvp_stitch")
     stitch = stitch_line(label, cfg, run, results[key], seen[key][1], lat,
                          card)
+    key = next(k for k, r in results.items() if r["name"] == "smvp_rows")
+    walk = rows_line(label, run, results[key], seen[key][1], lat, card)
     del seen
     ms, h2d = timed_runs(cfg, logn, "twin", card, runs=TWIN_TIMED_RUNS)
     total = sum(kern_ms.values())
@@ -3234,13 +3428,13 @@ def twin_check(curve, logn: int, glv: bool, card: str,
                 outside_ms=ms - total,
                 launches={k: run["launches"][k] for k in kset},
                 stitch_floor_ms=stitch["floor_ms"], stitch=stitch,
-                results=results, calls=counts)
+                rows=walk, results=results, calls=counts)
 
 
 def twin_phase(card: str, lat: dict | None = None) -> dict:
     """The [twin] runs of TWIN_RUNS, each checked, then the [edge]
-    smvp_stitch shapes; with `lat` ([latency]'s), the stitch's depth
-    floors."""
+    smvp_stitch and smvp_rows shapes; with `lat` ([latency]'s), the
+    stitch's and the row walk's depth floors."""
     t0 = time.perf_counter()
     runs = {}
     for i, (curve, logn, glv) in enumerate(TWIN_RUNS):
@@ -4035,9 +4229,8 @@ def tree_floor_ms(name: str, K: int, lat: dict) -> float:
     root's chain and a multiply a level up and down (2 log2 Kp), and
     to_affine's 3 multiplies (Z one, X zinv, Y zinv); from [latency]'s
     to_affine on one point, the chain and those 3, whose multiplies give
-    a multiply's latency."""
-    one = lat["to_affine_one_lane_ms"]
-    mul_ms = one / (chain_muls(CURVE) + 3)
+    a multiply's latency (one thread's at BN254_S12, `chain_form`)."""
+    one, mul_ms = lat["to_affine_one_lane_ms"], lat["tree_mul_ms"]
     levels = (K - 1).bit_length()
     return one + (2 * levels - (0 if name == "to_affine" else 3)) * mul_ms
 
@@ -4052,6 +4245,10 @@ def affine_entry(entry: dict, name: str, full, affine, affine_glv, lat,
     entry.update(launches=r["launches"], user_ms=r["user_ms"],
                  launched=r["launched"], **result_fields(r))
     entry["depth_floor_ms"] = tree_floor_ms(name, r["K"], lat)
+    entry["tree_mul_ms"] = lat["tree_mul_ms"]
+    entry["chain_on"] = chain_form(CURVE)
+    if "split" in r:
+        entry["launch_ms"] = r["split"]
     at = f"K={r['K']} points made on the card, Z of 0, p, 2p, 3p at edges"
     if name == "to_affine":
         for sfx, w in (("_window_sums", affine),
@@ -4077,9 +4274,11 @@ def smvp_entry(entry: dict, name: str, twin: dict, lat: dict) -> dict:
     """The kernels line's `smvp_rows` or `smvp_stitch`, from the twin's
     runs: its launches in the user call of the BN254_S12 2^20 run and its
     compare there (the first group), with suffix _2p16 the 2^16 run's;
-    its depth floor (`smvp_rows`: R steps of the scan's lane at the G it
-    launched with; `smvp_stitch`: the chain of dependent adds that the
-    group's keys need, each a stitch level; both from `[latency]`); its
+    its depth floor (`smvp_rows`: the longest run inside one column of
+    the group's keys less one, each a row of its lane, beside the floor
+    of R scan steps it had before the keys were counted;
+    `smvp_stitch`: the chain of dependent adds that the group's
+    keys need, each a stitch level; both from `[latency]`); its
     launches, time and error in every twin run."""
     tr = twin["runs"]
     for logn in sorted(SIZES, reverse=True):
@@ -4093,9 +4292,9 @@ def smvp_entry(entry: dict, name: str, twin: dict, lat: dict) -> dict:
                       **result_fields(r, sfx)})
         cfg = twin_config(CURVE, logn, False)
         if name == "smvp_rows":
-            R = (1 << logn) // cfg.columns
-            G = r["launched"]["threads_per_lane"]
-            entry[f"depth_floor_ms{sfx}"] = R * lat["scan_step_ms"][G]
+            entry[f"depth_floor_ms{sfx}"] = run["rows"]["floor_ms"]
+            entry[f"depth_floor_ms_rows_R{sfx}"] = run["rows"]["floor_R_ms"]
+            entry[f"longest_run{sfx}"] = run["rows"]["longest_run"]
         else:
             entry[f"depth_floor_ms{sfx}"] = run["stitch_floor_ms"]
             entry[f"levels_ran{sfx}"] = run["stitch"]["levels_ran"]
@@ -4112,25 +4311,50 @@ def smvp_entry(entry: dict, name: str, twin: dict, lat: dict) -> dict:
 
 
 def run_all(card: str, t_start: float, resources: dict, sass: dict) -> int:
-    """Phases 3 to 19."""
+    """Phases 3 to 19; `[phases]` prints the seconds each took, against
+    the run's time limit."""
+    seconds = {}
+
+    def timed_phase(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return out
+
     warm_plain(CURVE)
-    checks = {logn: check_size(logn, card) for logn in SIZES}
-    runs = {logn: main_path(CURVE, logn, card) for logn in SIZES}
-    runs_glv = {logn: main_path(CURVE, logn, card, glv=True)
-                for logn in SIZES}
-    sched_ms, sched_launches = schedule_run(card)
-    lat = latency(CURVE, card, runs[max(SIZES)][3])
-    lanes_ms = lane_sweep(CURVE, card)
-    affine = affine_check(CURVE, min(SIZES), card, glv=False)
-    affine_glv = affine_check(CURVE, min(SIZES), card, glv=True)
-    affine_big = affine_full(CURVE, AFFINE_LOGK, card)
-    rests = {logn: rest_split(logn) for logn in SIZES}
-    large = large_phase(card)
-    profiles = {c.name: run_profile(c, sizes, card) for c, sizes in PROFILES}
-    shard_run = sharded_phase(card)
-    twin = twin_phase(card, lat)
-    cpu_checks(checks[max(SIZES)]["pbpr_edges"], card)
-    host = host_phases(card)
+    checks = timed_phase("check_size", lambda: {
+        logn: check_size(logn, card) for logn in SIZES})
+    runs = timed_phase("main_path", lambda: {
+        logn: main_path(CURVE, logn, card) for logn in SIZES})
+    runs_glv = timed_phase("main_path glv", lambda: {
+        logn: main_path(CURVE, logn, card, glv=True) for logn in SIZES})
+    sched_ms, sched_launches = timed_phase("schedule",
+                                           lambda: schedule_run(card))
+    lat = timed_phase("latency", lambda: latency(CURVE, card,
+                                                 runs[max(SIZES)][3]))
+    lanes_ms = timed_phase("scan-lanes", lambda: lane_sweep(CURVE, card))
+    affine, affine_glv, affine_big = timed_phase("affine", lambda: (
+        affine_check(CURVE, min(SIZES), card, glv=False),
+        affine_check(CURVE, min(SIZES), card, glv=True),
+        affine_full(CURVE, AFFINE_LOGK, card)))
+    rests = timed_phase("rest", lambda: {logn: rest_split(logn)
+                                         for logn in SIZES})
+    large = timed_phase("large", lambda: large_phase(card))
+    started = cpu_checks_start(checks[max(SIZES)]["pbpr_edges"])
+    try:
+        profiles = timed_phase("profiles", lambda: {
+            c.name: run_profile(c, sizes, card) for c, sizes in PROFILES})
+        shard_run = timed_phase("sharded", lambda: sharded_phase(card))
+        twin = timed_phase("twin", lambda: twin_phase(card, lat))
+        # the wait for the CPU's plain versions, if they are not done
+        timed_phase("cpu_checks", lambda: cpu_checks(started, card))
+    finally:
+        if started is not None:
+            started[0].shutdown(cancel_futures=True)
+    host = timed_phase("host", lambda: host_phases(card))
+    print(f"[phases] seconds by phase {seconds}, "
+          f"{time.perf_counter() - t_start:.1f} s since the start [{card}]",
+          flush=True)
 
     for logn in SIZES:
         kern_ms = where_line("where", logn, runs[logn][0],

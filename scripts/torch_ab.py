@@ -77,6 +77,18 @@ runs only the 2^16 part, in turns as above (`small`), on BN254_S12:
   - the MSM end to end without GLV and with it, as `chip_smoke.py` times
     it, the median of `SMALL_REPS` runs, and again cut into its parts
     (`msm_parts`).
+
+    python3 scripts/torch_ab.py --rows parent . . parent
+
+runs only, in turns as above (`rows`): `smvp_rows` on the first window
+group of the XLA path's BN254_S12 2^16 and 2^20 calls and its
+BLS12_377_S12 2^14 call (captured by the checkout's `twin_user_call`);
+at BN254_S12 and BLS12_377_S12, `batch_inverse` on K = 2^20 - 3 points'
+Z plane, then the first one, two and three launches of its plan alone
+(the differences are each launch's time), and on one element (the
+root's chain); `to_affine` on the 2^16 window sums; all timed as the
+kernels above; the XLA path end to end at BN254_S12 2^16 and 2^20, as
+`chip_smoke.py` times it.
 """
 
 import os
@@ -424,13 +436,96 @@ def one(root: str) -> None:
         print(f"[ab] {root} {line}", flush=True)
 
 
+def rows(root: str) -> None:
+    """The --rows part: the XLA path's row walk and the product tree, and
+    the XLA path end to end, as the checkout runs them."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    import tpu_msm_torch
+    from tpu_msm_torch import _build, to_affine
+    from tpu_msm_torch.constants import BLS12_377_S12, BN254_S12
+    from tpu_msm_torch.cuzk import kernels
+
+    def timed(label, curve, fn) -> str:
+        ms = cs.cuda_ms(fn, 5)
+        line = f"{label} {ms:.4f} ms back to back"
+        if ms < cs.QUEUE_BELOW_MS:
+            q = cs.queued_ms(fn, cs.QUEUE_REPS, lambda: cs.busy(curve))
+            line += f", {q:.4f} ms queued"
+        return line
+
+    out = []
+    # the row walk on the XLA path's first window group, in place
+    for curve, logn in ((BN254_S12, 16), (BN254_S12, 20),
+                        (BLS12_377_S12, 14)):
+        seen = cs.twin_user_call(curve, logn, False, "",
+                                 capture=True)["seen"]
+        _, args, kw, _ = next(v for v in seen.values()
+                              if v[0] == "smvp_rows")
+        out.append(timed(f"smvp_rows twin {curve.name} 2^{logn} "
+                         f"{tuple(args[1].shape)} C={args[4]}", curve,
+                         lambda: kernels.smvp_rows(*args, **kw)))
+        del seen, args
+    # the tree: batch_inverse on the Z plane of K points, its launches one
+    # at a time, and on one element (the root's chain and little else)
+    K = AFFINE_K
+    for curve in (BN254_S12, BLS12_377_S12):
+        name = curve.name
+        pts = torch.from_numpy(affine_inputs(curve, K)).cuda()
+        z = pts[2].contiguous()
+        out.append(timed(f"batch_inverse {name} K={K}", curve,
+                         lambda: tpu_msm_torch.batch_inverse(z, curve)))
+        L, w = curve.num_limbs, curve.log_limb_size
+        geo = kernels.batch_inverse_geometry(K)
+        flat, res = z.reshape(L, -1).contiguous(), torch.empty_like(z)
+        zero = torch.empty(K, dtype=torch.uint8, device="cuda")
+        scratch = torch.empty((-(-L * w // 32), geo.scratch_nodes),
+                              dtype=torch.int32, device="cuda")
+        consts = kernels._affine_consts(curve)
+        lib = _build.library()
+        stream = torch.cuda.current_stream().cuda_stream
+        for i, ln in enumerate(geo.launches):
+            def launch(upto=i):
+                for ln_ in geo.launches[:upto + 1]:
+                    lib.msm_batch_inverse(
+                        L, w, flat.data_ptr(), K, res.data_ptr(),
+                        zero.data_ptr(), scratch.data_ptr(), geo.Kp, ln_.lo,
+                        ln_.n, ln_.d, ln_.roles, ln_.blocks,
+                        ctypes.addressof(consts), len(consts), stream)
+            out.append(timed(f"batch_inverse {name} K={K} launches 1 to "
+                             f"{i + 1} (roles {ln.roles})", curve, launch))
+        one = z[:, :1].contiguous()
+        out.append(timed(f"batch_inverse {name} K=1", curve,
+                         lambda: tpu_msm_torch.batch_inverse(one, curve)))
+        del pts, z, flat, res, scratch
+        g = cs.capture_inputs(curve, 16, False)["pbpr_full"][3][0]
+        out.append(timed(f"to_affine {name} n=2^16 window sums "
+                         f"{tuple(g.shape)}", curve,
+                         lambda: to_affine(g, curve)))
+        del g
+    for logn in (16, 20):
+        ms, _ = cs.timed_runs(cs.twin_config(BN254_S12, logn, False), logn,
+                              "twin", "")
+        out.append(f"twin 2^{logn} {ms:.2f} ms")
+    for line in out:
+        print(f"[ab] {root} {line}", flush=True)
+
+
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] in ("--one", "--one-small"):
-        (one if sys.argv[1] == "--one" else small)(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] in ("--one", "--one-small",
+                                             "--one-rows"):
+        {"--one": one, "--one-small": small,
+         "--one-rows": rows}[sys.argv[1]](sys.argv[2])
         return 0
     mode = "--one"
-    if len(sys.argv) > 1 and sys.argv[1] == "--small":
-        mode = "--one-small"
+    if len(sys.argv) > 1 and sys.argv[1] in ("--small", "--rows"):
+        mode = "--one-" + sys.argv[1][2:]
         del sys.argv[1]
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -442,7 +537,7 @@ def main() -> int:
     for root in sys.argv[1:]:
         subprocess.run([sys.executable, os.path.abspath(__file__), mode,
                         root], check=True)
-    if mode == "--one-small":
+    if mode != "--one":
         return 0
     # the multiply's instructions in each checkout's own build, counted by
     # this checkout's chip_smoke.py

@@ -7,7 +7,7 @@ the kernel's threads run it: the block's leaves into its stage in rounds
 of T neighbours (leaf q T + t on thread t), each thread's register
 subtree from the stage in the kernel's loop order (its leaves 2^d t + 2h
 + j, a node of level lo + 1 as j closes a pair, of level lo + 2 as h
-does), the block's shared levels, the root's chain on thread 0 (a
+does), the block's shared levels, the root's chain on warp 0 (a
 squaring a bit of p - 2 from the top, a product where the bit is set),
 then the way down: the stage loaded again where the launch did not go
 up, the shared levels, each child's inverse from its parent's and its
@@ -51,7 +51,7 @@ def _chain(curve, root: tuple) -> torch.Tensor:
 
 
 def chain_of(curve):
-    """The root's chain as thread 0 runs it, from the Montgomery one.
+    """The root's chain as warp 0 runs it, from the Montgomery one.
     Cached by the root's limbs: every split of one input has one root,
     and a chain of rows multiplies takes seconds here."""
     return lambda root: _chain(curve, tuple(root.reshape(-1).tolist()))

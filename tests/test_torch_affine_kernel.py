@@ -221,13 +221,15 @@ def test_to_affine_cpu_path_and_refusals(monkeypatch):
                          ids=lambda c: c.name)
 def test_affine_consts_layout(curve):
     """Words of TreeConsts<L, W> (csrc/batch_inv.cuh): WideConsts (NF
-    words of p, n0, N of R^2), R mod p and p - 2 in N words, the bit
-    length."""
+    words of p, n0, N of R^2), R mod p, p - 2 and the warp multiply's
+    -p^-1 mod 2^(32 N) in N words, the bit length."""
     bits = curve.num_limbs * curve.log_limb_size
     n, nf = -(-bits // 32), bits // 32
     words = kernels._affine_consts_host(curve)
-    assert len(words) == nf + 1 + 3 * n + 1
+    assert len(words) == nf + 1 + 4 * n + 1
     val = lambda ws: sum(v << (32 * i) for i, v in enumerate(ws))
     assert val(words[nf + 1 + n:][:n]) == curve.r_mod_p
     assert val(words[nf + 1 + 2 * n:][:n]) == curve.p - 2
+    assert (val(words[nf + 1 + 3 * n:][:n]) * curve.p + 1) % (
+        1 << (32 * n)) == 0
     assert words[-1] == (curve.p - 2).bit_length()

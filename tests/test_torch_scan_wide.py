@@ -241,6 +241,58 @@ def test_scan_step_race_check_fires(G, drop):
         step.run(m, x2, y2, neg, drop=(drop,))
 
 
+class RunStep(ScanStep):
+    """The same step on csrc/scan_lane.cuh `RunMem`, the row walk's
+    (csrc/smvp_rows.cu) 14 segments: T's six in the places of z1, the
+    row, the two sums and one more, P after them."""
+
+    def __init__(self, curve, G):
+        super().__init__(curve, G)
+        S = self.S
+        self.Z1, self.X2, self.Y2, self.U, self.V = (2 * S, 3 * S, 4 * S,
+                                                      5 * S, 6 * S)
+        self.T, self.P, self.words = 2 * S, 8 * S, 14 * S
+
+
+@pytest.mark.parametrize("G", tk.SCAN_THREADS_PER_LANE)
+@pytest.mark.parametrize("name", NAMES)
+def test_run_step_is_pmadd_rows(name, G):
+    """The row walk's step on RunMem, whose T overlays words that level 1
+    reads: the same sums as pmadd_rows, and no word that one thread
+    writes is read by another between two barriers (the check of
+    `run`)."""
+    curve = CURVES[name]
+    n = 24
+    p1, x2, y2, neg = step_inputs(curve, np.random.default_rng(4), n)
+    step = RunStep(curve, G)
+    assert step.words == 14 * (curve.num_limbs | 1)
+    got = step.run(step.load(p1), x2, y2, neg)
+    y = np.where(neg, limbs([2 * curve.p], curve) - y2, y2)
+    t = torch.from_numpy
+    want = rows.pmadd_rows(rows.ProjRows(*map(t, p1)), t(x2), t(y), curve)
+    assert np.array_equal(got, torch.stack(tuple(want)).numpy())
+    # and two steps in a row, the second from the first's sum
+    x3, y3 = np.roll(x2, 1, axis=1), np.roll(y2, 1, axis=1)
+    m = step.load(p1)
+    step.run(m, x2, y2, neg)
+    got2 = step.run(m, x3, y3, neg)
+    y3s = np.where(neg, limbs([2 * curve.p], curve) - y3, y3)
+    want2 = rows.pmadd_rows(want, t(x3), t(y3s), curve)
+    assert np.array_equal(got2, torch.stack(tuple(want2)).numpy())
+
+
+@pytest.mark.parametrize("drop", [0, 1, 2, 3])
+@pytest.mark.parametrize("G", tk.SCAN_THREADS_PER_LANE)
+def test_run_step_race_check_fires(G, drop):
+    """On RunMem too, leaving out one of the step's warp barriers fails
+    the check."""
+    curve = CURVES["tiny62"]
+    p1, x2, y2, neg = step_inputs(curve, np.random.default_rng(6), 6)
+    step = RunStep(curve, G)
+    with pytest.raises(AssertionError):
+        step.run(step.load(p1), x2, y2, neg, drop=(drop,))
+
+
 def scan_replay(table: np.ndarray, pay: np.ndarray, curve, C: int,
                 G: int) -> np.ndarray:
     """csrc/prefix_scan.cu on the (n, 2L) int16 table and (Wg, n) payload:

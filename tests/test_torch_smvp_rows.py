@@ -8,22 +8,27 @@ infinity) and the lanes' trailing sums, bit for bit.
 Cases at TINY62 and BN254_S12: random digits; every digit equal (one run
 across every column of a window); every digit 0; every position its own
 run; R = 1; C = 1; Wg > 1 with different keys in each window; digits at
-+-2^(s-1), the top slot; the GLV digits of `cuzk/glv.apply_glv`. On the
-same cases the schedule of csrc/smvp_rows.cu replayed on every lane at
-once (`kernel_replay`: the key of step r + 1 read with its payload, the
-mixed add skipped at a run start, a run's sum written by the step after
-it, the last row against the next column's first key), so the kernel's
-writes are checked before the card checks its bits. Then
-`bucket_accumulate` whole on those cases against the function it was
-(`old_bucket_accumulate`), `bucket_sort`'s payload against the stable
-sort it replaced, `smvp_rows_geometry`, the wrapper's launch against a
-fake library and its refusals, and the launch counts of
-`_windows_device` by group. No JAX: tests/test_torch_twin*.py hold
-`bucket_accumulate` and `_windows_device` against the JAX functions."""
++-2^(s-1), the top slot; runs of chosen lengths (`RUNS`: over several
+columns, a column's last run going on into the next); the GLV digits of
+`cuzk/glv.apply_glv`. On the same cases the lanes of csrc/smvp_rows.cu
+replayed (`kernel_replay`: a lane a column, the point itself at a run
+start and the mixed add elsewhere, a sum written where the next key in
+global order differs, the trailing sum after a column's last row, every
+row walked once and every slot written once), so the kernel's writes are
+checked before the card checks its bits. Then `bucket_accumulate` whole
+on those cases against the function it was (`old_bucket_accumulate`),
+`bucket_sort`'s payload against the stable sort it replaced,
+`smvp_rows_geometry`, `smvp_rows_smem` and `chip_smoke.longest_run`,
+the wrapper's launch against a fake library and its refusals, and the
+launch counts of `_windows_device` by group.
+No JAX: tests/test_torch_twin*.py hold `bucket_accumulate` and
+`_windows_device` against the JAX functions."""
 
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from tpu_msm_torch import _build
 from tpu_msm_torch import constants as tc
@@ -124,53 +129,51 @@ def old_bucket_accumulate(xs_m, ys_m, digits, cfg):
 
 
 def kernel_replay(pts_rows, pay, skeys, curve, C, B):
-    """csrc/smvp_rows.cu's schedule on every lane at once: lane (w, c)
-    holds `key` (row r's) and `prev` (row r - 1's); at row r a start
-    (r = 0 or key != prev) first writes the sum of the run that ended at
-    r - 1 into bucket[prev], then restarts at the row; other rows add it;
-    after the last row the sum goes to bucket[prev] unless the next
-    column's first key (-1 after the last column) goes on with it. Keys
-    outside [0, B + 1) are written nowhere."""
+    """csrc/smvp_rows.cu's lanes, every lane at once: lane f = wl C + c
+    walks rows 0 .. R - 1 of column c of window wl, the point itself at a
+    run start (row 0, or a key other than the row above's), a mixed add
+    at every other row. Where the next key in global order (row r + 1's;
+    after the last row the next column's first key, -1 after the last
+    column) differs, the sum goes into bucket[key] if the key is in
+    [0, B + 1); after the column's last row, into trailing. Checks that
+    every slot is written at most once. Returns (bucket, trailing)."""
     L = curve.num_limbs
     Wg, n = pay.shape
     R = n // C
     B2 = B + 2
-    col0 = torch.arange(C) * R
+    keys = skeys.long()
+    F = Wg * C
+    wl, c = torch.arange(F) // C, torch.arange(F) % C
     bucket = kernels.inf_stacked(curve, (Wg, B2))
-    one = rows.mont_one_rows(curve, torch.zeros((L, Wg, C), dtype=I32))
-
-    def store(mask, at, pt):
-        w, c = mask.nonzero(as_tuple=True)
-        k = at[w, c].long()
-        ok = (k >= 0) & (k < B2 - 1)
-        w, c, k = w[ok], c[ok], k[ok]
-        assert len(set(zip(w.tolist(), k.tolist()))) == len(k)
-        bucket[:, :, w, k] = torch.stack(list(pt))[:, :, w, c]
-
-    key, prev, state = skeys[:, col0], None, None
+    written = torch.zeros((Wg, B2), dtype=torch.int64)
+    one = rows.mont_one_rows(curve, torch.zeros((L, F), dtype=I32))
+    state = rows.ProjRows(one, one, one)
+    prev = None
     for r in range(R):
-        start = (torch.ones_like(key, dtype=torch.bool) if r == 0
-                 else key != prev)
-        if r:
-            store(start, prev, state)
-        v = pay[:, col0 + r]
-        row = pts_rows[(v >> 1).long()].to(I32).movedim(-1, 0)  # (2L, Wg, C)
+        pos = c * R + r
+        v = pay[wl, pos]
+        row = pts_rows[(v >> 1).long()].to(I32).T                # (2L, F)
         x, y = row[:L], row[L:]
         y = torch.where((v & 1) != 0, rows.neg_rows(y, curve, 2), y)
-        restart = rows.ProjRows(x, y, one)
-        if r == 0:
-            state = restart
-        else:
-            summed = rows.pmadd_rows(state, x, y, curve)
-            state = rows.ProjRows(*(torch.where(start, a, b)
-                                    for a, b in zip(restart, summed)))
-        prev = key
+        k = keys[wl, pos]
+        start = (torch.ones(F, dtype=torch.bool) if prev is None
+                 else k != prev)
+        summed = rows.pmadd_rows(state, x, y, curve)
+        state = rows.ProjRows(*(torch.where(start, a, b) for a, b in
+                                zip(rows.ProjRows(x, y, one), summed)))
         if r + 1 < R:
-            key = skeys[:, col0 + r + 1]
-    after = torch.cat([skeys[:, col0[1:]],
-                       torch.full((Wg, 1), -1, dtype=skeys.dtype)], dim=-1)
-    store(prev != after, prev, state)
-    return bucket, torch.stack(list(state))
+            nxt = keys[wl, pos + 1]
+        else:
+            nxt = torch.where(c + 1 < C, keys[wl, torch.clamp(pos + 1,
+                                                            max=n - 1)], -1)
+        out = (nxt != k) & (k >= 0) & (k < B2 - 1)
+        for f in out.nonzero().flatten().tolist():
+            written[wl[f], k[f]] += 1
+            bucket[:, :, wl[f], k[f]] = torch.stack(list(state))[:, :, f]
+        prev = k
+    assert int(written.max()) <= 1
+    trailing = torch.stack(list(state)).reshape(3, L, Wg, C)
+    return bucket, trailing
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +213,18 @@ def case_digits(kind, Wg, n, B, rng):
         d = rng.choice([-B, B, 0, 1, B - 1], (Wg, n))
         d[:, : n // 2] = -B
         return d
+    if kind == "runs":                      # runs of chosen lengths
+        # sorted, each key k + 1 repeated RUNS[k] times: runs that cross
+        # several columns, runs of one row between them
+        d = np.repeat(np.arange(1, len(RUNS) + 1), RUNS)[:n]
+        d = np.concatenate([d, np.full(n - len(d), len(RUNS) + 1)])
+        d = np.stack([rng.permutation(d) for _ in range(Wg)])
+        return np.minimum(d, B) * rng.choice([-1, 1], (Wg, n))
     raise KeyError(kind)
+
+
+# The run lengths of the "runs" keys, in sorted order.
+RUNS = [1, 13, 2, 1, 9, 1, 1, 21, 3, 5, 1, 17, 4, 1, 1, 7]
 
 
 # (name, kind, Wg, n, C, window size)
@@ -228,6 +242,9 @@ CASES = [
     ("bn254_s12", "own_runs", 1, 24, 8, 6),
     ("bn254_s12", "random", 2, 8, 8, 4),         # R = 1
     ("bn254_s12", "top", 2, 12, 1, 4),           # C = 1
+    ("tiny62", "runs", 2, 96, 8, 6),             # R = 12: runs over columns
+    ("tiny62", "runs", 1, 96, 4, 6),             # R = 24
+    ("bn254_s12", "runs", 1, 48, 4, 6),          # R = 12
 ]
 IDS = [f"{c[0]}-{c[1]}-R{c[3] // c[4]}-C{c[4]}" for c in CASES]
 
@@ -336,23 +353,45 @@ def test_bucket_sort_payload_is_the_stable_sort(seed):
     assert pay.dtype == I32 and torch.equal(pay, want)
 
 
-@pytest.mark.parametrize("lanes,sms,L", [(8192, 132, 22), (8192, 132, 32),
-                                         (8192, 132, 21), (2048, 132, 22),
-                                         (131072, 132, 22), (1, 1, 6),
-                                         (333, 7, 6)])
-def test_geometry(lanes, sms, L):
-    """prefix_scan's rule and shared bytes: G = 2 at 8,192 lanes on 132
-    SMs up to L = 22 (128 blocks of 64 lanes), G = 6 otherwise."""
-    geo = kernels.smvp_rows_geometry(lanes, sms, L)
-    G, blocks, per_block = kernels.prefix_scan_geometry(lanes, sms, None, L)
-    assert geo == (G, blocks, per_block,
-                   kernels.prefix_scan_smem(L, G).shared_bytes)
-    assert blocks * per_block >= lanes > (blocks - 1) * per_block
-    if (lanes, sms) == (8192, 132):
-        assert geo.threads_per_lane == (2 if L <= 22 else 6)
-    assert geo.lanes_per_block == 4 * (32 // geo.threads_per_lane)
+@pytest.mark.parametrize("lanes,L,blocks", [
+    (8192, 22, 1639), (16384, 22, 3277), (512, 22, 103), (8192, 32, 1639),
+    (1, 6, 1), (5, 6, 1), (6, 30, 2), (2048, 21, 410)])
+def test_geometry(lanes, L, blocks):
+    """A lane a column, one warp of 5 lanes a block, as many blocks as
+    the columns fill; the shared bytes of `smvp_rows_smem`."""
+    geo = kernels.smvp_rows_geometry(lanes, L)
+    assert geo == (blocks, 5, kernels.smvp_rows_smem(L))
+    assert (blocks - 1) * 5 < lanes <= blocks * 5
+    for bad in ((0, L), (lanes, 0)):
+        with pytest.raises(ValueError):
+            kernels.smvp_rows_geometry(*bad)
+
+
+@pytest.mark.parametrize("L,shared", [(22, 7340), (21, 6740), (32, 10540),
+                                      (30, 9900), (6, 2220)])
+def test_smem(L, shared):
+    """Each lane: a double buffer of its 4 L-byte row and 14 segments of
+    L | 1 words padded to an odd count (RunMem), a block one warp of 5
+    lanes: 1,468 bytes a lane at L = 22, against prefix_scan's 1,932 (19
+    segments and a payload buffer)."""
+    assert kernels.smvp_rows_smem(L) == shared
+    assert shared == 5 * (8 * L + 4 * (14 * (L | 1) | 1))
+    if L == 22:
+        assert shared // 5 == 1468
+        assert kernels.prefix_scan_smem(L, 6).shared_bytes // 20 == 1932
     with pytest.raises(ValueError):
-        kernels.smvp_rows_geometry(0, sms, L)
+        kernels.smvp_rows_smem(0)
+
+
+def test_longest_run():
+    """chip_smoke.longest_run: the longest run inside one column, a run
+    that goes on into the next column counted in each apart."""
+    k = torch.tensor([[1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3]], dtype=I32)
+    assert chip_smoke.longest_run(k, 1) == 5
+    assert chip_smoke.longest_run(k, 2) == 4         # 2 2 2 | 2 2 3 3 3 3
+    assert chip_smoke.longest_run(k, 4) == 3
+    assert chip_smoke.longest_run(torch.zeros((3, 8), dtype=I32), 2) == 4
+    assert chip_smoke.longest_run(torch.arange(8, dtype=I32)[None], 1) == 1
 
 
 class FakeLib:
@@ -362,8 +401,8 @@ class FakeLib:
         self.rc, self.calls = rc, []
 
     def msm_smvp_rows(self, L, w, rows_, pay, keys, bucket, trailing, Wg, C,
-                      R, n, B2, G, shared, consts, wide, stream):
-        self.calls.append((L, w, Wg, C, R, n, B2, G, shared))
+                      R, n, B2, blocks, shared, consts, wide, stream):
+        self.calls.append((L, w, Wg, C, R, n, B2, blocks, shared))
         return self.rc
 
 
@@ -387,10 +426,9 @@ def test_wrapper_launches_once(fake_card):
     pts_rows = torch.zeros((n, 2 * L), dtype=I16)
     pay = torch.zeros((Wg, n), dtype=I32)
     bucket, trailing = kernels.smvp_rows(pts_rows, pay, pay.clone(), c, C, B)
-    geo = kernels.smvp_rows_geometry(Wg * C, 132, L)
+    geo = kernels.smvp_rows_geometry(Wg * C, L)
     assert fake_card.calls == [(L, c.log_limb_size, Wg, C, R, n, B + 2,
-                                geo.threads_per_lane, geo.shared_bytes)]
-    assert geo.threads_per_lane == 2
+                                geo.blocks, geo.shared_bytes)]
     assert kernels.LAUNCHES["smvp_rows"] == 1
     assert kernels.LAUNCHED["smvp_rows"] == geo._asdict()
     assert len(_build.SIGNATURES["msm_smvp_rows"]) == 17

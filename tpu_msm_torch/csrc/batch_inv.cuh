@@ -23,15 +23,17 @@
 //
 // Bound on the H100: operations. Up, the tree takes a multiply an
 // element; down, two; the root's chain of 367 (BN254) or 559
-// (BLS12-377) dependent multiplies runs on one thread, about 0.19 ms at
-// BN254 that no other work can hide.
+// (BLS12-377) dependent multiplies, which no other work can hide, runs
+// on one thread (Tree::mul) up to N = 9 words and on one warp from N =
+// 12 (WarpMul: each multiply spread over the warp's lanes, a column of
+// the product a lane; `warp_chain`).
 // Design. A launch's blocks each own a subtree of 2^n leaves at level lo
 // (cuzk/kernels.py `batch_inverse_geometry` plans the launches). Each of
 // a block's T = 2^(n - d) threads builds the subtree of its 2^d
 // consecutive leaves (d <= kTreeRegLog) in registers, and the block runs
 // the n - d levels above in shared memory; the down-sweep walks the same
-// way back. A launch does the up-sweep (kTreeUp), the chain on thread 0
-// of its one block (kTreeRoot) and the down-sweep (kTreeDown). Up to
+// way back. A launch does the up-sweep (kTreeUp), the chain on thread
+// or warp 0 of its one block (kTreeRoot) and the down-sweep (kTreeDown). Up to
 // 2^kTreeBlockLog leaves a call is one launch of all three in one block.
 // Above, up-sweep launches of 2^kTreeBlockLog leaves a block go first,
 // level by level, then one launch of all three on the top levels, then
@@ -68,6 +70,7 @@ struct TreeConsts {
   WideConsts<L, W> wide;
   uint32_t one[Wide<L, W>::N];   // R mod p, words
   uint32_t e[Wide<L, W>::N];     // p - 2, words
+  uint32_t pinv[Wide<L, W>::N];  // -p^-1 mod 2^(32 N), words
   int32_t nbits;                 // bits of p - 2
 };
 
@@ -184,6 +187,270 @@ struct Tree {
   }
 };
 
+// Whether the root's chain runs on a warp (WarpMul) at N words: from N =
+// 12 (BLS12-377), where the warp's multiply is much the faster on an
+// H100; below, one thread's Tree::mul, whose multiply at N = 9 (BN254)
+// takes about as long as the warp's, which there only added its
+// exchanges and registers and made the chain slower (PERF.md, row 14).
+__host__ __device__ constexpr bool warp_chain(int N) { return N >= 12; }
+
+// The multiply of Tree::mul on one warp, for the root's chain: the same
+// function, r = (a b + M p) / R mod R with R = 2^(L W) and M = -a b p^-1
+// mod R, for a and b below R, so the same words (any exact REDC finds
+// this M). Lane k holds word k of each value (zero from N up), and a
+// multiply takes a in every lane and b's word in its lane:
+//   1. lane k sums column k of t = a b, a_i b_(k-i) over i, the low and
+//      the high words of the 32 x 32-bit products apart in 64 bits (three
+//      sums at once, then added; no carry flag, which would chain them);
+//   2. M = t p' mod R (p' = -p^-1 mod 2^(32 N)): the high sums moved up a
+//      lane and added give t = sum_k (w_k + 2^32 g_k) 2^(32 k) with w_k a
+//      word and g_k small (`fold`), and lane k sums the columns of that
+//      times p' below N, w_i p'_(k-i) and g_i p'_(k-1-i), p' a constant
+//      word a lane and product; `resolve` makes them words: the fold, the
+//      small carry moved up a lane, and the carries that last ripples
+//      through words of all ones found for every lane at once from two
+//      ballots (carry-lookahead on the lanes' bits); the top word cut to
+//      R;
+//   3. u = t + M p: t's columns of step 1 plus M_i p_(k-i), resolved;
+//      lane k of the result is word k of u / R: bits L W + 32 k .. of u,
+//      from the lanes NF + k and NF + k + 1, cut to R.
+// The lanes read each other's words through a small buffer in shared
+// memory (one store and a warp barrier a value; mostly broadcast loads),
+// which ran faster than the same moves by shuffles; only the folds' and
+// the resolves' moves up a lane are shuffles. Each multiply takes its
+// operands from the last one's u: its words in every lane, lane k's
+// words k - i. tests/test_torch_warp_mul.py replays it lane by lane in
+// numpy against mont_mul_rows. The columns and the carries take
+// 2 N + 2 <= 32 lanes.
+template <int L, int W>
+struct WarpMul {
+  using D = Wide<L, W>;
+  static constexpr int N = D::N, NF = D::NF, NP = D::NP, RB = D::RB;
+  static_assert(2 * N + 2 <= 32, "a word of t a lane");
+  static constexpr unsigned kAll = 0xffffffffu;
+
+  // a column: a + 2^32 b, the low and the high words of its products
+  // summed apart in 64 bits (no carry flag, so that the three sums of a
+  // column run at once)
+  struct Col {
+    uint64_t a, b;
+  };
+
+  // the lane's constant words: p_(k - i), p'_(k - i) and p'_(k - 1 - i),
+  // zero off p's NP words and p''s N
+  struct Lane {
+    uint32_t p[N], q[N], q1[N];
+  };
+
+  static __device__ __forceinline__ void lane_consts(
+      Lane& c, const TreeConsts<L, W>& C, int k) {
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+      c.p[i] = c.q[i] = c.q1[i] = 0;
+#pragma unroll
+      for (int j = 0; j < N; j++) {
+        if (k - i == j) {
+          if (j < NP) c.p[i] = C.wide.p[j];
+          c.q[i] = C.pinv[j];
+        }
+        if (k - 1 - i == j) c.q1[i] = C.pinv[j];
+      }
+    }
+  }
+
+  // s += x y
+  static __device__ __forceinline__ void mad(Col& s, uint32_t x, uint32_t y) {
+    const uint64_t p = static_cast<uint64_t>(x) * y;
+    s.a += static_cast<uint32_t>(p);
+    s.b += p >> 32;
+  }
+
+  // three sums of a column, added
+  static __device__ __forceinline__ Col sum3(const Col& x, const Col& y,
+                                             const Col& z) {
+    return Col{x.a + y.a + z.a, x.b + y.b + z.b};
+  }
+
+  static __device__ __forceinline__ uint64_t up64(uint64_t v, int d) {
+    const uint32_t lo = __shfl_up_sync(kAll, static_cast<uint32_t>(v), d);
+    const uint32_t hi = __shfl_up_sync(kAll, static_cast<uint32_t>(v >> 32),
+                                       d);
+    return (static_cast<uint64_t>(hi) << 32) | lo;
+  }
+
+  // lane k's w + 2^32 g = a_k + b_(k-1): the value sum_j col_j 2^(32 j)
+  // as sum_k (w_k + 2^32 g_k) 2^(32 k), w a word, g small
+  static __device__ __forceinline__ void fold(const Col& s, int k,
+                                              uint32_t& w, uint32_t& g) {
+    const uint64_t b = up64(s.b, 1);
+    const uint64_t v = s.a + (k < 1 ? 0 : b);
+    w = static_cast<uint32_t>(v);
+    g = static_cast<uint32_t>(v >> 32);
+  }
+
+  // word k of sum_j col_j 2^(32 j), col_j lane j's column
+  static __device__ __forceinline__ uint32_t resolve(const Col& s, int k) {
+    uint32_t w, g;
+    fold(s, k, w, g);
+    uint32_t gi = __shfl_up_sync(kAll, g, 1);
+    if (k < 1) gi = 0;
+    // w + gi: a carry out (then w is small), or w of all ones passes one
+    // on
+    const uint64_t v = static_cast<uint64_t>(w) + gi;
+    w = static_cast<uint32_t>(v);
+    const unsigned gen = __ballot_sync(kAll, (v >> 32) != 0);
+    const unsigned pass = __ballot_sync(kAll, w == 0xffffffffu);
+    // the carries into each lane: those of gen + (gen | pass) as bits
+    const unsigned x = gen | pass;
+    const unsigned in = (x + gen) ^ x ^ gen;
+    return w + ((in >> k) & 1u);
+  }
+
+  // The warp's words in shared memory, where every lane reads what it
+  // needs of the others' (one store and a warp barrier a value, then
+  // loads, most of them the same address in every lane: broadcasts):
+  // t's folded words and small carries, M's words, u's words.
+  struct alignas(16) Buf {
+    uint32_t w[32], g[32], m[32], u[32];
+  };
+
+  // every lane's copy of words 0 .. N - 1 of a published value: the
+  // same address in every lane, 16 bytes a load where they make one
+  static __device__ __forceinline__ void load(const uint32_t* src,
+                                              uint32_t (&dst)[N]) {
+#pragma unroll
+    for (int i = 0; i + 4 <= N; i += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + i);
+      dst[i] = v.x;
+      dst[i + 1] = v.y;
+      dst[i + 2] = v.z;
+      dst[i + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = N - N % 4; i < N; i++) dst[i] = src[i];
+  }
+
+  // lane k's word of a value into `to`, for every lane to read
+  static __device__ __forceinline__ void publish(uint32_t* to, uint32_t v,
+                                                 int k) {
+    to[k] = v;
+    __syncwarp();
+  }
+
+  // u = a b + M p at lane k's word: a's words in every lane, bs[i] =
+  // b_(k - i) (zero off b's N words); Tree::mul(a, b) is u / R mod R
+  // (`words`, `word_at` once u is published)
+  static __device__ __forceinline__ uint32_t mul(const uint32_t (&a)[N],
+                                                 const uint32_t (&bs)[N],
+                                                 const Lane& c, Buf& sb,
+                                                 int k) {
+    Col t3[3] = {};
+#pragma unroll
+    for (int i = 0; i < N; i++) mad(t3[i % 3], a[i], bs[i]);
+    const Col t = sum3(t3[0], t3[1], t3[2]);
+    // M = t p' mod R, from t = sum_i (w_i + 2^32 g_i) 2^(32 i)
+    uint32_t w, g;
+    fold(t, k, w, g);
+    sb.w[k] = w;
+    sb.g[k] = g;
+    __syncwarp();
+    uint32_t wv[N], gv[N];
+    load(sb.w, wv);
+    load(sb.g, gv);
+    Col m3[3] = {};
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+      mad(m3[i % 3], wv[i], c.q[i]);
+      mad(m3[(i + 1) % 3], gv[i], c.q1[i]);
+    }
+    uint32_t mk = resolve(sum3(m3[0], m3[1], m3[2]), k);
+    if (k >= N) mk = 0;
+    if constexpr (RB > 0) {
+      if (k == N - 1) mk &= (1u << RB) - 1;
+    }
+    publish(sb.m, mk, k);
+    uint32_t mv[N];
+    load(sb.m, mv);
+    // u = t + M p
+    Col u3[3] = {t, {}, {}};
+#pragma unroll
+    for (int i = 0; i < N; i++) mad(u3[(i + 1) % 3], mv[i], c.p[i]);
+    return resolve(sum3(u3[0], u3[1], u3[2]), k);
+  }
+
+  // word j of u / R mod R from u's published words: bits L W + 32 j ..
+  // of u, words NF + j and NF + j + 1, the top word cut to R; zero for j
+  // outside 0 .. N - 1. j may differ by lane: no branch, so the lanes
+  // stay together.
+  static __device__ __forceinline__ uint32_t word_at(const Buf& sb, int j) {
+    const int jj = min(max(j, 0), N - 1);
+    uint32_t r;
+    if constexpr (RB > 0) {
+      r = __funnelshift_r(sb.u[NF + jj], sb.u[NF + jj + 1], RB);
+      if (jj == N - 1) r &= (1u << RB) - 1;
+    } else {
+      r = sb.u[N + jj];
+    }
+    return static_cast<unsigned>(j) < static_cast<unsigned>(N) ? r : 0u;
+  }
+
+  // every lane's copy of the N words of u / R mod R
+  static __device__ __forceinline__ void words(const Buf& sb,
+                                               uint32_t (&a)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+      if constexpr (RB > 0) {
+        a[i] = __funnelshift_r(sb.u[NF + i], sb.u[NF + i + 1], RB);
+      } else {
+        a[i] = sb.u[N + i];
+      }
+    }
+    if constexpr (RB > 0) a[N - 1] &= (1u << RB) - 1;
+  }
+
+  // Fermat's chain over p - 2 on warp 0, rows.py fermat_inv's bits:
+  // from the Montgomery one, a squaring a bit from the top and a product
+  // with x where the bit is set, each Tree::mul's function on the
+  // operands of the one-thread chain. x: x's words; ebits: p - 2's words
+  // in shared memory; sb: the warp's buffer; returns the inverse's word
+  // k (zero from N up). Each multiply takes its operands straight from
+  // the last one's u: the words in every lane, and lane k's words
+  // k - i.
+  static __device__ __forceinline__ uint32_t fermat(
+      const uint32_t (&x)[N], const TreeConsts<L, W>& C,
+      const uint32_t* ebits, Buf& sb, int k) {
+    Lane c;
+    lane_consts(c, C, k);
+    uint32_t a[N], as[N], xs[N];
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+      a[i] = C.one[i];
+      as[i] = xs[i] = 0;
+#pragma unroll
+      for (int j = 0; j < N; j++) {
+        if (k - i == j) {
+          as[i] = C.one[j];
+          xs[i] = x[j];
+        }
+      }
+    }
+#pragma unroll 1
+    for (int i = C.nbits - 1; i >= 0; i--) {
+      publish(sb.u, mul(a, as, c, sb, k), k);      // a a
+      words(sb, a);
+      if ((ebits[i >> 5] >> (i & 31)) & 1) {
+        __syncwarp();
+        publish(sb.u, mul(a, xs, c, sb, k), k);    // (a a) x
+        words(sb, a);
+      }
+#pragma unroll
+      for (int j = 0; j < N; j++) as[j] = word_at(sb, k - j);
+      __syncwarp();
+    }
+    return word_at(sb, k);
+  }
+};
+
 // One launch of the tree. Ends<L, W> gives the leaves at level 0 and
 // takes their inverses:
 //   bool leaf(Args, C, K, f, w)     element f's canonical words into w,
@@ -290,8 +557,23 @@ __device__ __forceinline__ void tree_run(const TreeLaunch& P,
   }
 
   if (P.roles & kTreeRoot) {
-    // the root's inverse, on thread 0: rows.py fermat_inv's bits
-    if (t == 0) {
+    if constexpr (warp_chain(N)) {
+      // the root's inverse, on warp 0, lane k its word k
+      __shared__ typename WarpMul<L, W>::Buf wbuf;
+      if (t == 0) {
+#pragma unroll
+        for (int k = 0; k < N; k++) ebits[k] = C.e[k];
+      }
+      if (t < 32) {
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < N; k++) x[k] = S[up & 1][k][0];
+        const uint32_t ik = WarpMul<L, W>::fermat(x, C, ebits, wbuf, t);
+        __syncwarp();
+        if (t < N) S[up & 1][t][0] = ik;
+      }
+    } else if (t == 0) {
+      // the root's inverse, on thread 0: rows.py fermat_inv's bits
 #pragma unroll
       for (int k = 0; k < N; k++) {
         ebits[k] = C.e[k];

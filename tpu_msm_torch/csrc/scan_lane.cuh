@@ -14,7 +14,8 @@
 // pmadd_rows in the same order, and mul_wide is its mont_mul_rows bit for
 // bit on every pair of operands, so the sum is bit-identical to
 // pmadd_rows whatever G is. The gather of the next row runs ahead by
-// cp.async (RowPiece).
+// cp.async (RowPiece). prefix_scan lays the lane out as LaneMem,
+// smvp_rows as the shorter RunMem.
 #pragma once
 
 #include <type_traits>
@@ -62,11 +63,29 @@ struct LaneMem {
   static constexpr int STRIDE = WORDS | 1;   // odd: lanes on distinct banks
 };
 
+// The same words in 14 segments: the six of T take the places of z1, the
+// row and the sums, which no phase reads once level 1 is done, and one
+// segment more. pmadd_shared's phases keep it race-free: level 1 reads
+// them all before its barrier; the adds read only P, x1 and y1 and write
+// T; level 2 reads T and writes P; the last phase reads P and writes the
+// point. 14 segments let two blocks of 64 lanes share an SM where
+// LaneMem's 19 take one.
+template <int L>
+struct RunMem {
+  static constexpr int S = L | 1;
+  static constexpr int X1 = 0, Y1 = S;
+  static constexpr int T = 2 * S;                       // t3 t4 t1 yz z3 t0
+  static constexpr int Z1 = 2 * S, X2 = 3 * S, Y2 = 4 * S;
+  static constexpr int U = 5 * S, V = 6 * S;
+  static constexpr int P = 8 * S;                       // six products
+  static constexpr int WORDS = 14 * S;
+  static constexpr int STRIDE = WORDS | 1;
+};
+
 // Operands of product j of level 1, in the order of pmadd_rows:
 // x1 x2, y1 y2, (x1 + y1)(x2 + y2), y2 z1, x2 z1, z1 b3m.
-template <int L>
+template <class M>
 __device__ __forceinline__ int level1_a(int j) {
-  using M = LaneMem<L>;
   switch (j) {
     case 0: return M::X1;
     case 1: return M::Y1;
@@ -77,9 +96,8 @@ __device__ __forceinline__ int level1_a(int j) {
   }
 }
 
-template <int L>
+template <class M>
 __device__ __forceinline__ int level1_b(int j) {
-  using M = LaneMem<L>;
   switch (j) {
     case 0: return M::X2;
     case 1: return M::Y2;
@@ -107,18 +125,18 @@ __device__ __forceinline__ int level2_b(int j) {
 // out among the threads, a barrier of `mask` after each phase. Ends with
 // the new point in m and, with kStore, its int16 limbs stored to `o`
 // (element k at o[k * stride]); the caller synchronises the threads of
-// `mask` before the next step reads m.
-template <int L, int W, int G, bool kStore>
+// `mask` before the next step reads m. M: the lane's layout, LaneMem or
+// RunMem.
+template <int L, int W, int G, bool kStore, class M = LaneMem<L>>
 __device__ __forceinline__ void pmadd_shared(int32_t* m, int g, unsigned mask,
                                              int16_t* o, int64_t stride,
                                              const Consts<L>& K,
                                              const WideConsts<L, W>& KW) {
-  using M = LaneMem<L>;
   constexpr int S = M::S;
 #pragma unroll
   for (int k = 0; k < 6 / G; k++) {
     const int j = g + k * G;
-    mul_wide<L, W>(m + level1_a<L>(j), j == 5 ? K.b3m : m + level1_b<L>(j),
+    mul_wide<L, W>(m + level1_a<M>(j), j == 5 ? K.b3m : m + level1_b<M>(j),
                    m + M::P + j * S, KW);
   }
   __syncwarp(mask);

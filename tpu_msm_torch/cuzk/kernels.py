@@ -72,9 +72,9 @@ package's XLA path:
   smvp_rows          tpu_msm/cuzk/smvp.py:94-110, the      csrc/smvp_rows.cu
                      lax.fori_loop of bucket_accumulate
 
-It walks the rows of `cuzk/smvp.bucket_accumulate` on prefix_scan's lane
-(csrc/scan_lane.cuh); its plain version is the loop of torch ops on
-`ops/complete.pmadd` that the port ran before. One more takes the step
+It walks the rows of `cuzk/smvp.bucket_accumulate`, a column on a lane
+of prefix_scan's kind (csrc/scan_lane.cuh); its plain version is the
+loop of torch ops on `ops/complete.pmadd` that the port ran before. One more takes the step
 after it:
 
   wrapper            replaces                              source
@@ -1614,12 +1614,14 @@ def batch_inverse_geometry(K: int, threads_log: int = TREE_THREADS_LOG,
 
 def _affine_consts_host(curve: CurveParams) -> list:
     """The words of `TreeConsts<L, W>` (csrc/batch_inv.cuh): the
-    `WideConsts` of the multiply, R mod p and the exponent p - 2 in
-    ceil(L w / 32) words each, and the exponent's bit length."""
+    `WideConsts` of the multiply, R mod p, the exponent p - 2 and
+    -p^-1 mod 2^(32 n) (the warp multiply's) in n = ceil(L w / 32) words
+    each, and the exponent's bit length."""
     n = -(-curve.num_limbs * curve.log_limb_size // 32)
     e = curve.p - 2
-    return (_wide_consts_host(curve)
-            + _words(curve.r_mod_p, n) + _words(e, n) + [e.bit_length()])
+    pinv = -pow(curve.p, -1, 1 << (32 * n)) % (1 << (32 * n))
+    return (_wide_consts_host(curve) + _words(curve.r_mod_p, n)
+            + _words(e, n) + _words(pinv, n) + [e.bit_length()])
 
 
 @functools.lru_cache(maxsize=None)
@@ -2063,23 +2065,42 @@ def smvp_rows_plain(pts_rows: torch.Tensor, pay: torch.Tensor,
     return bucket, torch.stack(torch.broadcast_tensors(*carry))
 
 
+SMVP_THREADS_PER_LANE = 6
+"""Threads of a row-walk lane (csrc/smvp_rows.cu kG); a block is one warp
+of 32 // 6 = 5 lanes."""
+SMVP_LANES_PER_BLOCK = 32 // SMVP_THREADS_PER_LANE
+
+
 class SmvpGeometry(NamedTuple):
-    threads_per_lane: int
-    blocks: int
+    blocks: int               # a lane a column, one warp a block
     lanes_per_block: int
     shared_bytes: int
 
 
-def smvp_rows_geometry(lanes: int, sms: int, num_limbs: int = 22
-                       ) -> SmvpGeometry:
-    """One smvp_rows launch over `lanes` lanes of `num_limbs` limbs on a
-    card of `sms` SMs: a pure function, so the CPU tests can hold it. The
-    kernel runs prefix_scan's lane (csrc/scan_lane.cuh) on the same
-    shapes (Wg C lanes of R rows), so it takes `prefix_scan_geometry`'s
-    threads per lane and blocks and `prefix_scan_smem`'s shared bytes."""
-    G, blocks, per_block = prefix_scan_geometry(lanes, sms, None, num_limbs)
-    return SmvpGeometry(G, blocks, per_block,
-                        prefix_scan_smem(num_limbs, G).shared_bytes)
+def smvp_rows_smem(num_limbs: int) -> int:
+    """The dynamic shared bytes of a row-walk block: a pure function, so
+    the CPU tests can hold it; the launch refuses a count other than its
+    kernel's own (csrc/smvp_rows.cu `rows_smem_bytes`). A block is one
+    warp of 5 lanes, each with a double buffer of its row (4 L bytes) and
+    its state, 14 segments of L | 1 int32 words (csrc/scan_lane.cuh
+    RunMem) padded to an odd count."""
+    L = num_limbs
+    if L < 1:
+        raise ValueError(f"smvp_rows_smem: no block for L={L}")
+    return SMVP_LANES_PER_BLOCK * (2 * 4 * L + 4 * (14 * (L | 1) | 1))
+
+
+def smvp_rows_geometry(lanes: int, num_limbs: int = 22) -> SmvpGeometry:
+    """One smvp_rows launch over `lanes` columns (Wg C) of `num_limbs`
+    limbs: a pure function, so the CPU tests can hold it. A lane a
+    column, 5 lanes a one-warp block; the launch refuses another count of
+    blocks."""
+    if min(lanes, num_limbs) < 1:
+        raise ValueError("smvp_rows_geometry: lanes and num_limbs must be "
+                         ">= 1")
+    per_block = SMVP_LANES_PER_BLOCK
+    return SmvpGeometry(-(-lanes // per_block), per_block,
+                        smvp_rows_smem(num_limbs))
 
 
 def smvp_rows(pts_rows: torch.Tensor, pay: torch.Tensor, skeys: torch.Tensor,
@@ -2115,9 +2136,8 @@ def smvp_rows(pts_rows: torch.Tensor, pay: torch.Tensor, skeys: torch.Tensor,
     _need("smvp_rows", skeys, I32, 2)
     Wg, n = pay.shape
     R = n // C
-    geo = smvp_rows_geometry(Wg * C, _sm_count(pay.device), L)
-    if pts_rows.data_ptr() % prefix_scan_smem(L, geo.threads_per_lane
-                                              ).piece_bytes:
+    geo = smvp_rows_geometry(Wg * C, L)
+    if pts_rows.data_ptr() % prefix_scan_smem(L, 2).piece_bytes:
         raise ValueError("smvp_rows: the row table is not aligned to the "
                          "kernel's copy piece")
     bucket = inf_stacked(curve, (Wg, B + 2), pay.device)
@@ -2125,7 +2145,7 @@ def smvp_rows(pts_rows: torch.Tensor, pay: torch.Tensor, skeys: torch.Tensor,
     rc = _build.library().msm_smvp_rows(
         L, w, pts_rows.data_ptr(), pay.data_ptr(), skeys.data_ptr(),
         bucket.data_ptr(), trailing.data_ptr(), Wg, C, R, n, B + 2,
-        geo.threads_per_lane, geo.shared_bytes,
+        geo.blocks, geo.shared_bytes,
         _consts(curve, pay.device).data_ptr(),
         ctypes.addressof(_wide_consts(curve)), _stream(pay))
     _check("smvp_rows", rc)
