@@ -104,9 +104,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      in the first lanes, each edge lane also against the python-int
      split, the digits of the one `decompose_digits` against the plain
      version's, and `apply_glv` timed whole; then (`[schedule]`) the
-     largest size once more under SCHEDULE, a window group of 16 that
-     gives the scan 131,072 lanes and `col_prefix` several columns a
-     thread, EXACT, recorded and not made the default; and (`[latency]`)
+     largest size once more under SCHEDULE, the schedule of one window
+     a group that `static_config` gave from 2^18 points up before it
+     took one group of all windows (16 launches of each stage-3 kernel
+     over 8,192 lanes), EXACT, timed beside the static schedule; and
+     (`[latency]`)
      one `padd_batch` on 32 lanes, one `pdbl_batch` on 16 lanes, one
      `col_prefix` level, one scan step and one doubling on a single
      warp, one `pbpr_full` stage-1 step, scan level and doubling of its
@@ -166,8 +168,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      [scan-lanes] sweep; a [where] line for each size;
  10. `[sharded]`, the multi-device MSM (`tpu_msm_torch/parallel/sharded.py`)
      on BN254_S12 at 2^20, the same inputs, EXACT against the same
-     oracle: (1) `windows_device` at w = 2 and 4 window shards, every
-     w_index, in one process: the shards concatenated decode to the
+     oracle, each config from `sharded.sharded_config` (one group a
+     w-shard where the static schedule's one group would not split):
+     (1) `windows_device` at w = 2 and 4 window shards (4 groups of 4
+     windows), every w_index, in one process: the shards concatenated
+     decode to the
      unsharded window sums; `pbpr_full` launched at Wp_l = 8 and 4 as
      `pbpr_full_geometry` says; on the first shard at w = 4, `pbpr_full`
      and the first group's `prefix_scan`, `col_prefix`, `padd_batch` and
@@ -227,7 +232,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      times of phases 9 to 11 share the host with them);
  13. `[autotune]`: `utils/window.autotune` on BN254_S12 at 2^16 (the
      model's 36 candidates and the static default) and 2^20 (its 24,
-     the static default and SCHEDULE), runs=2, on inputs on the card,
+     the static default and SCHEDULE, one window a group), runs=2, on
+     inputs on the card,
      into the run's own cache file (main() points the cache's
      environment variable at a temporary file for the whole run, so no
      earlier phase reads a tuned schedule): each candidate's median, the
@@ -361,15 +367,18 @@ WRAPPER = {"glv_apply": "glv_rows"}
 # lanes) more comes to an SM above 2,640, 5,280 and 7,920 lanes, and a
 # second block of G = 2 (64 lanes) above 8,448; the launcher's rule
 # picks G = 2 from 7,921 to 8,448 at L <= 22: lane counts about those
-# edges, the default schedule's 8,192, and SCHEDULE's 131,072.
+# edges, SCHEDULE's 8,192, and the static schedule's 131,072 (one group
+# of 16 windows).
 LANE_SHAPES = ((1, 2048, 128), (1, 4096, 128), (1, 5632, 128),
                (1, 7424, 128), (1, 7920, 128), (1, 7936, 128),
                (1, 8192, 128), (1, 8448, 128), (1, 8704, 128),
                (2, 8192, 64), (16, 8192, 16))
-# A schedule for the largest size that the card's memory allows and the
-# default schedule does not use: all 16 windows in one group.
+# The old schedule from 2^18 points up, to time beside the static one:
+# one window a group (16 groups), as the JAX package runs it; since
+# `static_config` puts all windows in one group, it differs from it in
+# the group alone.
 SCHEDULE = dict(window_size=16, columns=8192, pbpr_threads=512,
-                subtask_group=16, max_points_per_pass=1 << 22)
+                subtask_group=1, max_points_per_pass=1 << 22)
 # name: (source, the TPU kernel it replaces, the path that launches it)
 SOURCES = {
     "encode_mont": ("tpu_msm_torch/csrc/encode_mont.cu",
@@ -803,8 +812,18 @@ def inputs(curve, logn: int):
     return _INPUTS[key]
 
 
+def with_glv(cfg: MSMConfig, glv: bool) -> MSMConfig:
+    """cfg with GLV on or off. A schedule of one window group keeps one
+    group under GLV: Wg its own num_windows (9 at s = 16), so that no
+    empty window is scanned."""
+    out = dataclasses.replace(cfg, glv=glv)
+    if glv and cfg.num_groups == 1:
+        out = dataclasses.replace(out, subtask_group=out.num_windows)
+    return out
+
+
 def config(curve, logn: int, glv: bool):
-    return dataclasses.replace(default_config(1 << logn, curve), glv=glv)
+    return with_glv(default_config(1 << logn, curve), glv)
 
 
 def stage2_chain(digits: torch.Tensor, B: int, Wg: int, C: int, R: int):
@@ -1207,8 +1226,8 @@ def ledger_ends(t: torch.Tensor, rng, curve, top_axis: int) -> None:
 
 # (Wg, C) of col_prefix's [edge] shapes: one column; a window of the
 # latency's width at Wg = 3; the 2^16 shape; (5, 64) with limbs at the
-# ledger's ends; (16, 8192), the SCHEDULE shape, more columns than
-# resident lanes.
+# ledger's ends; (16, 8192), the static schedule's from 2^18 points up,
+# more columns than resident lanes.
 COL_EDGES = ((1, 1), (3, 32), (4, 2048), (5, 64), (16, 8192))
 COL_ENDS = (5, 64)
 
@@ -2202,8 +2221,9 @@ def timed_runs(cfg: MSMConfig, logn: int, label: str, card: str,
 
 
 def schedule_run(card: str):
-    """The largest size under SCHEDULE: launch counts of one run, then
-    the timed runs. Recorded beside the default schedule, not the default."""
+    """The largest size under SCHEDULE, the old schedule of one window a
+    group: launch counts of one run, then the timed runs, beside the
+    static schedule's (phase 6)."""
     logn = max(SIZES)
     cfg = MSMConfig(curve=CURVE, **SCHEDULE)
     lanes = cfg.subtask_group * cfg.columns
@@ -2635,9 +2655,10 @@ def window_shards(card: str) -> dict:
     launch at Wp_l = Wp / w is the one `pbpr_full_geometry` gives; on the
     first shard at the largest w, pbpr_full and the first group's scan,
     column prefix and extraction adds are held against their plain
-    versions and timed."""
+    versions and timed. The config is `sharded.sharded_config` for the
+    largest w, which every w of SHARDED_W divides."""
     logn = SHARDED_LOGN
-    cfg = config(CURVE, logn, False)
+    cfg = sharded.sharded_config(1 << logn, max(SHARDED_W), CURVE)
     want = inputs(CURVE, logn)[4]
     pipe = get_pipeline(cfg, DEVICE)
     dev_in = sharded_inputs(logn)
@@ -2696,16 +2717,17 @@ def rank_spans(card: str) -> dict:
     spawns: for each mesh of SHARDED_MESHES, `windows_device` on rank 0's
     span of the 2^20 points (n / x of them, under the 2^20 schedule, as
     `ShardedMSMPipeline.window_sums` slices it) at its first window shard
-    (w_index 0 of w; at w = 2, pbpr_full at Wp_l = 8). Every kernel call
-    of the main path is kept by `spy` and held against its plain version
-    on the same inputs, then timed."""
+    (w_index 0 of w; at w = 2, pbpr_full at Wp_l = 8), under the
+    mesh's `sharded.sharded_config`. Every kernel call of the main path
+    is kept by `spy` and held against its plain version on the same
+    inputs, then timed."""
     logn = SHARDED_LOGN
-    cfg = config(CURVE, logn, False)
     dev_in = sharded_inputs(logn)
     targets = [(kernels, k) for k in MAIN]
     out = {}
     for shape in SHARDED_MESHES:
         x, w = shape["x"], shape.get("w", 1)
+        cfg = sharded.sharded_config(1 << logn, w, CURVE)
         span = [a[:, :a.shape[1] // x] for a in dev_in]
         with spy({}, targets) as seen:
             pipeline_cuda.windows_device(*span, cfg, w_shards=w, w_index=0)
@@ -2852,7 +2874,8 @@ def sharded_rank(rank: int, world: int, shape: dict, workdir: str, want,
                                 mesh_dim_names=tuple(shape))
         dev_in = [torch.from_numpy(np.load(os.path.join(
             workdir, f"{k}.npy"))).to(device) for k in ("xs", "ys", "hw")]
-        cfg = default_config(dev_in[0].shape[1], CURVE)
+        cfg = sharded.sharded_config(dev_in[0].shape[1], shape.get("w", 1),
+                                     CURVE)
         pipe = sharded.get_sharded_pipeline(cfg, mesh, device)
         kernels.reset_launches()
         windows = pipe.window_sums(*dev_in)
@@ -3074,8 +3097,7 @@ TWIN_TIMED_RUNS = 3
 
 
 def twin_config(curve, logn: int, glv: bool) -> MSMConfig:
-    return dataclasses.replace(default_config(1 << logn, curve), glv=glv,
-                               backend="xla")
+    return dataclasses.replace(config(curve, logn, glv), backend="xla")
 
 
 def twin_kernels(glv: bool) -> tuple:
@@ -3673,7 +3695,7 @@ def kernel_name(fn: str) -> str:
 # ---------------------------------------------------------------------------
 
 # (log2 n, extra configs beside the model's candidates): the static
-# default at both sizes, SCHEDULE at the larger.
+# default at both sizes, SCHEDULE (one window a group) at the larger.
 AUTOTUNE_LOGN = (16, 20)
 AUTOTUNE_RUNS = 2
 PROFILE_LOGN = 16
@@ -3972,7 +3994,7 @@ def multipass_phase(card: str) -> dict:
     scalars = preprocess.halfwords_to_ints(hw)
     out = dict(cpu_msm_s=native_s)
     for glv in (False, True):
-        cfg = dataclasses.replace(static_config(n, CURVE), glv=glv,
+        cfg = dataclasses.replace(with_glv(static_config(n, CURVE), glv),
                                   max_points_per_pass=MULTIPASS_PASS)
         kernels.reset_launches()
         ts = time.perf_counter()

@@ -6,8 +6,8 @@ profiles, on one card.
     python3 scripts/scan_threads.py
 
 For each profile (BN254_S12 and BLS12_377_S12 at every shape of SHAPES,
-BN254_S13 and BLS12_377_S13 at the default schedule's 8,192 lanes and
-`SCHEDULE`'s 131,072) it first holds every G of
+BN254_S13 and BLS12_377_S13 at a window's 8,192 lanes and
+the static schedule's one group of 131,072) it first holds every G of
 `kernels.SCAN_THREADS_PER_LANE` bit for bit against `prefix_scan_plain`
 at (Wg, C, R) = (3, 37, 5), then, on inputs made from a fixed seed
 (random 12- or 13-bit limbs, a permuted payload with random signs),

@@ -487,7 +487,8 @@ def test_col_prefix_replay_race_check_fires(drop):
 # ---------------------------------------------------------------------------
 
 # (Wg, C, sms, blocks an SM): the [edge] and main-path shapes of
-# chip_smoke.py (2^16, 2^20, SCHEDULE), the [latency] windows, small cards
+# chip_smoke.py (2^16, 2^20 at one group and at SCHEDULE's one window a
+# group), the [latency] windows, small cards
 GEO_SHAPES = [(1, 1, 132, 14), (1, 2, 132, 14), (3, 32, 132, 14),
               (4, 2048, 132, 14), (5, 64, 132, 14), (1, 8192, 132, 14),
               (16, 8192, 132, 14), (16, 8192, 132, 1), (5, 8192, 7, 3),
@@ -520,8 +521,9 @@ def test_col_prefix_geometry_covers_and_fits(name, Wg, C, sms, per_sm):
 
 
 def test_col_prefix_geometry_main_shapes():
-    """On 132 SMs at 14 resident blocks: 2^20 (8192 columns) one column a
-    lane; SCHEDULE (131,072) several, every resident block launched."""
+    """On 132 SMs at 14 resident blocks: a window of 8192 columns one
+    column a lane; the 16 windows of one group (131,072) several, every
+    resident block launched."""
     one = geometry(1, 8192, 132, 14, CURVES["bn254_s12"])
     assert one.blocks == 820 and one.columns_per_lane == 1
     many = geometry(16, 8192, 132, 14, CURVES["bn254_s12"])

@@ -122,8 +122,13 @@ def default_config(n: int, curve: CurveParams = BN254_S12) -> MSMConfig:
 
 
 def static_config(n: int, curve: CurveParams = BN254_S12) -> MSMConfig:
-    """Static window/shape schedule by input size (the JAX package's
-    schedule, `tpu_msm/config.py:174-194`; not yet retuned for the H100)."""
+    """Static window/shape schedule by input size: the JAX package's
+    schedule (`tpu_msm/config.py:174-194`), but for one window group
+    from 2^18 points up. There the TPU's schedule runs one window a group
+    (16 launches of each stage-3 kernel over 8,192 columns, each set by
+    its depth); on the H100 all of a call's windows go in one group, so
+    that `prefix_scan`, `col_prefix` and `extract_buckets` each launch
+    once over num_windows * 8,192 columns and fill the card (PERF.md)."""
     if n < (1 << 10):
         return MSMConfig(curve=curve, window_size=8, columns=32,
                          pbpr_threads=16, subtask_group=8)
@@ -133,6 +138,7 @@ def static_config(n: int, curve: CurveParams = BN254_S12) -> MSMConfig:
     if n < (1 << 18):
         return MSMConfig(curve=curve, window_size=13, columns=2048,
                          pbpr_threads=256, subtask_group=4)
-    return MSMConfig(curve=curve, window_size=16, columns=8192,
-                     pbpr_threads=512, subtask_group=1,
-                     max_points_per_pass=1 << 22)
+    cfg = MSMConfig(curve=curve, window_size=16, columns=8192,
+                    pbpr_threads=512, subtask_group=1,
+                    max_points_per_pass=1 << 22)
+    return dataclasses.replace(cfg, subtask_group=cfg.num_windows)

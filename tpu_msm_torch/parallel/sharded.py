@@ -24,6 +24,7 @@ rank's own device. A failed gather raises; nothing falls back.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence, Tuple
 
 import torch
@@ -31,7 +32,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import MSMConfig, default_config
-from ..constants import CurveParams
+from ..constants import BN254_S12, CurveParams
 from ..cuzk import kernels
 from ..cuzk.pipeline import JacInt, MSMPipeline, resolve_device
 
@@ -81,6 +82,20 @@ def _mesh_sizes(mesh: DeviceMesh) -> Tuple[int, int]:
                          "('x', 'w')")
     size = lambda d: mesh.size(names.index(d)) if d in names else 1
     return size("x"), size("w")
+
+
+def sharded_config(n: int, w: int, curve: CurveParams = BN254_S12
+                   ) -> MSMConfig:
+    """`default_config(n, curve)` for a mesh whose dim "w" has size `w`:
+    where w does not divide its window groups (from 2^18 points up the
+    static schedule runs all windows as one group), the windows split
+    into groups of ceil(num_windows / w), so that each w-shard runs its
+    windows as one group."""
+    cfg = default_config(n, curve)
+    if cfg.num_groups % w:
+        cfg = dataclasses.replace(cfg,
+                                  subtask_group=-(-cfg.num_windows // w))
+    return cfg
 
 
 def make_sharded_windows_fn(cfg: MSMConfig, mesh: DeviceMesh):
@@ -166,12 +181,13 @@ def sharded_msm(points: Sequence[Tuple[int, int]], scalars: Sequence[int],
                 curve: CurveParams | None = None, device="cuda") -> JacInt:
     """Multi-device variable-base MSM, the host API of
     `tpu_variable_base_msm`: raises on empty input, truncates to the
-    shorter length, picks the schedule from the total n. Every rank of
-    `mesh` calls it with the same inputs and gets the same result."""
+    shorter length, picks the schedule from the total n and the mesh
+    (`sharded_config`). Every rank of `mesh` calls it with the same
+    inputs and gets the same result."""
     if len(points) == 0 or len(scalars) == 0:
         raise ValueError("sharded_msm: empty input")
     n = min(len(points), len(scalars))
     points, scalars = points[:n], scalars[:n]
     if config is None:
-        config = default_config(n, curve) if curve else default_config(n)
+        config = sharded_config(n, _mesh_sizes(mesh)[1], curve or BN254_S12)
     return get_sharded_pipeline(config, mesh, device).msm(points, scalars)
